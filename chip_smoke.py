@@ -7,8 +7,8 @@ Drives the port (``src/repro_torch``) only; imports nothing of JAX or of the
 JAX package.  Phases, in order; any failure exits nonzero and prints no
 result:
 
-1. Build every kernel of the serving path from ``src/repro_torch/csrc`` with
-   nvcc for sm_90a, one nvcc per source, all started together.
+1. Build every kernel of the serving paths from ``src/repro_torch/csrc``
+   with nvcc for sm_90a, one nvcc per source, all started together.
 2. ``imc_mac`` against its plain version on the card, bit for bit: the
    demonstrator's shapes M in {4, 16, 64} x (K, N) in {(768, 768),
    (768, 3072), (3072, 768)}, a ragged shape, and the deep-K int32 case.
@@ -16,16 +16,32 @@ result:
    pools, window 0 and 16, rep 1 (the demonstrator) and rep 8 (qwen2.5-3b),
    sentinel blocks and an inactive slot; bounds f32 5e-6, bf16 1.6e-2 (one
    output ulp), int8 1e-2.
-4. ``Server`` on full-width ``imc-paper-110m`` (random weights from a fixed
-   seed): exact fabric, 4 slots, paged KV, block 16, buckets (16, 32, 64),
-   six requests of 7/16/33/12/5/40 prompt tokens and 16 new tokens each.
-   Both kernels' launch counters are zeroed just before and read just
-   after; each must be above 0.  The first request's prefill logits on the
-   card are held against the same weights run through the plain path on the
-   CPU (bound: 2e-2 of the largest |logit|).
-5. Each kernel timed at the main path's decode shapes (CUDA events), beside
-   its bound on an H100 SXM (3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16),
-   its plain version and one library call computing the same function.
+4. ``bitplane_mac`` against its plain version on the card, bit for bit:
+   the demonstrator's shapes at M in {4, 64}, a ragged shape, bits 4x8,
+   rows 16, and a detuned ``thr`` (equal to the plain version, and
+   different from the calibrated result).
+5. ``flash_attn`` against its plain version on the card: f32 and bf16,
+   window 0 and 16, rep 1 and 8, S in {16, 40, 64}; bounds f32 3e-6,
+   bf16 2e-2.
+6. The served paths, each on full-width ``imc-paper-110m`` (random weights
+   from a fixed seed), 4 slots, paged KV, block 16, buckets (16, 32, 64),
+   six requests of 7/16/33/12/5/40 prompt tokens and 16 new tokens each;
+   every kernel's launch counter is zeroed just before a path and read just
+   after:
+   a. ``exact`` fabric: ``imc_mac`` and ``paged_attn`` must launch.  The
+      first request's prefill logits on the card are held against the same
+      weights run through the plain path on the CPU (bound: 2e-2 of the
+      largest |logit|).
+   b. the paper's ``sim`` fabric with flash prefill: ``bitplane_mac``,
+      ``flash_attn`` and ``paged_attn`` must launch, ``imc_mac`` never.
+      On the card, ``sim`` prefill logits (flash off) must equal ``exact``'s
+      bit for bit.  ``sim`` + flash must lie within 2e-2 of the largest
+      |logit| of the plain path on the CPU with flash attention, and give
+      ``exact``'s top-1; its distance from ``exact`` (dense attention) is
+      printed beside the plain path's own flash-vs-dense distance.
+7. Each kernel timed at the main path's shapes (CUDA events), beside its
+   bound on an H100 SXM (3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16), its
+   plain version and one library call computing the same function.
 
 It prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
@@ -43,6 +59,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
 ATTN_ATOL = {"f32": 5e-6, "bf16": 1.6e-2, "int8": 1e-2}
+FLASH_ATOL = {"f32": 3e-6, "bf16": 2e-2}
+KERNELS = ("imc_mac", "paged_attn", "bitplane_mac", "flash_attn")
 LOGIT_RTOL = 2e-2
 PROMPTS = (7, 16, 33, 12, 5, 40)
 MAX_NEW = 16
@@ -78,9 +96,9 @@ def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    text = build.build_all(["imc_mac", "paged_attn"])
-    build.load("imc_mac")
-    build.load("paged_attn")
+    text = build.build_all(list(KERNELS))
+    for name in KERNELS:
+        build.load(name)
     dt = time.perf_counter() - t0
     log(text)
     log(f"[1] kernels built and loaded in {dt:.2f} s")
@@ -180,88 +198,257 @@ def phase_paged_attn(torch, dev):
     return max(worst.values()), worst
 
 
-def phase_server(torch, dev):
-    import numpy as np
+def phase_bitplane_mac(torch, dev):
+    from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
+                                                      bitplane_mac_torch,
+                                                      physics_thresholds)
 
-    from repro_torch.configs import get_config
+    g = torch.Generator(device=dev).manual_seed(3)
+    # (m, k, n, bits_a, bits_w, rows)
+    cases = [(m, k, n, 8, 8, 8) for m in (4, 64)
+             for k, n in ((768, 768), (768, 3072), (3072, 768))]
+    cases += [(33, 1030, 129, 8, 8, 8),  # ragged in M, K (a partial group), N
+              (16, 768, 768, 4, 8, 8),   # asymmetric precision
+              (4, 768, 768, 8, 8, 16),   # 16-row groups (physics decode)
+              (4, 100, 40, 8, 8, 16)]    # 16-row groups, ragged
+    worst = 0
+    for m, k, n, ba, bw, rows in cases:
+        ua = torch.randint(0, 1 << ba, (m, k), generator=g, device=dev,
+                           dtype=torch.int32)
+        uw = torch.randint(0, 1 << bw, (k, n), generator=g, device=dev,
+                           dtype=torch.int32)
+        out = bitplane_mac(ua, uw, bits_a=ba, bits_w=bw, rows=rows)
+        torch.cuda.synchronize()
+        plain = bitplane_mac_torch(ua, uw, bits_a=ba, bits_w=bw, rows=rows)
+        worst = max(worst, (out - plain).abs().max().item())
+        if not torch.equal(out, plain):
+            raise AssertionError(f"bitplane_mac differs from its plain version"
+                                 f" at {(m, k, n, ba, bw, rows)}")
+        if not torch.equal(out, (ua.double() @ uw.double()).to(torch.int32)):
+            raise AssertionError(f"bitplane_mac noise-free is not u_a @ u_w at"
+                                 f" {(m, k, n, ba, bw, rows)}")
+    # detuned comparator references: the decode must follow the thr data
+    good = physics_thresholds(8, dev)
+    detuned = torch.cat([torch.tensor([1.9], device=dev), good[:-1]])
+    for m, k, n in ((8, 16, 8), (4, 768, 768), (5, 20, 7)):
+        ua = torch.randint(0, 4, (m, k), generator=g, device=dev,
+                           dtype=torch.int32)
+        uw = torch.randint(0, 4, (k, n), generator=g, device=dev,
+                           dtype=torch.int32)
+        bad = bitplane_mac(ua, uw, detuned, bits_a=2, bits_w=2)
+        torch.cuda.synchronize()
+        if not torch.equal(bad, bitplane_mac_torch(ua, uw, detuned, bits_a=2,
+                                                   bits_w=2)):
+            raise AssertionError(f"bitplane_mac with detuned thresholds "
+                                 f"differs from its plain version at {(m, k, n)}")
+        if torch.equal(bad, bitplane_mac(ua, uw, good, bits_a=2, bits_w=2)):
+            raise AssertionError("detuned thresholds did not change the "
+                                 "decode: the kernel ignores thr")
+    log(f"[4] bitplane_mac bit-exact on {len(cases) + 3} cases (3 detuned)")
+    return float(worst)
+
+
+def phase_flash_attn(torch, dev):
+    from repro_torch.kernels.flash_attn.ops import (flash_attention,
+                                                    flash_attention_torch)
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    worst = {}
+    n = 0
+    for dtype in ("f32", "bf16"):
+        dt = torch.float32 if dtype == "f32" else torch.bfloat16
+        for window in (0, 16):
+            for H, KV, hd in ((12, 12, 64), (16, 2, 128)):
+                for S in (16, 40, 64):
+                    q, k, v = (torch.randn((1, S, h, hd), generator=g,
+                                           device=dev).to(dt)
+                               for h in (H, KV, KV))
+                    out = flash_attention(q, k, v, window=window)
+                    torch.cuda.synchronize()
+                    ref = flash_attention_torch(q, k, v, window=window)
+                    if not bool(torch.isfinite(out).all()):
+                        raise AssertionError("flash_attn output is not finite")
+                    err = (out.float() - ref.float()).abs().max().item()
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+                    if err > FLASH_ATOL[dtype]:
+                        raise AssertionError(
+                            f"flash_attn {dtype} window={window} rep={H // KV}"
+                            f" S={S}: max err {err} > {FLASH_ATOL[dtype]}")
+                    n += 1
+    log(f"[5] flash_attn within bounds on {n} cases; worst {worst}")
+    return max(worst.values()), worst
+
+
+def kernel_wrappers():
+    """name -> the wrapper whose ``launches`` counts that kernel."""
+    from repro_torch.kernels.bitplane_mac.ops import bitplane_mac
+    from repro_torch.kernels.flash_attn.ops import flash_attention
     from repro_torch.kernels.imc_mac.ops import imc_mac
     from repro_torch.kernels.paged_attn.ops import paged_attention
+
+    return {"imc_mac": imc_mac, "paged_attn": paged_attention,
+            "bitplane_mac": bitplane_mac, "flash_attn": flash_attention}
+
+
+def zero_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def first_prefill(torch, dev, params, cfg, prompt):
+    """The first request's bucketed prefill logits (f32, on the CPU)."""
+    import numpy as np
+
+    from repro_torch.models.model import prefill
+
+    padded = np.zeros((1, 16), np.int32)
+    padded[0, :len(prompt)] = prompt
+    with torch.inference_mode():
+        logits, _ = prefill(params, {"tokens": torch.from_numpy(padded).to(
+            dev), "length": len(prompt)}, cfg)
+    return logits.float().cpu()
+
+
+def serve_path(torch, dev, cfg, params, prompts, tag, must, never=()):
+    """Serve the six requests through ``Server``; every launch counter is
+    zeroed just before and read just after.  Each kernel in ``must`` has to
+    launch, each in ``never`` must not.  Also counts one decode step's and
+    one prefill's launches at the server's shapes."""
     from repro_torch.launch.serve import slo_summary
     from repro_torch.launch.server import Request, Server
-    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.models.model import decode_step
     from repro_torch.telemetry import Registry
 
-    cfg = get_config("imc-paper-110m")
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    torch.cuda.synchronize()
-    log(f"[4] imc-paper-110m params ({cfg.n_params() / 1e6:.1f} M) on "
-        f"{dev} in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in PROMPTS]
     server = Server(cfg, params, slots=4, kv="paged", block_size=16,
                     buckets=(16, 32, 64), registry=Registry(), device=dev)
-
-    imc_mac.launches = 0
-    paged_attention.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     handles = [server.submit(Request(p, max_new_tokens=MAX_NEW))
                for p in prompts]
     server.drain()
     wall = time.perf_counter() - t0
-    launches = {"imc_mac": imc_mac.launches,
-                "paged_attn": paged_attention.launches}
+    launches = read_counts()
 
     if not all(h.done and len(h.tokens) == MAX_NEW for h in handles):
-        raise AssertionError("not every request finished with its tokens")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"the main path launched {name} no time")
+        raise AssertionError(f"{tag}: not every request finished with its "
+                             "tokens")
+    for name in must:
+        if launches[name] <= 0:
+            raise AssertionError(f"{tag}: the path launched {name} no time")
+    for name in never:
+        if launches[name] != 0:
+            raise AssertionError(f"{tag}: the path launched {name} "
+                                 f"{launches[name]} times, it must not")
     server.alloc.check()
     slos = slo_summary(server)
-    log(f"[4] served {len(handles)} requests in {wall:.2f} s, "
+    log(f"[6] {tag}: served {len(handles)} requests in {wall:.2f} s, "
         f"{server.decode_ticks} decode ticks; launches {launches}")
-    log(f"[4] TTFT p50 {slos['ttft_ms']['p50']:.2f} ms, TPOT p50 "
+    log(f"[6] {tag}: TTFT p50 {slos['ttft_ms']['p50']:.2f} ms, TPOT p50 "
         f"{slos['tpot_ms']['p50']:.2f} ms, decode "
         f"{slos['decode_tokens_per_s']:.1f} tok/s")
 
-    # launches in one decode step at the server's shapes (4 slots, idle)
     with torch.inference_mode():
-        imc_mac.launches = paged_attention.launches = 0
+        zero_counts()  # one decode step at the server's shapes (4 slots)
         tok = torch.zeros((4, 1), dtype=torch.int32, device=dev)
         table = torch.from_numpy(server.alloc.table()).to(dev)
         decode_step(params, server.cache, tok, cfg, block_table=table)
         torch.cuda.synchronize()
-        per_step = {"imc_mac": imc_mac.launches,
-                    "paged_attn": paged_attention.launches}
+        per_step = read_counts()
+    zero_counts()  # one bucket-16 prefill
+    first = first_prefill(torch, dev, params, cfg, prompts[0])
+    per_prefill = read_counts()
+    if handles[0].tokens[0] != int(first[0].argmax()):
+        raise AssertionError(f"{tag}: the server's first token is not the "
+                             "argmax of its prefill logits")
+    return {"launches": launches, "per_decode_step": per_step,
+            "per_prefill": per_prefill, "slos": slos, "wall_s": wall,
+            "decode_ticks": server.decode_ticks}, first
 
-    # the first request's prefill logits: card vs the plain path on the CPU
+
+def phase_server(torch, dev):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.fabric import FabricSpec
+    from repro_torch.models.model import init_params, prefill
+
+    cfg = get_config("imc-paper-110m")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    log(f"[6] imc-paper-110m params ({cfg.n_params() / 1e6:.1f} M) on "
+        f"{dev} in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPTS]
+
+    # a. exact fabric
+    exact, card = serve_path(torch, dev, cfg, params, prompts, "exact",
+                             must=("imc_mac", "paged_attn"),
+                             never=("bitplane_mac", "flash_attn"))
+    # its first prefill: card vs the plain path on the CPU
     with torch.inference_mode():
-        bucket = 16
-        padded = np.zeros((1, bucket), np.int32)
-        padded[0, :PROMPTS[0]] = prompts[0]
-        batch = {"tokens": torch.from_numpy(padded).to(dev),
-                 "length": PROMPTS[0]}
-        card, _ = prefill(params, batch, cfg)
-        card = card.float().cpu()
+        padded = torch.zeros((1, 16), dtype=torch.int32)
+        padded[0, :PROMPTS[0]] = torch.from_numpy(prompts[0])
         cpu_params = _to_cpu(params)
-        plain, _ = prefill(cpu_params, {"tokens": batch["tokens"].cpu(),
-                                        "length": PROMPTS[0]}, cfg)
+        plain, _ = prefill(cpu_params, {"tokens": padded,
+                                             "length": PROMPTS[0]}, cfg)
     err = (card - plain).abs().max().item()
     scale = plain.abs().max().item()
     if not err <= LOGIT_RTOL * scale:
         raise AssertionError(f"prefill logits card vs CPU: max err {err} > "
                              f"{LOGIT_RTOL} x {scale}")
-    if handles[0].tokens[0] != int(card[0].argmax()):
-        raise AssertionError("the server's first token is not the argmax of "
-                             "its prefill logits")
-    log(f"[4] prefill logits card vs CPU plain path: max err {err:.3g} "
-        f"(largest |logit| {scale:.3g}); top-1 "
+    log(f"[6] exact: prefill logits card vs CPU plain path: max err "
+        f"{err:.3g} (largest |logit| {scale:.3g}); top-1 "
         f"{'equal' if int(card.argmax()) == int(plain.argmax()) else 'DIFFERS'}")
-    return {"launches": launches, "per_step": per_step, "slos": slos,
-            "wall_s": wall, "decode_ticks": server.decode_ticks,
-            "logit_err": err, "logit_scale": scale}
+    exact.update(logit_err=err, logit_scale=scale)
+
+    # b. the paper's sim fabric with flash prefill
+    sim_cfg = dataclasses.replace(cfg, fabric=FabricSpec(mode="sim"),
+                                  use_flash_kernel=True)
+    sim, sim_flash = serve_path(
+        torch, dev, sim_cfg, params, prompts, "sim+flash",
+        must=("bitplane_mac", "flash_attn", "paged_attn"), never=("imc_mac",))
+    sim_dense = first_prefill(torch, dev, params, dataclasses.replace(
+        sim_cfg, use_flash_kernel=False), prompts[0])
+    if not torch.equal(sim_dense, card):
+        diff = (sim_dense - card).abs().max().item()
+        raise AssertionError(f"sim prefill logits differ from exact's on the "
+                             f"card (max diff {diff}); the noise-free decode "
+                             "must be exact")
+    # sim == exact bit for bit, so the plain CPU path with exact fabric and
+    # flash attention computes what the card's sim + flash path computes
+    with torch.inference_mode():
+        plain_flash, _ = prefill(
+            cpu_params, {"tokens": padded, "length": PROMPTS[0]},
+            dataclasses.replace(cfg, use_flash_kernel=True))
+    flash_err = (sim_flash - plain_flash).abs().max().item()
+    if not flash_err <= LOGIT_RTOL * scale:
+        raise AssertionError(f"sim+flash prefill logits card vs CPU: max err "
+                             f"{flash_err} > {LOGIT_RTOL} x {scale}")
+    if int(sim_flash.argmax()) != int(card.argmax()):
+        raise AssertionError("sim+flash prefill top-1 differs from exact's")
+    # flash vs dense attention, on the card and in the plain path on the
+    # CPU: the same gap in both is the attention's, not a kernel's
+    # (flash keeps the probabilities in f32, dense attention rounds them to
+    # bf16 before p @ v, and every later projection requantizes)
+    rel = ((sim_flash - card).norm() / card.norm()).item()
+    rel_plain = ((plain_flash - plain).norm() / plain.norm()).item()
+    dense_err = (sim_flash - card).abs().max().item()
+    log(f"[6] sim+flash: sim prefill logits (flash off) bit-identical to "
+        f"exact; with flash, card vs CPU max err {flash_err:.3g}, top-1 equal "
+        f"to exact; flash vs dense attention: relative {rel:.4g} on the card,"
+        f" {rel_plain:.4g} in the plain path (max err {dense_err:.3g})")
+    sim.update(logit_err=flash_err, logit_scale=scale,
+               rel_vs_dense=rel, rel_vs_dense_plain=rel_plain,
+               max_err_vs_dense=dense_err)
+    return {"exact": exact, "sim_flash": sim}
 
 
 def _to_cpu(tree):
@@ -349,6 +536,84 @@ def time_paged_attn(torch, dev):
                       "pre-gathered span")
 
 
+def time_bitplane_mac(torch, dev):
+    """One decode step's bitplane_mac work: 12 layers x 6 projections at
+    M = 4 (4 slots), 8x8 bits, 8-row groups, cycling 12 distinct weight sets
+    (85 MB of one-byte operands, more than L2)."""
+    from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
+                                                      bitplane_mac_torch)
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    shapes = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
+    m, layers, bits, rows = 4, 12, 8, 8
+    a = {k: torch.randint(0, 256, (m, k), generator=g, device=dev,
+                          dtype=torch.int32) for k in (768, 3072)}
+    ws = [[torch.randint(0, 256, s, generator=g, device=dev,
+                         dtype=torch.int32) for s in shapes]
+          for _ in range(layers)]
+    a8 = {k: v.to(torch.uint8) for k, v in a.items()}
+    ws8 = [[w.to(torch.uint8) for w in lw] for lw in ws]
+    # the library yardstick: torch._int_mm on the signed codes u - 128 (the
+    # same product up to the rank-1 correction), M padded to 32
+    a_lib = {k: torch.cat([v - 128, (v - 128).new_zeros((32 - m, k))]).to(
+        torch.int8) for k, v in a.items()}
+    ws_lib = [[(w - 128).to(torch.int8) for w in lw] for lw in ws]
+
+    def step(fn, act, weights, **kw):
+        for lw in weights:
+            for w in lw:
+                fn(act[w.shape[0]], w, **kw)
+
+    ms = cuda_ms(torch, lambda: step(bitplane_mac, a8, ws8, bits_a=bits,
+                                     bits_w=bits, rows=rows), iters=10)
+    plain = cuda_ms(torch, lambda: step(bitplane_mac_torch, a, ws,
+                                        bits_a=bits, bits_w=bits, rows=rows),
+                    iters=1, warmup=1)
+    lib = cuda_ms(torch, lambda: step(torch._int_mm, a_lib, ws_lib), iters=20)
+    nbytes = layers * sum(m * k + k * n + 4 * m * n for k, n in shapes)
+    ops = layers * sum(2 * bits * bits * m * k * n for k, n in shapes)
+    b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=by,
+                shape="one decode step: 12 layers x {4x (768,768), "
+                      "(768,3072), (3072,768)} at M=4, 8x8 bits, rows 8, "
+                      "uint8 operands; ops = 2*PA*PW*M*K*N binary MACs at the "
+                      "int8 rate; library: torch._int_mm on the signed int8 "
+                      "codes (M padded to 32), the same values only under "
+                      "calibrated thresholds")
+
+
+def time_flash_attn(torch, dev):
+    """One bucket-64 prefill's attention: 12 layers, B=1, S=64, H=KV=12,
+    hd=64, bf16, causal."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn.ops import (flash_attention,
+                                                    flash_attention_torch)
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, S, H, hd, layers = 1, 64, 12, 64, 12
+    ins = [tuple(torch.randn((B, S, H, hd), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3)) for _ in range(layers)]
+    # the library call takes (B, H, S, hd)
+    lib_ins = [tuple(t.transpose(1, 2).contiguous() for t in x) for x in ins]
+    ms = cuda_ms(torch, lambda: [flash_attention(q, k, v)
+                                 for q, k, v in ins], iters=50)
+    plain = cuda_ms(torch, lambda: [flash_attention_torch(q, k, v)
+                                    for q, k, v in ins], iters=20)
+    lib = cuda_ms(torch, lambda: [F.scaled_dot_product_attention(
+        q, k, v, is_causal=True) for q, k, v in lib_ins], iters=50)
+    nbytes = layers * 4 * B * S * H * hd * 2  # q, k, v read; out written
+    visible = S * (S + 1) // 2  # causal (query, key) pairs
+    ops = layers * B * H * visible * hd * 2 * 2  # q.k and p.v
+    b_ms, by = bound(nbytes, ops, BF16_FLOPS_PER_S)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=by,
+                shape="one bucket-64 prefill: 12 layers x (B=1, S=64, "
+                      "H=KV=12, hd=64, bf16, causal); library: "
+                      "F.scaled_dot_product_attention(is_causal=True)")
+
+
 def main() -> int:
     import torch
 
@@ -374,30 +639,49 @@ def main() -> int:
     build_s = phase_build()
     mac_err = phase_imc_mac(torch, dev)
     attn_err, attn_worst = phase_paged_attn(torch, dev)
+    bp_err = phase_bitplane_mac(torch, dev)
+    flash_err, flash_worst = phase_flash_attn(torch, dev)
     served = phase_server(torch, dev)
-    t_mac = time_imc_mac(torch, dev)
-    t_attn = time_paged_attn(torch, dev)
+    exact, sim = served["exact"], served["sim_flash"]
+    timed = {"imc_mac": time_imc_mac(torch, dev),
+             "paged_attn": time_paged_attn(torch, dev),
+             "bitplane_mac": time_bitplane_mac(torch, dev),
+             "flash_attn": time_flash_attn(torch, dev)}
 
+    tpu = "src/repro/kernels"
     kernels = [
-        dict(name="imc_mac", route="cuda",
-             source="src/repro_torch/csrc/imc_mac.cu",
-             replaces="src/repro/kernels/imc_mac/imc_mac.py:65",
-             launches=served["launches"]["imc_mac"],
-             launches_per_decode_step=served["per_step"]["imc_mac"],
-             max_abs_err=mac_err, **t_mac),
-        dict(name="paged_attn", route="cuda",
-             source="src/repro_torch/csrc/paged_attn.cu",
-             replaces="src/repro/kernels/paged_attn/paged_attn.py:131",
-             launches=served["launches"]["paged_attn"],
-             launches_per_decode_step=served["per_step"]["paged_attn"],
-             max_abs_err=attn_err, max_abs_err_by_dtype=attn_worst, **t_attn),
+        dict(name="imc_mac", replaces=f"{tpu}/imc_mac/imc_mac.py:65",
+             path="exact", launches=exact["launches"]["imc_mac"],
+             launches_per_decode_step=exact["per_decode_step"]["imc_mac"],
+             launches_per_prefill=exact["per_prefill"]["imc_mac"],
+             max_abs_err=mac_err),
+        dict(name="paged_attn", replaces=f"{tpu}/paged_attn/paged_attn.py:131",
+             path="exact", launches=exact["launches"]["paged_attn"],
+             launches_sim_flash=sim["launches"]["paged_attn"],
+             launches_per_decode_step=exact["per_decode_step"]["paged_attn"],
+             launches_per_prefill=exact["per_prefill"]["paged_attn"],
+             max_abs_err=attn_err, max_abs_err_by_dtype=attn_worst),
+        dict(name="bitplane_mac",
+             replaces=f"{tpu}/bitplane_mac/bitplane_mac.py:98",
+             path="sim_flash", launches=sim["launches"]["bitplane_mac"],
+             launches_per_decode_step=sim["per_decode_step"]["bitplane_mac"],
+             launches_per_prefill=sim["per_prefill"]["bitplane_mac"],
+             max_abs_err=bp_err),
+        dict(name="flash_attn", replaces=f"{tpu}/flash_attn/flash_attn.py:81",
+             path="sim_flash", launches=sim["launches"]["flash_attn"],
+             launches_per_decode_step=sim["per_decode_step"]["flash_attn"],
+             launches_per_prefill=sim["per_prefill"]["flash_attn"],
+             max_abs_err=flash_err, max_abs_err_by_dtype=flash_worst),
     ]
     for k in kernels:
-        log(f"[5] {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms"
+        k.update(route="cuda", source=f"src/repro_torch/csrc/{k['name']}.cu",
+                 **timed[k["name"]])
+        log(f"[7] {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms"
             f" by {k['bound_by']}; plain {k['plain_ms']:.4f} ms; library "
             f"{k['library_ms']:.4f} ms); {k['launches_per_decode_step']} "
-            f"launches per decode step, {k['launches']} in the run")
-    log(f"[6] build {build_s:.2f} s; server {json.dumps(served)}")
+            f"launches per decode step, {k['launches_per_prefill']} per "
+            f"prefill, {k['launches']} in the {k['path']} run")
+    log(f"[8] build {build_s:.2f} s; served {json.dumps(served)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

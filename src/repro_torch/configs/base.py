@@ -64,8 +64,9 @@ class ModelConfig:
     remat: bool = True
     chunk_remat: bool = True  # False = pre-optimization baseline (§Perf iter 1)
     native_dtype_dots: bool = True  # False = f32-cast attention dots (baseline)
-    use_flash_kernel: bool = False  # flash-attn prefill kernel (not ported
-    # yet: True raises in the port's model code)
+    # Prefill attention: True = the hand-written flash-attention kernel on a
+    # CUDA tensor, its plain dense version on a CPU tensor.
+    use_flash_kernel: bool = False
     # Paged-decode attention engine: "cuda" = the hand-written flash-decode
     # kernel reading the pools through the block table, "torch" = its plain
     # dense-gather version (CPU tensors only), "auto" = by the tensor's device.

@@ -1,5 +1,5 @@
 """FabricSpec + fabric_matmul: the typed entry point to the IMC fabric
-(port of ``repro/core/fabric.py``, exact mode).
+(port of ``repro/core/fabric.py``, noise-free engines).
 
 A :class:`FabricSpec` is a frozen, hashable value object that determines how a
 GEMM executes on the modeled fabric: precision ``bits_a`` x ``bits_w``,
@@ -9,16 +9,20 @@ and their validation are the reference's.
 
 The backend words are ``auto | torch | cuda``:
 
-  * ``cuda``  — the hand-written int8 GEMM kernel (:mod:`repro_torch.kernels
-    .imc_mac`); a CPU tensor raises.
-  * ``torch`` — the kernel's plain PyTorch version; a CUDA tensor raises (the
-    plain version never stands in for the kernel on the card).
+  * ``cuda``  — the hand-written kernels: ``imc_mac`` (int8 GEMM) for
+    ``exact``, ``bitplane_mac`` (the bit-plane pyramid with the physics
+    decode in the kernel) for ``sim``; a CPU tensor raises.
+  * ``torch`` — plain PyTorch: ``imc_mac``'s plain version for ``exact``,
+    the plane-batched bit-serial engine with the Table I (LUT) decode for
+    ``sim``, as the reference's ``jnp`` engines; a CUDA tensor raises (the
+    plain version never stands in for a kernel on the card).
   * ``auto``  — ``cuda`` for a tensor on the card, ``torch`` for one on the
     CPU.
 
-Only the exact engines are ported.  A ``sim`` or noisy spec raises "not
-ported yet" when its engine is resolved, never falls back.  The ``Fabric``
-facade, MAC-derived logic and the cost model come in a later slice.
+Noise-free, both ``sim`` engines decode every integer count to itself, so
+``sim`` equals ``exact`` bit for bit.  A noisy spec raises "not ported yet"
+when its engine is resolved, never falls back.  The ``Fabric`` facade,
+MAC-derived logic and the cost model come in a later slice.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import constants as C
-from repro_torch.core.quant import quantize
+from repro_torch.core.quant import (quantize, signed_product_correction,
+                                    to_offset_binary)
 
 MODES = ("exact", "sim")
 BACKENDS = ("auto", "torch", "cuda")
@@ -105,6 +110,14 @@ class FabricSpec:
     def noisy(self) -> bool:
         return self.noise is not None
 
+    @property
+    def label(self) -> str:
+        """Short row label for logs: e.g. ``sim/cuda`` (``auto`` reads as the
+        engine a tensor on the default device would take)."""
+        dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        s = f"{self.mode}/{self.resolve_backend(dev)}"
+        return s + "+noise" if self.noisy else s
+
     def resolve_backend(self, device: torch.device) -> str:
         """Concrete engine for tensors on ``device``; raises on a mismatch."""
         want = "cuda" if device.type == "cuda" else "torch"
@@ -135,11 +148,11 @@ def register_engine(mode: str, backend: str, noisy: bool):
 
 
 def check_ported(spec: FabricSpec) -> None:
-    """Raise up front for a spec whose engines this slice has not ported."""
-    if spec.mode != "exact" or spec.noisy:
+    """Raise up front for a spec whose engines are not ported yet."""
+    if spec.noisy:
         raise NotImplementedError(
-            f"fabric mode {spec.mode!r}{' with noise' if spec.noisy else ''} "
-            "is not ported yet: repro_torch runs mode='exact' only")
+            f"fabric mode {spec.mode!r} with noise is not ported yet: "
+            "repro_torch runs the noise-free exact and sim engines")
 
 
 def resolve_engine(spec: FabricSpec, device: torch.device) -> Callable:
@@ -162,6 +175,34 @@ def _exact_cuda(qa, qw, spec):
     return imc_mac(qa, qw)
 
 
+def _sim_correction(qa, qw, spec):
+    u_a = to_offset_binary(qa, spec.bits_a)
+    u_w = to_offset_binary(qw, spec.bits_w)
+    return u_a, u_w, signed_product_correction(u_a, u_w, spec.bits_a,
+                                               spec.bits_w)
+
+
+@register_engine("sim", "torch", False)
+def _sim_torch(qa, qw, spec):
+    from repro_torch.core.bitserial import bitserial_matmul_unsigned
+
+    u_a, u_w, corr = _sim_correction(qa, qw, spec)
+    uu = bitserial_matmul_unsigned(u_a, u_w, bits_a=spec.bits_a,
+                                   bits_w=spec.bits_w, rows=spec.rows,
+                                   mode="sim")
+    return uu - corr
+
+
+@register_engine("sim", "cuda", False)
+def _sim_cuda(qa, qw, spec):
+    from repro_torch.kernels.bitplane_mac.ops import bitplane_mac
+
+    u_a, u_w, corr = _sim_correction(qa, qw, spec)
+    uu = bitplane_mac(u_a, u_w, bits_a=spec.bits_a, bits_w=spec.bits_w,
+                      rows=spec.rows)
+    return uu - corr
+
+
 # ------------------------------------------------------------------ matmul
 def fabric_matmul(x: torch.Tensor, w: torch.Tensor,
                   spec: FabricSpec = FabricSpec()) -> torch.Tensor:
@@ -178,3 +219,52 @@ def fabric_matmul(x: torch.Tensor, w: torch.Tensor,
     acc = engine(qx.q, qw.q, spec)
     return acc.to(torch.float32) * qx.scale * qw.scale.reshape(
         (1,) * (acc.ndim - 1) + (-1,))
+
+
+# --------------------------------------------------------------------- CLI
+def add_fabric_cli(ap) -> None:
+    """Attach the FabricSpec flags to an argparse parser (launchers' edge)."""
+    ap.add_argument("--imc", "--imc-mode", dest="imc", default=None,
+                    choices=("off",) + MODES,
+                    help="route every projection through the IMC fabric")
+    ap.add_argument("--imc-bits", type=int, default=8,
+                    help="activation precision (bits_a)")
+    ap.add_argument("--imc-bits-w", type=int, default=0,
+                    help="weight precision (0 -> same as --imc-bits)")
+    ap.add_argument("--imc-backend", default="auto", choices=BACKENDS)
+    ap.add_argument("--imc-mismatch-sigma", "--imc-noise-sigma",
+                    dest="imc_mismatch_sigma", type=float, default=None,
+                    help="device mismatch sigma (sim only; not ported yet)")
+    ap.add_argument("--imc-comparator-sigma", type=float, default=None,
+                    help="comparator offset sigma in V (sim only; not "
+                         "ported yet)")
+
+
+def fabric_from_cli(args) -> Optional[FabricSpec]:
+    """FabricSpec from the add_fabric_cli flags; None when --imc is off/unset."""
+    if args.imc in (None, "off"):
+        return None
+    noise = None
+    if args.imc_mismatch_sigma is not None or \
+            args.imc_comparator_sigma is not None:
+        noise = NoiseSpec(mismatch_sigma=args.imc_mismatch_sigma,
+                          comparator_offset_sigma=args.imc_comparator_sigma)
+    return FabricSpec(bits_a=args.imc_bits,
+                      bits_w=args.imc_bits_w or args.imc_bits,
+                      mode=args.imc, backend=args.imc_backend, noise=noise)
+
+
+def apply_fabric_cli(args, cfg):
+    """Shared launcher edge: fold the --imc* flags into a ModelConfig.
+
+    Returns ``cfg`` unchanged when ``--imc`` wasn't given; ``--imc off``
+    turns the fabric off.  A spec whose engine is not ported (a noise flag)
+    raises "not ported yet" here, before any weight is made.
+    """
+    if args.imc is None:
+        return cfg
+    spec = fabric_from_cli(args)
+    if spec is not None:
+        check_ported(spec)
+    # the typed field is the one source of truth: clear the legacy channel
+    return dataclasses.replace(cfg, fabric=spec, imc_mode="off")

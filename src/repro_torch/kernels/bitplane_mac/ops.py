@@ -1,0 +1,136 @@
+"""The ``bitplane_mac`` kernel: the paper's whole bit-plane pyramid in one
+launch, for the ``sim`` fabric engine (port of ``repro/kernels/bitplane_mac``,
+noise-free; CUDA source ``csrc/bitplane_mac.cu``).
+
+For every plane pair (p, q) and every ``rows``-row K-group it takes the
+binary MAC count, the two-regime physics RBL voltage, the ``rows``-comparator
+decode against the thresholds ``thr`` (live data: a detuned ``thr``
+corrupts the result) and the ``2^(p+q)``-weighted int32 accumulation:
+
+    out[m, n] = sum_{p,q} 2^(p+q) sum_g #{i : thr[i] >= V(count[p,q,g,m,n])}
+
+Operands are unsigned offset-binary integers, ``u_a`` int[..., K] in
+[0, 2^bits_a) and ``u_w`` int[K, N] in [0, 2^bits_w); only their low
+``bits`` planes are read, as the reference's ``to_bitplanes`` reads them.
+Noise-free, every integer count decodes to itself, so the result equals
+``u_a @ u_w``.
+
+:func:`bitplane_mac` dispatches by device: a CUDA tensor launches the kernel
+(or raises: on a build failure, a refused launch, a wrong dtype, device or
+shape); a CPU tensor takes the plain version :func:`bitplane_mac_torch`.
+``bitplane_mac.launches`` counts kernel launches and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.core import constants as C
+from repro_torch.core.bitserial import count_at_or_above, decoded_pyramid
+from repro_torch.core.decoder import thresholds
+from repro_torch.core.rbl import rbl_voltage_physics
+from repro_torch.kernels import build
+
+MAX_ROWS = 32  # the kernel packs one K-group of one plane into a 32-bit word
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p,
+                                                          ctypes.c_int]
+
+
+@functools.lru_cache(maxsize=None)
+def physics_thresholds(rows: int, device) -> torch.Tensor:
+    """The calibrated comparator references for ``rows`` (physics model),
+    on ``device``; made once per (rows, device), so a call on the card
+    copies nothing from the host."""
+    return thresholds(rows, mode="physics").to(device)
+
+
+def decode_counts(counts: torch.Tensor, thr: torch.Tensor,
+                  rows: int) -> torch.Tensor:
+    """Counts -> V_RBL (two-regime physics) -> comparator decode -> counts:
+    the number of references ``thr[i] >= V`` (the port of
+    ``repro/kernels/common.py::decode_counts``)."""
+    return count_at_or_above(rbl_voltage_physics(counts, rows=rows), thr)
+
+
+def bitplane_mac_torch(u_a: torch.Tensor, u_w: torch.Tensor,
+                       thr: torch.Tensor | None = None, *, bits_a: int = 8,
+                       bits_w: int = 8, rows: int = C.ROWS) -> torch.Tensor:
+    """Plain version: the plane-batched pyramid with the physics decode
+    against ``thr`` (default: :func:`physics_thresholds`), chunked over N.
+
+    Counts are float32 products of {0, 1} planes (exact: each is at most
+    ``rows``), so the same code runs on the CPU and on the card.  Matches
+    ``bitplane_mac_batched_ref`` and ``bitplane_mac_ref`` bit for bit.
+    """
+    if thr is None:
+        thr = physics_thresholds(rows, u_a.device)
+    thr = thr.to(device=u_a.device, dtype=torch.float32)
+    return decoded_pyramid(u_a, u_w, bits_a=bits_a, bits_w=bits_w, rows=rows,
+                           decode=lambda c: decode_counts(c, thr, rows))
+
+
+def _check(u_a, u_w, thr, bits_a, bits_w, rows):
+    if u_w.ndim != 2 or u_a.ndim < 1 or u_a.shape[-1] != u_w.shape[0]:
+        raise ValueError(f"bitplane_mac: shapes {tuple(u_a.shape)} x "
+                         f"{tuple(u_w.shape)} do not contract")
+    if not all(2 <= b <= 8 for b in (bits_a, bits_w)):
+        raise ValueError(f"bitplane_mac: bits must be in [2, 8], got "
+                         f"{bits_a} x {bits_w}")
+    if not 2 <= rows <= MAX_ROWS:
+        raise ValueError(f"bitplane_mac: the kernel takes rows in [2, "
+                         f"{MAX_ROWS}], got {rows}")
+    for name, t in (("u_a", u_a), ("u_w", u_w)):
+        if t.is_floating_point() or t.is_complex() or t.dtype == torch.bool:
+            raise TypeError(f"bitplane_mac: {name} must hold integers, got "
+                            f"{t.dtype}")
+    if not thr.is_floating_point() or thr.shape != (rows,):
+        raise ValueError(f"bitplane_mac: thr must be float[{rows}], got "
+                         f"{thr.dtype}{list(thr.shape)}")
+    if any(t.device != u_a.device for t in (u_w, thr)):
+        raise ValueError(f"bitplane_mac: operands on {u_a.device}, "
+                         f"{u_w.device} and {thr.device}; all must be on "
+                         "one CUDA device (or all on the CPU)")
+
+
+def bitplane_mac(u_a: torch.Tensor, u_w: torch.Tensor,
+                 thr: torch.Tensor | None = None, *, bits_a: int = 8,
+                 bits_w: int = 8, rows: int = C.ROWS) -> torch.Tensor:
+    """Fused full-pyramid bit-serial matmul for arbitrary shapes.
+
+    u_a: int[..., K]; u_w: int[K, N]; leading batch dims of ``u_a`` flatten
+    into M.  ``thr`` (float[rows], descending) defaults to the
+    physics-model references for ``rows``.  Returns int32[..., N].
+    """
+    if u_a.device.type == "cpu" and u_w.device.type == "cpu" and (
+            thr is None or thr.device.type == "cpu"):
+        return bitplane_mac_torch(u_a, u_w, thr, bits_a=bits_a,
+                                  bits_w=bits_w, rows=rows)
+    if not u_a.is_cuda:
+        raise ValueError(f"bitplane_mac: operands on {u_a.device} and "
+                         f"{u_w.device}; all must be on one CUDA device (or "
+                         "all on the CPU)")
+    if thr is None:
+        thr = physics_thresholds(rows, u_a.device)
+    _check(u_a, u_w, thr, bits_a, bits_w, rows)
+    batch = tuple(u_a.shape[:-1])
+    k, n = u_w.shape
+    # one byte per value: the kernel reads the bit planes out of each byte
+    a = u_a.reshape(-1, k).to(torch.uint8).contiguous()
+    w = u_w.to(torch.uint8).contiguous()
+    t = thr.to(torch.float32).contiguous()
+    m = a.shape[0]
+    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    lib = build.load("bitplane_mac")
+    fn = lib.bitplane_mac_launch
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    stream, dev = build.stream_and_device(a)
+    build.check_launch("bitplane_mac", fn(
+        a.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(), m, n, k,
+        bits_a, bits_w, rows, stream, dev))
+    bitplane_mac.launches += 1
+    return out.reshape(batch + (n,))
+
+
+bitplane_mac.launches = 0

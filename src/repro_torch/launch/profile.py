@@ -2,6 +2,7 @@
 the port's Server.
 
     python -m repro_torch.launch.profile --arch imc-paper-110m --steps 8
+    python -m repro_torch.launch.profile --imc sim           # the sim path
 
 Admits ``--slots`` requests of mixed prompt lengths (random weights and
 prompts from ``--seed``), runs a few warm-up ticks, then profiles ``--steps``
@@ -11,6 +12,7 @@ the logits, so it is device-complete), the device's busy time per step (the
 sum of CUDA kernel and memcpy times the profiler saw), the idle share, the
 kernel launches per step, the busiest device ops and the most frequent CUDA
 runtime calls per step.  ``--trace-out`` also writes the Chrome trace.
+The ``--imc*`` flags select the fabric as in :mod:`repro_torch.launch.serve`.
 Runs on the card only.
 """
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config, list_configs
+from repro_torch.core.fabric import add_fabric_cli, apply_fabric_cli
 from repro_torch.device import resolve_device
 from repro_torch.launch.server import Request, Server
 from repro_torch.models.model import init_params
@@ -45,10 +48,11 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None)
+    add_fabric_cli(ap)
     args = ap.parse_args(argv)
 
+    cfg = apply_fabric_cli(args, get_config(args.arch))
     dev = resolve_device("cuda")
-    cfg = get_config(args.arch)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(
         args.seed), dev)
     server = Server(cfg, params, slots=args.slots, kv="paged",
@@ -87,6 +91,7 @@ def main(argv=None):
     out = {
         "device": torch.cuda.get_device_name(dev),
         "arch": cfg.name, "slots": args.slots, "steps": steps,
+        "fabric": cfg.imc_fabric.label if cfg.imc_fabric else "off",
         "step_ms": step_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": (max(0.0, 1.0 - busy_ms / step_ms)

@@ -2,22 +2,28 @@
 shell (port of ``repro/launch/serve.py``).
 
     python -m repro_torch.launch.serve --arch imc-paper-110m --requests 6
+    python -m repro_torch.launch.serve --arch imc-paper-110m --imc sim --flash
     python -m repro_torch.launch.serve --arch qwen2.5-3b --reduce --device cpu
 
 Runs on the card by default and exits with an error without one; pass
 ``--device cpu`` to serve on the CPU.  Weights are random, drawn from
-``--seed``.  Prints each request's first tokens, then TTFT, TPOT and decode
+``--seed``.  The ``--imc*`` flags set the fabric (``--imc sim`` is the
+paper's analog pipeline; the noise flags raise "not ported yet") and
+``--flash`` runs prefill attention through the flash-attention kernel.
+Prints each request's first tokens, then TTFT, TPOT and decode
 tokens/s from the server's telemetry, with the device they were taken on.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_configs, reduce_config
+from repro_torch.core.fabric import add_fabric_cli, apply_fabric_cli
 from repro_torch.device import resolve_device
 from repro_torch.launch.server import Request, Server
 from repro_torch.models.model import init_params
@@ -56,12 +62,19 @@ def main(argv=None):
                     help="seed of the random weights and prompts")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--flash", action="store_true",
+                    help="prefill attention through the flash-attention "
+                         "kernel (use_flash_kernel)")
+    add_fabric_cli(ap)
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduce_config(cfg)
+    cfg = apply_fabric_cli(args, cfg)
+    if args.flash:
+        cfg = dataclasses.replace(cfg, use_flash_kernel=True)
+    dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen, dev)
     bucket = max(16, args.prompt_len)
@@ -80,8 +93,10 @@ def main(argv=None):
         print(f"req{h.rid}: {len(h.tokens)} tokens -> {h.tokens[:8]}...")
     ntok = sum(len(h.tokens) for h in handles)
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    fabric = cfg.imc_fabric.label if cfg.imc_fabric else "off"
     print(f"throughput: {ntok / max(dt, 1e-9):.1f} tok/s ({args.kv}, "
-          f"attn={server.attn_impl}, device={kind})")
+          f"attn={server.attn_impl}, fabric={fabric}, "
+          f"flash={cfg.use_flash_kernel}, device={kind})")
     print(json.dumps({"device": kind, **slo_summary(server)}))
 
 

@@ -164,17 +164,22 @@ def attn_prefill(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     cache_len defaults to S for global layers, window for local layers.
     ``true_len`` (an int) marks a right-padded prompt: positions
     ``>= true_len`` get ``key_pos = -1`` so the paged scatter drops them;
-    causal attention already keeps padded keys out of every valid row.
+    causal attention already keeps padded keys out of every valid row.  The
+    same argument makes ``use_flash`` (the ``flash_attn`` kernel,
+    :func:`repro_torch.kernels.flash_attn.ops.flash_attention`) safe under
+    right-padding: padded query rows are never read.
     """
-    if use_flash:
-        raise NotImplementedError("use_flash_kernel: the flash-attention "
-                                  "prefill kernel is not ported yet")
     b, s, _ = x.shape
     dev = x.device
     positions = torch.arange(s, device=dev)[None, :]
     q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim,
                            positions, rope_theta, **imc)
-    out = _chunked_causal(q, k, v, window=window, q_chunk=q_chunk)
+    if use_flash:
+        from repro_torch.kernels.flash_attn.ops import flash_attention
+
+        out = flash_attention(q, k, v, window=window)
+    else:
+        out = _chunked_causal(q, k, v, window=window, q_chunk=q_chunk)
     t_alloc = cache_len if cache_len is not None else (window if window else s)
     if t_alloc <= s:  # keep the last t_alloc entries, ring-aligned so that
         # the entry for position p sits at slot p % t_alloc (decode invariant)

@@ -3,8 +3,8 @@ and init helpers (port of ``repro/models/common.py``).
 
 Models are functional: params are plain dicts of tensors, as in the
 reference, so the converter from the JAX layout is a rename and an unstack.
-Sharding hints and the noise-key context are not ported: this slice runs one
-card and noise-free specs.
+Sharding hints and the noise-key context are not ported: the port runs one
+card and noise-free specs (``exact`` and ``sim``).
 """
 from __future__ import annotations
 

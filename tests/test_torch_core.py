@@ -5,8 +5,8 @@ scales, at 2..8 bits, as the reference's jitted model path computes them),
 the offset-binary helpers, and the exact ``fabric_matmul`` including
 asymmetric ``bits_a != bits_w``.  Inputs come from numpy with a fixed seed
 and are handed to both packages.  Also here: the spec vocabulary, the
-"not ported yet" guard for sim/noisy specs, and the rule that the port
-imports neither ``jax`` nor ``repro``.
+"not ported yet" guard for noisy specs, and the rule that the port imports
+neither ``jax`` nor ``repro``.
 """
 import subprocess
 import sys
@@ -118,11 +118,12 @@ def test_spec_fields_validation_and_backends():
     x = torch.zeros((2, 8), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfab.fabric_matmul(x, torch.zeros((8, 4)), spec.replace(backend="cuda"))
-    for unported in (tfab.FabricSpec(mode="sim"),
-                     tfab.FabricSpec(mode="sim",
-                                     noise=tfab.NoiseSpec.calibrated())):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tfab.fabric_matmul(x, torch.zeros((8, 4)), unported)
+    w = torch.randn((8, 4), generator=torch.Generator().manual_seed(0))
+    assert torch.equal(tfab.fabric_matmul(x + 1, w, tfab.FabricSpec(
+        mode="sim")), tfab.fabric_matmul(x + 1, w, spec))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tfab.fabric_matmul(x, w, tfab.FabricSpec(
+            mode="sim", noise=tfab.NoiseSpec.calibrated()))
 
 
 def test_port_imports_neither_jax_nor_repro():

@@ -5,20 +5,30 @@ sm_90 card).  Run there with
 
 This file imports neither ``jax`` nor ``repro``: the machine with the card
 has no JAX.  Each kernel is held against its plain PyTorch version on the
-same card tensors: ``imc_mac`` bit for bit, ``paged_attn`` at the bounds of
-``tests/test_paged_attn.py`` (f32 5e-6, bf16 1.6e-2 = one output ulp, int8
-1e-2).  Every launch bumps the wrapper's counter exactly once.
+same card tensors: ``imc_mac`` and ``bitplane_mac`` bit for bit (including
+detuned comparator references and 16-row groups), ``paged_attn`` at the
+bounds of ``tests/test_paged_attn.py`` (f32 5e-6, bf16 1.6e-2 = one output
+ulp, int8 1e-2), ``flash_attn`` at those of ``tests/test_flash_attn.py``
+(f32 3e-6, bf16 2e-2).  Every launch bumps the wrapper's counter exactly
+once; wrong dtypes and devices raise.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.fabric import FabricSpec, fabric_matmul
+from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
+                                                  bitplane_mac_torch,
+                                                  physics_thresholds)
+from repro_torch.kernels.flash_attn.ops import (flash_attention,
+                                                flash_attention_torch)
 from repro_torch.kernels.imc_mac.ops import imc_mac, imc_mac_torch
 from repro_torch.kernels.paged_attn.ops import (paged_attention,
                                                 paged_decode_torch)
 from repro_torch.models.attention import _kv_quant
 
 ATOL = {"f32": 5e-6, "bf16": 1.6e-2, "int8": 1e-2}
+FLASH_ATOL = {"f32": 3e-6, "bf16": 2e-2}
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +124,103 @@ def test_paged_attn_rejects_bad_operands(hopper):
         paged_attention(q, k, k, tbl, p)  # f32 pools need f32 queries
     with pytest.raises(ValueError, match="plain version"):
         paged_attention(q, k.bfloat16(), k.bfloat16(), tbl, p, impl="torch")
+
+
+@pytest.mark.parametrize("m,k,n,bits_a,bits_w,rows", [
+    (4, 768, 768, 8, 8, 8), (4, 3072, 768, 8, 8, 8), (64, 768, 3072, 8, 8, 8),
+    (33, 1030, 129, 8, 8, 8), (16, 768, 768, 4, 8, 8), (5, 40, 12, 6, 6, 8),
+    (4, 768, 768, 8, 8, 16), (7, 100, 37, 3, 5, 16)])
+def test_bitplane_mac_bit_exact(hopper, m, k, n, bits_a, bits_w, rows):
+    g = torch.Generator(device=hopper).manual_seed(m * k + n + rows)
+    ua = torch.randint(0, 1 << bits_a, (m, k), generator=g, device=hopper,
+                       dtype=torch.int32)
+    uw = torch.randint(0, 1 << bits_w, (k, n), generator=g, device=hopper,
+                       dtype=torch.int32)
+    before = bitplane_mac.launches
+    out = bitplane_mac(ua, uw, bits_a=bits_a, bits_w=bits_w, rows=rows)
+    torch.cuda.synchronize()
+    assert bitplane_mac.launches == before + 1
+    assert torch.equal(out, bitplane_mac_torch(ua, uw, bits_a=bits_a,
+                                               bits_w=bits_w, rows=rows))
+    assert torch.equal(out, (ua.double() @ uw.double()).to(torch.int32))
+
+
+@pytest.mark.parametrize("m,k,n,rows", [(8, 16, 8, 8), (5, 20, 7, 8),
+                                        (4, 768, 768, 8), (6, 50, 9, 16)])
+def test_bitplane_mac_detuned_thresholds(hopper, m, k, n, rows):
+    """Detuned references corrupt the decode in the kernel exactly as in
+    the plain version: the thresholds are live data."""
+    good = physics_thresholds(rows, hopper)
+    detuned = torch.cat([torch.tensor([1.9], device=hopper), good[:-1]])
+    g = torch.Generator(device=hopper).manual_seed(m + k + n)
+    ua = torch.randint(0, 4, (m, k), generator=g, device=hopper,
+                       dtype=torch.int32)
+    uw = torch.randint(0, 4, (k, n), generator=g, device=hopper,
+                       dtype=torch.int32)
+    bad = bitplane_mac(ua, uw, detuned, bits_a=2, bits_w=2, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(bad, bitplane_mac_torch(ua, uw, detuned, bits_a=2,
+                                               bits_w=2, rows=rows))
+    assert not torch.equal(bad, bitplane_mac(ua, uw, good, bits_a=2,
+                                             bits_w=2, rows=rows))
+
+
+def test_bitplane_mac_batch_dims_and_operand_errors(hopper):
+    ua = torch.randint(0, 16, (2, 3, 40), device=hopper, dtype=torch.int32)
+    uw = torch.randint(0, 16, (40, 6), device=hopper, dtype=torch.int32)
+    out = bitplane_mac(ua, uw, bits_a=4, bits_w=4)
+    assert out.shape == (2, 3, 6) and out.dtype == torch.int32
+    assert torch.equal(out.reshape(6, 6), (ua.reshape(6, 40).double()
+                                           @ uw.double()).to(torch.int32))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bitplane_mac(ua, uw.cpu(), bits_a=4, bits_w=4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bitplane_mac(ua, uw, physics_thresholds(8, "cpu"), bits_a=4, bits_w=4)
+    with pytest.raises(TypeError, match="integers"):
+        bitplane_mac(ua.float(), uw, bits_a=4, bits_w=4)
+    with pytest.raises(ValueError, match="rows"):
+        bitplane_mac(ua, uw, bits_a=4, bits_w=4, rows=64)
+
+
+def test_sim_fabric_on_the_card_equals_exact(hopper):
+    """Noise-free sim through the kernel decodes every count to itself."""
+    g = torch.Generator(device=hopper).manual_seed(9)
+    x = torch.randn((3, 5, 768), generator=g, device=hopper).bfloat16()
+    w = torch.randn((768, 256), generator=g, device=hopper) * 0.05
+    sim = fabric_matmul(x, w, FabricSpec(mode="sim"))
+    assert torch.equal(sim, fabric_matmul(x, w, FabricSpec(mode="exact")))
+    with pytest.raises(ValueError, match="plain version"):
+        fabric_matmul(x, w, FabricSpec(mode="sim", backend="torch"))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("geom", [(1, 12, 12, 64), (2, 16, 2, 128)])
+@pytest.mark.parametrize("s", [16, 40, 64, 130])
+def test_flash_attn_matches_plain(hopper, dtype, window, geom, s):
+    B, H, KV, hd = geom
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    g = torch.Generator(device=hopper).manual_seed(s + window + H)
+    q, k, v = (torch.randn((B, s, h, hd), generator=g, device=hopper).to(dt)
+               for h in (H, KV, KV))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    ref = flash_attention_torch(q, k, v, window=window)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= FLASH_ATOL[dtype], err
+
+
+def test_flash_attn_rejects_bad_operands(hopper):
+    q = torch.zeros((1, 8, 4, 16), dtype=torch.bfloat16, device=hopper)
+    k = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device=hopper)
+    with pytest.raises(TypeError):
+        flash_attention(q, k.float(), k.float())
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention(q, k.cpu(), k.cpu())
+    with pytest.raises(ValueError, match="does not fit"):
+        flash_attention(q, k[:, :4], k[:, :4])

@@ -6,7 +6,9 @@ oracle, as the reference's ``tests/test_paged_kv.py`` holds the paged path
 against sequential ring decode: mixed-length paged serving must give the
 same greedy streams, bit for bit, as serving each request alone through
 ``kv="ring"``.  Around that: admission control, block budgeting, per-request
-termination, fault re-queue, telemetry and the device rule.
+termination, fault re-queue, telemetry and the device rule.  In the paper's
+``sim`` fabric with flash prefill the same mixed traffic is served, and the
+noise-free ``sim`` streams equal the ``exact`` ones token for token.
 """
 import numpy as np
 import pytest
@@ -172,8 +174,7 @@ def test_unported_paths_raise_up_front(cfg, params):
     from repro_torch.core.fabric import FabricSpec, NoiseSpec
 
     sim = dataclasses.replace(cfg, fabric=FabricSpec(mode="sim"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Server(sim, params, device="cpu")
+    assert Server(sim, params, device="cpu").cfg.imc_fabric.mode == "sim"
     noisy = dataclasses.replace(cfg, fabric=FabricSpec(
         mode="sim", noise=NoiseSpec.calibrated()))
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -181,6 +182,51 @@ def test_unported_paths_raise_up_front(cfg, params):
     moe = dataclasses.replace(cfg, pattern=("moe",))
     with pytest.raises(NotImplementedError, match="not ported"):
         Server(moe, params, device="cpu")
+
+
+def _serve_mix(cfg, params, lengths=LENGTHS):
+    server = _server(cfg, params)
+    handles = [server.submit(Request(p, max_new_tokens=MAX_NEW))
+               for p in _prompts(cfg, lengths)]
+    server.drain()
+    assert all(h.done and len(h.tokens) == MAX_NEW for h in handles)
+    server.alloc.check()
+    assert server.alloc.num_free == server.num_blocks
+    return [h.tokens for h in handles]
+
+
+def test_sim_flash_server_serves_mixed_traffic(cfg, params):
+    import dataclasses
+
+    from repro_torch.core.fabric import FabricSpec
+
+    sim_flash = dataclasses.replace(cfg, fabric=FabricSpec(mode="sim"),
+                                    use_flash_kernel=True)
+    streams = _serve_mix(sim_flash, params)
+    assert len(streams) == len(LENGTHS)
+
+
+def test_sim_streams_equal_exact_streams(cfg, params):
+    import dataclasses
+
+    from repro_torch.core.fabric import FabricSpec
+
+    sim = _serve_mix(dataclasses.replace(cfg, fabric=FabricSpec(mode="sim")),
+                     params, LENGTHS[:3])
+    exact = _serve_mix(dataclasses.replace(cfg, fabric=FabricSpec()), params,
+                       LENGTHS[:3])
+    assert sim == exact
+
+
+def test_serve_cli_sim_flash_on_cpu(capsys):
+    serve.main(["--arch", "imc-paper-110m", "--reduce", "--device", "cpu",
+                "--requests", "2", "--max-new", "3", "--prompt-len", "8",
+                "--imc", "sim", "--flash"])
+    out = capsys.readouterr().out
+    assert "req1: 3 tokens" in out and "fabric=sim/torch, flash=True" in out
+    with pytest.raises(NotImplementedError, match="not ported"):
+        serve.main(["--reduce", "--device", "cpu", "--imc", "sim",
+                    "--imc-noise-sigma", "0.05"])
 
 
 def test_serve_cli_on_cpu(capsys):
