@@ -20,6 +20,13 @@ result:
    the demonstrator's shapes at M in {4, 64}, a ragged shape, bits 4x8,
    rows 16, and a detuned ``thr`` (equal to the plain version, and
    different from the calibrated result).
+   b. ``bitplane_mac_noisy`` against its plain version on the card, bit for
+      bit (both draw one Philox stream with the same float32 arithmetic):
+      the demonstrator's shapes at M in {4, 64}, ragged 33x1030x129, bits
+      4x8, rows 16, mismatch only, comparator only and both at the stress
+      sigmas (0.3, 0.03), the calibrated sigma, a detuned ``thr``;
+      ``NoiseSpec(0, 0)`` equal to ``bitplane_mac``; the same seed twice
+      identical; two seeds different.
 5. ``flash_attn`` against its plain version on the card: f32 and bf16,
    window 0 and 16, rep 1 and 8, S in {16, 40, 64}; bounds f32 3e-6,
    bf16 2e-2.
@@ -39,9 +46,20 @@ result:
       |logit| of the plain path on the CPU with flash attention, and give
       ``exact``'s top-1; its distance from ``exact`` (dense attention) is
       printed beside the plain path's own flash-vs-dense distance.
+   c. ``sim`` with the paper-calibrated noise (``NoiseSpec.calibrated()``,
+      device mismatch 0.05) and flash prefill: ``bitplane_mac_noisy``
+      (72 launches per decode step), ``flash_attn`` and ``paged_attn`` must
+      launch, ``bitplane_mac`` and ``imc_mac`` never.  A second serve with
+      the same ``noise_seed`` must give identical token streams.  The first
+      request's prefill logits at the stress sigmas under two seeds must
+      differ from each other and from noise-free ``sim``; their relative L2
+      distance from it is printed beside the calibrated one.
 7. Each kernel timed at the main path's shapes (CUDA events), beside its
-   bound on an H100 SXM (3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16), its
-   plain version and one library call computing the same function.
+   bound on an H100 SXM (3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16; for
+   ``bitplane_mac_noisy`` the special-function units, 16 results per SM per
+   clock at 1.98 GHz), its plain version and one library call computing the
+   same function (none computes the noisy pyramid: the noise-free
+   ``bitplane_mac`` time stands beside it for context).
 
 It prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
@@ -58,9 +76,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
+SFU_OPS_PER_S = 16 * 132 * 1.98e9  # 16 per SM per clock, 132 SMs, boost
+STRESS = dict(mismatch_sigma=0.3, comparator_offset_sigma=0.03)
+NOISE_SEED = 7
 ATTN_ATOL = {"f32": 5e-6, "bf16": 1.6e-2, "int8": 1e-2}
 FLASH_ATOL = {"f32": 3e-6, "bf16": 2e-2}
-KERNELS = ("imc_mac", "paged_attn", "bitplane_mac", "flash_attn")
 LOGIT_RTOL = 2e-2
 PROMPTS = (7, 16, 33, 12, 5, 40)
 MAX_NEW = 16
@@ -96,8 +116,8 @@ def phase_build():
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    text = build.build_all(list(KERNELS))
-    for name in KERNELS:
+    text = build.build_all()  # every kernel of build.KERNELS, in parallel
+    for name in build.KERNELS:
         build.load(name)
     dt = time.perf_counter() - t0
     log(text)
@@ -248,6 +268,85 @@ def phase_bitplane_mac(torch, dev):
     return float(worst)
 
 
+def phase_bitplane_mac_noisy(torch, dev):
+    from repro_torch.core.constants import MC_SIGMA_VK
+    from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
+                                                      bitplane_mac_noisy,
+                                                      bitplane_mac_noisy_torch,
+                                                      physics_thresholds)
+
+    noise = {"mismatch": dict(mismatch_sigma=0.3),
+             "comparator": dict(comparator_offset_sigma=0.03),
+             "both": STRESS, "calibrated": dict(mismatch_sigma=MC_SIGMA_VK)}
+    g = torch.Generator(device=dev).manual_seed(8)
+    # (m, k, n, bits_a, bits_w, rows, noise)
+    cases = [(4, 768, 768, 8, 8, 8, "both"), (4, 768, 3072, 8, 8, 8, "both"),
+             (4, 3072, 768, 8, 8, 8, "comparator"),
+             (4, 768, 768, 8, 8, 8, "calibrated"),
+             (64, 768, 768, 8, 8, 8, "mismatch"),
+             (64, 768, 3072, 8, 8, 8, "calibrated"),
+             (64, 3072, 768, 8, 8, 8, "mismatch"),
+             (33, 1030, 129, 8, 8, 8, "both"),     # ragged M, K, N
+             (16, 768, 768, 4, 8, 8, "comparator"),  # asymmetric precision
+             (4, 768, 768, 8, 8, 16, "both"),      # 16-row groups
+             (4, 100, 40, 8, 8, 16, "mismatch")]   # 16-row groups, ragged
+    worst = 0
+    for m, k, n, ba, bw, rows, nz in cases:
+        ua = torch.randint(0, 1 << ba, (m, k), generator=g, device=dev,
+                           dtype=torch.int32)
+        uw = torch.randint(0, 1 << bw, (k, n), generator=g, device=dev,
+                           dtype=torch.int32)
+        kw = dict(bits_a=ba, bits_w=bw, rows=rows, **noise[nz])
+        out = bitplane_mac_noisy(ua, uw, 11, **kw)
+        again = bitplane_mac_noisy(ua, uw, 11, **kw)
+        torch.cuda.synchronize()
+        plain = bitplane_mac_noisy_torch(ua, uw, 11, **kw)
+        worst = max(worst, (out - plain).abs().max().item())
+        if not torch.equal(out, plain):
+            raise AssertionError(
+                f"bitplane_mac_noisy differs from its plain version at "
+                f"{(m, k, n, ba, bw, rows, nz)} in "
+                f"{int((out != plain).sum())} of {out.numel()} elements")
+        if not torch.equal(out, again):
+            raise AssertionError("bitplane_mac_noisy: the same seed gave "
+                                 f"two results at {(m, k, n, nz)}")
+        if m == 4 and (k, n) == (768, 768) and rows == 8:
+            clean = bitplane_mac(ua, uw, bits_a=ba, bits_w=bw, rows=rows)
+            zero = bitplane_mac_noisy(ua, uw, 11, bits_a=ba, bits_w=bw,
+                                      rows=rows, mismatch_sigma=0.0,
+                                      comparator_offset_sigma=0.0)
+            if not torch.equal(zero, clean):
+                raise AssertionError("bitplane_mac_noisy with NoiseSpec(0, 0)"
+                                     " differs from bitplane_mac")
+            other = bitplane_mac_noisy(ua, uw, 12, **kw)
+            if nz == "both" and torch.equal(other, out):
+                raise AssertionError("bitplane_mac_noisy: two seeds gave the "
+                                     "same result at the stress sigmas")
+    good = physics_thresholds(8, dev)
+    detuned = torch.cat([torch.tensor([1.9], device=dev), good[:-1]])
+    ua = torch.randint(0, 4, (4, 768), generator=g, device=dev,
+                       dtype=torch.int32)
+    uw = torch.randint(0, 4, (768, 768), generator=g, device=dev,
+                       dtype=torch.int32)
+    kw = dict(bits_a=2, bits_w=2, **STRESS)
+    bad = bitplane_mac_noisy(ua, uw, 3, detuned, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(bad, bitplane_mac_noisy_torch(ua, uw, 3, detuned,
+                                                     **kw)):
+        raise AssertionError("bitplane_mac_noisy with detuned thresholds "
+                             "differs from its plain version")
+    if torch.equal(bad, bitplane_mac_noisy(ua, uw, 3, good, **kw)):
+        raise AssertionError("detuned thresholds did not change the noisy "
+                             "decode: the kernel ignores thr")
+    log(f"[4b] bitplane_mac_noisy bit-exact on {len(cases) + 1} cases "
+        "(1 detuned); NoiseSpec(0, 0) equals bitplane_mac; same seed "
+        "identical, two seeds differ")
+    # the plain version's Philox temporaries filled the caching allocator
+    # with GBs of int64 blocks; hand them back before the served paths
+    torch.cuda.empty_cache()
+    return float(worst)
+
+
 def phase_flash_attn(torch, dev):
     from repro_torch.kernels.flash_attn.ops import (flash_attention,
                                                     flash_attention_torch)
@@ -281,13 +380,15 @@ def phase_flash_attn(torch, dev):
 
 def kernel_wrappers():
     """name -> the wrapper whose ``launches`` counts that kernel."""
-    from repro_torch.kernels.bitplane_mac.ops import bitplane_mac
+    from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
+                                                      bitplane_mac_noisy)
     from repro_torch.kernels.flash_attn.ops import flash_attention
     from repro_torch.kernels.imc_mac.ops import imc_mac
     from repro_torch.kernels.paged_attn.ops import paged_attention
 
     return {"imc_mac": imc_mac, "paged_attn": paged_attention,
-            "bitplane_mac": bitplane_mac, "flash_attn": flash_attention}
+            "bitplane_mac": bitplane_mac, "flash_attn": flash_attention,
+            "bitplane_mac_noisy": bitplane_mac_noisy}
 
 
 def zero_counts():
@@ -299,7 +400,7 @@ def read_counts():
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def first_prefill(torch, dev, params, cfg, prompt):
+def first_prefill(torch, dev, params, cfg, prompt, noise_seed=None):
     """The first request's bucketed prefill logits (f32, on the CPU)."""
     import numpy as np
 
@@ -309,22 +410,29 @@ def first_prefill(torch, dev, params, cfg, prompt):
     padded[0, :len(prompt)] = prompt
     with torch.inference_mode():
         logits, _ = prefill(params, {"tokens": torch.from_numpy(padded).to(
-            dev), "length": len(prompt)}, cfg)
+            dev), "length": len(prompt)}, cfg, noise_seed=noise_seed)
     return logits.float().cpu()
 
 
-def serve_path(torch, dev, cfg, params, prompts, tag, must, never=()):
+def rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def serve_path(torch, dev, cfg, params, prompts, tag, must, never=(),
+               noise_seed=0):
     """Serve the six requests through ``Server``; every launch counter is
     zeroed just before and read just after.  Each kernel in ``must`` has to
     launch, each in ``never`` must not.  Also counts one decode step's and
     one prefill's launches at the server's shapes."""
+    from repro_torch.kernels.common import mix_seed
     from repro_torch.launch.serve import slo_summary
     from repro_torch.launch.server import Request, Server
     from repro_torch.models.model import decode_step
     from repro_torch.telemetry import Registry
 
     server = Server(cfg, params, slots=4, kv="paged", block_size=16,
-                    buckets=(16, 32, 64), registry=Registry(), device=dev)
+                    buckets=(16, 32, 64), registry=Registry(), device=dev,
+                    noise_seed=noise_seed)
     zero_counts()
     t0 = time.perf_counter()
     handles = [server.submit(Request(p, max_new_tokens=MAX_NEW))
@@ -355,18 +463,21 @@ def serve_path(torch, dev, cfg, params, prompts, tag, must, never=()):
         zero_counts()  # one decode step at the server's shapes (4 slots)
         tok = torch.zeros((4, 1), dtype=torch.int32, device=dev)
         table = torch.from_numpy(server.alloc.table()).to(dev)
-        decode_step(params, server.cache, tok, cfg, block_table=table)
+        decode_step(params, server.cache, tok, cfg, block_table=table,
+                    noise_seed=1)
         torch.cuda.synchronize()
         per_step = read_counts()
-    zero_counts()  # one bucket-16 prefill
-    first = first_prefill(torch, dev, params, cfg, prompts[0])
+    zero_counts()  # one bucket-16 prefill, with the server's first seed
+    first = first_prefill(torch, dev, params, cfg, prompts[0],
+                          noise_seed=mix_seed(noise_seed, 0, 0))
     per_prefill = read_counts()
     if handles[0].tokens[0] != int(first[0].argmax()):
         raise AssertionError(f"{tag}: the server's first token is not the "
                              "argmax of its prefill logits")
     return {"launches": launches, "per_decode_step": per_step,
             "per_prefill": per_prefill, "slos": slos, "wall_s": wall,
-            "decode_ticks": server.decode_ticks}, first
+            "decode_ticks": server.decode_ticks,
+            "streams": [h.tokens for h in handles]}, first
 
 
 def phase_server(torch, dev):
@@ -375,7 +486,7 @@ def phase_server(torch, dev):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.fabric import FabricSpec
+    from repro_torch.core.fabric import FabricSpec, NoiseSpec
     from repro_torch.models.model import init_params, prefill
 
     cfg = get_config("imc-paper-110m")
@@ -391,7 +502,8 @@ def phase_server(torch, dev):
     # a. exact fabric
     exact, card = serve_path(torch, dev, cfg, params, prompts, "exact",
                              must=("imc_mac", "paged_attn"),
-                             never=("bitplane_mac", "flash_attn"))
+                             never=("bitplane_mac", "flash_attn",
+                                    "bitplane_mac_noisy"))
     # its first prefill: card vs the plain path on the CPU
     with torch.inference_mode():
         padded = torch.zeros((1, 16), dtype=torch.int32)
@@ -414,7 +526,8 @@ def phase_server(torch, dev):
                                   use_flash_kernel=True)
     sim, sim_flash = serve_path(
         torch, dev, sim_cfg, params, prompts, "sim+flash",
-        must=("bitplane_mac", "flash_attn", "paged_attn"), never=("imc_mac",))
+        must=("bitplane_mac", "flash_attn", "paged_attn"),
+        never=("imc_mac", "bitplane_mac_noisy"))
     sim_dense = first_prefill(torch, dev, params, dataclasses.replace(
         sim_cfg, use_flash_kernel=False), prompts[0])
     if not torch.equal(sim_dense, card):
@@ -448,7 +561,51 @@ def phase_server(torch, dev):
     sim.update(logit_err=flash_err, logit_scale=scale,
                rel_vs_dense=rel, rel_vs_dense_plain=rel_plain,
                max_err_vs_dense=dense_err)
-    return {"exact": exact, "sim_flash": sim}
+
+    # c. the paper's sim fabric with its calibrated noise, flash prefill
+    noisy_cfg = dataclasses.replace(sim_cfg, fabric=FabricSpec(
+        mode="sim", noise=NoiseSpec.calibrated()))
+    must = ("bitplane_mac_noisy", "flash_attn", "paged_attn")
+    never = ("imc_mac", "bitplane_mac")
+    noisy, noisy_first = serve_path(torch, dev, noisy_cfg, params, prompts,
+                                    "sim+noise+flash", must, never,
+                                    noise_seed=NOISE_SEED)
+    per_step = noisy["per_decode_step"]["bitplane_mac_noisy"]
+    if per_step != 6 * cfg.n_layers:  # 72: 4 attention + 2 MLP projections
+        raise AssertionError(f"sim+noise: {per_step} bitplane_mac_noisy "
+                             f"launches per decode step, expected "
+                             f"{6 * cfg.n_layers}")
+    replay, _ = serve_path(torch, dev, noisy_cfg, params, prompts,
+                           "sim+noise+flash (replay)", must, never,
+                           noise_seed=NOISE_SEED)
+    if replay["streams"] != noisy["streams"]:
+        raise AssertionError("sim+noise: the same noise_seed gave different "
+                             "token streams")
+    stress_cfg = dataclasses.replace(sim_cfg, fabric=FabricSpec(
+        mode="sim", noise=NoiseSpec(**STRESS)))
+    s1, s2 = (first_prefill(torch, dev, params, stress_cfg, prompts[0],
+                            noise_seed=s) for s in (1, 2))
+    if torch.equal(s1, s2) or torch.equal(s1, sim_flash) or \
+            torch.equal(s2, sim_flash):
+        raise AssertionError("sim+noise: stress-sigma prefill logits under "
+                             "two seeds must differ from each other and "
+                             "from noise-free sim")
+    for t in (s1, s2, noisy_first):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError("sim+noise: prefill logits not finite")
+    rel_cal = rel_l2(noisy_first, sim_flash)
+    rel_stress = [rel_l2(s1, sim_flash), rel_l2(s2, sim_flash)]
+    log(f"[6] sim+noise+flash: the same noise_seed replays identical streams;"
+        f" prefill logits vs noise-free sim+flash: relative L2 {rel_cal:.4g} "
+        f"at the calibrated sigma, {rel_stress[0]:.4g} / {rel_stress[1]:.4g} "
+        f"at the stress sigmas (seeds 1 / 2, which differ: relative L2 "
+        f"{rel_l2(s1, s2):.4g} between them); top-1 "
+        f"{'equal' if int(noisy_first.argmax()) == int(sim_flash.argmax()) else 'differs'}"
+        " to noise-free at the calibrated sigma")
+    noisy.update(rel_vs_clean_calibrated=rel_cal,
+                 rel_vs_clean_stress=rel_stress,
+                 replay_slos=replay["slos"])
+    return {"exact": exact, "sim_flash": sim, "sim_noise": noisy}
 
 
 def _to_cpu(tree):
@@ -583,6 +740,62 @@ def time_bitplane_mac(torch, dev):
                       "calibrated thresholds")
 
 
+def time_bitplane_mac_noisy(torch, dev):
+    """One decode step's bitplane_mac_noisy work (the shapes of
+    time_bitplane_mac), mismatch only at the calibrated sigma (the served
+    path) and mismatch + comparator offset at the stress sigmas.  The plain
+    version is timed on one layer's six projections and scaled by 12."""
+    from repro_torch.core.constants import MC_SIGMA_VK
+    from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac_noisy,
+                                                      bitplane_mac_noisy_torch)
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    shapes = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
+    m, layers, bits, rows = 4, 12, 8, 8
+    a = {k: torch.randint(0, 256, (m, k), generator=g, device=dev,
+                          dtype=torch.uint8) for k in (768, 3072)}
+    ws = [[torch.randint(0, 256, s, generator=g, device=dev,
+                         dtype=torch.uint8) for s in shapes]
+          for _ in range(layers)]
+    a32 = {k: v.to(torch.int32) for k, v in a.items()}
+    w32 = [w.to(torch.int32) for w in ws[0]]
+
+    def step(fn, act, weights, **kw):
+        for lw in weights:
+            for w in lw:
+                fn(act[w.shape[0]], w, 5, bits_a=bits, bits_w=bits,
+                   rows=rows, **kw)
+
+    out = {}
+    elems = layers * sum(bits * bits * m * (k // rows) * n for k, n in shapes)
+    nbytes = layers * sum(m * k + k * n + 4 * m * n for k, n in shapes)
+    for tag, kw, normals, iters in (
+            ("", dict(mismatch_sigma=MC_SIGMA_VK), 1, 3),
+            ("_both", STRESS, 1 + rows, 2)):
+        ms = cuda_ms(torch, lambda: step(bitplane_mac_noisy, a, ws, **kw),
+                     iters=iters, warmup=1)
+        plain = 12 * cuda_ms(torch, lambda: step(
+            bitplane_mac_noisy_torch, a32, [w32], **kw), iters=1, warmup=1)
+        # log, sqrt, cos per normal, and sqrt(k) for the mismatch
+        sfu_ops = elems * (3 * normals + 1)
+        b_ms, by = bound(nbytes, sfu_ops, SFU_OPS_PER_S)
+        out.update({f"ms{tag}": ms, f"plain_ms{tag}": plain,
+                    f"bound_ms{tag}": b_ms, f"bound_by{tag}": by,
+                    f"sfu_ops{tag}": sfu_ops})
+    out.update(library_ms=None, elements=elems, bytes=nbytes,
+               shape="one decode step: 12 layers x {4x (768,768), "
+                     "(768,3072), (3072,768)} at M=4, 8x8 bits, rows 8, "
+                     "uint8 operands; ms / plain_ms / bound_ms: mismatch "
+                     "only at the calibrated sigma 0.05; *_both: mismatch "
+                     "0.3 + comparator offset 0.03; plain version timed on "
+                     "one layer's six projections x 12; bound: the larger "
+                     "of the bytes at 3.35 TB/s and the special-function "
+                     "ops (log, sqrt, cos per normal + sqrt(k)) at 16 per "
+                     "SM per clock; library: none computes the noisy "
+                     "pyramid")
+    return out
+
+
 def time_flash_attn(torch, dev):
     """One bucket-64 prefill's attention: 12 layers, B=1, S=64, H=KV=12,
     hd=64, bf16, causal."""
@@ -640,13 +853,18 @@ def main() -> int:
     mac_err = phase_imc_mac(torch, dev)
     attn_err, attn_worst = phase_paged_attn(torch, dev)
     bp_err = phase_bitplane_mac(torch, dev)
+    bpn_err = phase_bitplane_mac_noisy(torch, dev)
     flash_err, flash_worst = phase_flash_attn(torch, dev)
     served = phase_server(torch, dev)
     exact, sim = served["exact"], served["sim_flash"]
+    noisy = served["sim_noise"]
     timed = {"imc_mac": time_imc_mac(torch, dev),
              "paged_attn": time_paged_attn(torch, dev),
              "bitplane_mac": time_bitplane_mac(torch, dev),
-             "flash_attn": time_flash_attn(torch, dev)}
+             "flash_attn": time_flash_attn(torch, dev),
+             "bitplane_mac_noisy": time_bitplane_mac_noisy(torch, dev)}
+    timed["bitplane_mac_noisy"]["noise_free_bitplane_mac_ms"] = \
+        timed["bitplane_mac"]["ms"]
 
     tpu = "src/repro/kernels"
     kernels = [
@@ -672,15 +890,29 @@ def main() -> int:
              launches_per_decode_step=sim["per_decode_step"]["flash_attn"],
              launches_per_prefill=sim["per_prefill"]["flash_attn"],
              max_abs_err=flash_err, max_abs_err_by_dtype=flash_worst),
+        dict(name="bitplane_mac_noisy",
+             replaces=f"{tpu}/bitplane_mac/bitplane_mac.py:187",
+             path="sim_noise", launches=noisy["launches"]["bitplane_mac_noisy"],
+             launches_per_decode_step=noisy["per_decode_step"][
+                 "bitplane_mac_noisy"],
+             launches_per_prefill=noisy["per_prefill"]["bitplane_mac_noisy"],
+             max_abs_err=bpn_err),
     ]
     for k in kernels:
         k.update(route="cuda", source=f"src/repro_torch/csrc/{k['name']}.cu",
                  **timed[k["name"]])
+        lib = "none" if k["library_ms"] is None else \
+            f"{k['library_ms']:.4f} ms"
         log(f"[7] {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms"
             f" by {k['bound_by']}; plain {k['plain_ms']:.4f} ms; library "
-            f"{k['library_ms']:.4f} ms); {k['launches_per_decode_step']} "
+            f"{lib}); {k['launches_per_decode_step']} "
             f"launches per decode step, {k['launches_per_prefill']} per "
             f"prefill, {k['launches']} in the {k['path']} run")
+    t = timed["bitplane_mac_noisy"]
+    log(f"[7] bitplane_mac_noisy, mismatch + comparator offset: "
+        f"{t['ms_both']:.4f} ms (bound {t['bound_ms_both']:.4f} ms by "
+        f"{t['bound_by_both']}; plain {t['plain_ms_both']:.4f} ms); "
+        f"noise-free bitplane_mac {t['noise_free_bitplane_mac_ms']:.4f} ms")
     log(f"[8] build {build_s:.2f} s; served {json.dumps(served)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,5 @@
 """Bit-serial N-bit MAC over the IMC fabric (port of
-``repro/core/bitserial.py``, noise-free).
+``repro/core/bitserial.py``).
 
 A multi-bit dot product decomposes into binary (bit-plane) dot products:
 
@@ -13,7 +13,8 @@ digitally.  Two modes:
   * exact — decode is the identity on [0, rows]; group sums telescope back
             to a plain integer matmul.
   * sim   — per-group counts go through the analog path (voltage model ->
-            thermometer decode), the hardware-faithful emulation.
+            thermometer decode), optionally with device mismatch and
+            comparator offset noise: the hardware-faithful emulation.
 
 :func:`bitserial_matmul_unsigned` is the plane-batched engine: all
 ``bits_a x bits_w`` plane pairs ride the free dimensions of one G-batched
@@ -27,19 +28,27 @@ on its own chunk only, so the result is bit-identical.
 
 Counts are computed as float32 products of {0, 1} planes: every partial sum
 is an integer of at most ``rows``, exact in float32, and float32 products run
-on the card where integer ones do not.  Noise (device mismatch, comparator
-offset) comes with the noisy slice of the port and raises "not ported yet".
+on the card where integer ones do not.
+
+Noise: a noisy engine takes a 64-bit ``seed``.  Plane pair ``i = p * PW + q``
+draws from its own ``torch.Generator`` seeded ``mix_seed(seed, i)`` (the
+counterpart of the reference's ``fold_in(key, i)``), mismatch first, then the
+comparator offsets, in the batched engine and in the loop alike, so both
+draw identical noise.  Its numbers are not the reference's (``jax.random``
+and ``torch`` differ from one seed); tests hand both the same normals.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core import constants as C
 from repro_torch.core.decoder import decode_voltage, thresholds
+from repro_torch.core.montecarlo import mc_count_noise
 from repro_torch.core.quant import to_bitplanes
 from repro_torch.core.rbl import rbl_voltage
+from repro_torch.kernels.common import mix_seed
 
 CHUNK_ELEMS = 1 << 24  # group counts held at once by the plane-batched engine
 
@@ -134,39 +143,65 @@ def plane_pair_weights(bits_a: int, bits_w: int, device=None) -> torch.Tensor:
     return (1 << (p + q)).reshape(-1)
 
 
-def _not_ported_noise(mismatch=False, mismatch_sigma=None,
-                      comparator_offset_sigma=None) -> None:
-    if mismatch or mismatch_sigma is not None or \
-            comparator_offset_sigma is not None:
-        raise NotImplementedError("sim with noise (device mismatch or "
-                                  "comparator offset) is not ported yet")
+def pair_generator(seed: int, pair: int, device=None) -> torch.Generator:
+    """The generator plane pair ``pair`` draws from under ``seed``."""
+    return torch.Generator(device=device or "cpu").manual_seed(
+        mix_seed(seed, pair))
 
 
 def decode_group_counts(counts, *, mode: str = "exact", rows: int = C.ROWS,
+                        generator: Optional[torch.Generator] = None,
+                        z_mismatch: Optional[torch.Tensor] = None,
+                        z_comparator: Optional[torch.Tensor] = None,
                         mismatch: bool = False, mismatch_sigma=None,
                         comparator_offset_sigma=None,
                         rbl_mode: str = "lut") -> torch.Tensor:
     """Pass group counts through the (modeled) analog decode path.
 
     mode="exact": identity (clipped) — the digital equivalent.
-    mode="sim":   counts -> V_RBL -> comparators -> counts.
+    mode="sim":   counts -> k_eff (+ mismatch) -> V_RBL -> comparators
+                  (+ offset) -> counts.
+
+    ``mismatch=True`` draws device mismatch at the paper-calibrated sigma;
+    ``mismatch_sigma`` sets it explicitly (the ``NoiseSpec`` path) and
+    implies mismatch.  The normals come from ``generator`` (mismatch first,
+    counts' shape; then the offsets, counts' shape + (rows,)) or are passed
+    in as ``z_mismatch`` / ``z_comparator``.
     """
     if mode == "exact":
         return torch.clamp(counts, 0, rows)
     if mode != "sim":
         raise ValueError(mode)
-    _not_ported_noise(mismatch, mismatch_sigma, comparator_offset_sigma)
-    v = rbl_voltage(counts.to(torch.float32), rows=rows, mode=rbl_mode)
-    return decode_voltage(v, rows=rows, mode=rbl_mode)
+    k_eff = counts.to(torch.float32)
+    mismatch = mismatch or mismatch_sigma is not None
+    if generator is None and ((mismatch and z_mismatch is None) or (
+            comparator_offset_sigma is not None and z_comparator is None)):
+        raise ValueError("sim with noise requires a generator (or the "
+                         "normals z_mismatch / z_comparator)")
+    if mismatch:
+        k_eff = k_eff + mc_count_noise(generator, counts.shape, counts,
+                                       sigma_vk=mismatch_sigma, z=z_mismatch)
+    v = rbl_voltage(k_eff, rows=rows, mode=rbl_mode)
+    return decode_voltage(v, rows=rows, mode=rbl_mode,
+                          comparator_offset_sigma=comparator_offset_sigma,
+                          generator=generator, z=z_comparator)
+
+
+def _is_noisy(mode: str, decode_kw) -> bool:
+    return mode == "sim" and bool(
+        decode_kw.get("mismatch") or
+        decode_kw.get("mismatch_sigma") is not None or
+        decode_kw.get("comparator_offset_sigma") is not None)
 
 
 def decoded_pyramid(u_a, u_w, *, bits_a: int, bits_w: int, rows: int,
-                    decode: Callable[[torch.Tensor], torch.Tensor]
+                    decode: Callable[[torch.Tensor, int], torch.Tensor]
                     ) -> torch.Tensor:
     """sum_{p,q} 2^(p+q) sum_g decode(count[p, q, g]) for unsigned operands.
 
-    u_a: int[..., K]; u_w: int[K, N]; ``decode`` maps float32 group counts
-    to int32 decoded counts, elementwise.  Walks N in chunks of at most
+    u_a: int[..., K]; u_w: int[K, N]; ``decode(counts, n0)`` maps the float32
+    group counts ``[G, PA*M, PW*nc]`` of output columns ``[n0, n0 + nc)`` to
+    int32 decoded counts, elementwise.  Walks N in chunks of at most
     ``CHUNK_ELEMS`` counts.  Returns int32[..., N].
     """
     batch = tuple(u_a.shape[:-1])
@@ -181,7 +216,7 @@ def decoded_pyramid(u_a, u_w, *, bits_a: int, bits_w: int, rows: int,
     for n0 in range(0, n, step):
         w_planes = to_bitplanes(u_w[:, n0:n0 + step], bits_w)  # [PW, K, nc]
         nc = w_planes.shape[-1]
-        dec = decode(_fused_counts_f32(a_planes, w_planes, rows))
+        dec = decode(_fused_counts_f32(a_planes, w_planes, rows), n0)
         dec = dec.reshape(g, bits_a, m, bits_w, nc).sum(0, dtype=torch.int64)
         out[:, n0:n0 + nc] = (dec * wmat).sum((0, 2)).to(torch.int32)
     return out.reshape(batch + (n,))
@@ -189,6 +224,7 @@ def decoded_pyramid(u_a, u_w, *, bits_a: int, bits_w: int, rows: int,
 
 def bitserial_matmul_unsigned(u_a, u_w, *, bits_a: int = 8, bits_w: int = 8,
                               rows: int = C.ROWS, mode: str = "exact",
+                              seed: Optional[int] = None,
                               **decode_kw) -> torch.Tensor:
     """Unsigned bit-serial matmul — the plane-batched engine.
 
@@ -196,18 +232,28 @@ def bitserial_matmul_unsigned(u_a, u_w, *, bits_a: int = 8, bits_w: int = 8,
     Returns int32[..., N] == u_a @ u_w when mode="exact", and noise-free
     ``sim`` decodes every integer count to itself.  ``rbl_mode`` ("lut",
     the default, or "physics") picks the voltage model of the sim decode.
+
+    Noisy ``sim`` (``mismatch``, ``mismatch_sigma`` or
+    ``comparator_offset_sigma``) needs ``seed`` and runs the per-pair loop
+    :func:`bitserial_matmul_looped`: every plane pair's counts go through
+    :func:`decode_group_counts` with the pair's own generator.
     """
-    _not_ported_noise(decode_kw.pop("mismatch", False),
-                      decode_kw.pop("mismatch_sigma", None),
-                      decode_kw.pop("comparator_offset_sigma", None))
+    if _is_noisy(mode, decode_kw):
+        if seed is None:
+            raise ValueError("sim with noise requires a seed")
+        return bitserial_matmul_looped(u_a, u_w, bits_a=bits_a, bits_w=bits_w,
+                                       rows=rows, mode=mode, seed=seed,
+                                       **decode_kw)
+    for name in ("mismatch", "mismatch_sigma", "comparator_offset_sigma"):
+        decode_kw.pop(name, None)
     rbl_mode = decode_kw.pop("rbl_mode", "lut")
     if decode_kw:
         raise TypeError(f"unknown decode kwargs: {sorted(decode_kw)}")
     if mode == "exact":
-        def decode(c):
+        def decode(c, n0):
             return torch.clamp(c, 0, rows).to(torch.int32)
     elif mode == "sim":
-        def decode(c):
+        def decode(c, n0):
             return _decode_counts_inline(c, rows=rows, rbl_mode=rbl_mode)
     else:
         raise ValueError(mode)
@@ -217,20 +263,27 @@ def bitserial_matmul_unsigned(u_a, u_w, *, bits_a: int = 8, bits_w: int = 8,
 
 def bitserial_matmul_looped(u_a, u_w, *, bits_a: int = 8, bits_w: int = 8,
                             rows: int = C.ROWS, mode: str = "exact",
+                            seed: Optional[int] = None,
                             **decode_kw) -> torch.Tensor:
     """Seed reference engine: one count contraction + decode per plane pair.
 
-    Bit-identical to :func:`bitserial_matmul_unsigned`; kept as the oracle
-    of the batched engine and the fused kernel.
+    Bit-identical to :func:`bitserial_matmul_unsigned` (noise draws
+    included: pair ``i`` draws from :func:`pair_generator` (seed, i)); kept
+    as the oracle of the batched engine and the fused kernel.
     """
+    if _is_noisy(mode, decode_kw) and seed is None:
+        raise ValueError("sim with noise requires a seed")
     a_planes = to_bitplanes(u_a, bits_a)  # [PA, ..., K]
     w_planes = to_bitplanes(u_w, bits_w)  # [PW, K, N]
     out = None
     for p in range(bits_a):
         for q in range(bits_w):
+            kw = dict(decode_kw)
+            if seed is not None:
+                kw["generator"] = pair_generator(seed, p * bits_w + q,
+                                                 u_a.device)
             counts = group_counts(a_planes[p], w_planes[q], rows)
-            dec = decode_group_counts(counts, rows=rows, mode=mode,
-                                      **decode_kw)
+            dec = decode_group_counts(counts, rows=rows, mode=mode, **kw)
             part = torch.sum(dec, dim=-2, dtype=torch.int32) << (p + q)
             out = part if out is None else out + part
     return out

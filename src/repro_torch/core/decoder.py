@@ -1,26 +1,24 @@
 """MAC decoder: comparator bank -> thermometer code -> digital MAC count
-(port of ``repro/core/decoder.py``, noise-free).
+(port of ``repro/core/decoder.py``).
 
 The paper's decoder uses one comparator per MAC level; thresholds sit
 between adjacent RBL levels.  Comparator i outputs 1 while V_RBL is ABOVE
 its threshold, so count k produces the thermometer codes of Table I
 (k=0 -> 11111111, k=8 -> 00000000) and ``count = rows - popcount(code)``.
 
-Comparator offset noise (``comparator_offset_sigma``) comes with the noisy
-slice of the port and raises "not ported yet" here.
+``comparator_offset_sigma`` models input-referred comparator offset: each
+reference moves by ``sigma * z`` per element and comparator, with ``z``
+drawn from a ``torch.Generator`` or passed in (shape ``v.shape + (rows,)``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.core import constants as C
+from repro_torch.core.montecarlo import randn
 from repro_torch.core.rbl import level_voltages
-
-
-def _no_offset_noise(comparator_offset_sigma) -> None:
-    if comparator_offset_sigma is not None:
-        raise NotImplementedError("comparator_offset_sigma: the noisy decode "
-                                  "is not ported yet")
 
 
 def thresholds(rows: int = C.ROWS, *, mode: str = "lut",
@@ -34,15 +32,23 @@ def thresholds(rows: int = C.ROWS, *, mode: str = "lut",
 
 
 def thermometer_code(v_rbl, *, rows: int = C.ROWS, mode: str = "lut",
-                     t_eval: float = C.T_EVAL_S,
-                     comparator_offset_sigma=None) -> torch.Tensor:
+                     t_eval: float = C.T_EVAL_S, comparator_offset_sigma=None,
+                     generator: Optional[torch.Generator] = None,
+                     z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Comparator bank output: uint8 bits, bit i = (V_RBL > thr[i]).
 
-    Shape: v_rbl.shape + (rows,).
+    Shape: v_rbl.shape + (rows,).  Under ``comparator_offset_sigma`` the
+    references are ``thr + sigma * z`` (``z`` from ``generator`` unless
+    given).
     """
-    _no_offset_noise(comparator_offset_sigma)
     v = torch.as_tensor(v_rbl, dtype=torch.float32)[..., None]
     thr = thresholds(rows, mode=mode, t_eval=t_eval, device=v.device)
+    if comparator_offset_sigma is not None:
+        if z is None:
+            if generator is None:
+                raise ValueError("comparator noise requires a generator or z")
+            z = randn(generator, v.shape[:-1] + (rows,), v.device)
+        thr = thr + comparator_offset_sigma * z
     return (v > thr).to(torch.uint8)
 
 
@@ -54,9 +60,11 @@ def code_to_count(code) -> torch.Tensor:
 
 
 def decode_voltage(v_rbl, *, rows: int = C.ROWS, mode: str = "lut",
-                   t_eval: float = C.T_EVAL_S,
-                   comparator_offset_sigma=None) -> torch.Tensor:
+                   t_eval: float = C.T_EVAL_S, comparator_offset_sigma=None,
+                   generator: Optional[torch.Generator] = None,
+                   z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full analog-to-digital decode: V_RBL -> MAC count (int32)."""
     code = thermometer_code(v_rbl, rows=rows, mode=mode, t_eval=t_eval,
-                            comparator_offset_sigma=comparator_offset_sigma)
+                            comparator_offset_sigma=comparator_offset_sigma,
+                            generator=generator, z=z)
     return code_to_count(code)

@@ -1,5 +1,5 @@
 """FabricSpec + fabric_matmul: the typed entry point to the IMC fabric
-(port of ``repro/core/fabric.py``, noise-free engines).
+(port of ``repro/core/fabric.py``).
 
 A :class:`FabricSpec` is a frozen, hashable value object that determines how a
 GEMM executes on the modeled fabric: precision ``bits_a`` x ``bits_w``,
@@ -11,18 +11,24 @@ The backend words are ``auto | torch | cuda``:
 
   * ``cuda``  — the hand-written kernels: ``imc_mac`` (int8 GEMM) for
     ``exact``, ``bitplane_mac`` (the bit-plane pyramid with the physics
-    decode in the kernel) for ``sim``; a CPU tensor raises.
+    decode in the kernel) for ``sim``, ``bitplane_mac_noisy`` (the same with
+    the NoiseSpec Monte-Carlo in the kernel) for noisy ``sim``; a CPU tensor
+    raises.
   * ``torch`` — plain PyTorch: ``imc_mac``'s plain version for ``exact``,
-    the plane-batched bit-serial engine with the Table I (LUT) decode for
-    ``sim``, as the reference's ``jnp`` engines; a CUDA tensor raises (the
+    the bit-serial engine with the Table I (LUT) decode for ``sim``, noisy
+    or not, as the reference's ``jnp`` engines; a CUDA tensor raises (the
     plain version never stands in for a kernel on the card).
   * ``auto``  — ``cuda`` for a tensor on the card, ``torch`` for one on the
     CPU.
 
 Noise-free, both ``sim`` engines decode every integer count to itself, so
-``sim`` equals ``exact`` bit for bit.  A noisy spec raises "not ported yet"
-when its engine is resolved, never falls back.  The ``Fabric`` facade,
-MAC-derived logic and the cost model come in a later slice.
+``sim`` equals ``exact`` bit for bit.  Under noise the two are different
+models, as in the reference: ``sim/torch+noise`` decodes with the LUT
+voltage (the reference's ``_sim_jnp_noisy``), ``sim/cuda+noise`` with the
+physics voltage and thresholds (its ``_sim_pallas_noisy``).  A noisy spec
+needs a 64-bit ``seed`` per call; the same seed gives the same result.
+The ``Fabric`` facade, MAC-derived logic and the cost model come in a later
+slice.
 """
 from __future__ import annotations
 
@@ -135,8 +141,9 @@ class FabricSpec:
 
 
 # ---------------------------------------------------------------- registry
-# (mode, backend, noisy) -> engine(qa, qw, spec) -> int32 accumulator
-# qa: int8[..., K] signed quantized activations; qw: int8[K, N] weights.
+# (mode, backend, noisy) -> engine(qa, qw, spec, seed) -> int32 accumulator
+# qa: int8[..., K] signed quantized activations; qw: int8[K, N] weights;
+# seed: the call's 64-bit noise seed (None for a noise-free spec).
 _ENGINES: Dict[Tuple[str, str, bool], Callable] = {}
 
 
@@ -147,29 +154,20 @@ def register_engine(mode: str, backend: str, noisy: bool):
     return deco
 
 
-def check_ported(spec: FabricSpec) -> None:
-    """Raise up front for a spec whose engines are not ported yet."""
-    if spec.noisy:
-        raise NotImplementedError(
-            f"fabric mode {spec.mode!r} with noise is not ported yet: "
-            "repro_torch runs the noise-free exact and sim engines")
-
-
 def resolve_engine(spec: FabricSpec, device: torch.device) -> Callable:
     """Engine for a spec on ``device``; raises on unsupported combos."""
-    check_ported(spec)
     return _ENGINES[(spec.mode, spec.resolve_backend(device), spec.noisy)]
 
 
 @register_engine("exact", "torch", False)
-def _exact_torch(qa, qw, spec):
+def _exact_torch(qa, qw, spec, seed):
     from repro_torch.kernels.imc_mac.ops import imc_mac_torch
 
     return imc_mac_torch(qa, qw)
 
 
 @register_engine("exact", "cuda", False)
-def _exact_cuda(qa, qw, spec):
+def _exact_cuda(qa, qw, spec, seed):
     from repro_torch.kernels.imc_mac.ops import imc_mac
 
     return imc_mac(qa, qw)
@@ -183,7 +181,7 @@ def _sim_correction(qa, qw, spec):
 
 
 @register_engine("sim", "torch", False)
-def _sim_torch(qa, qw, spec):
+def _sim_torch(qa, qw, spec, seed):
     from repro_torch.core.bitserial import bitserial_matmul_unsigned
 
     u_a, u_w, corr = _sim_correction(qa, qw, spec)
@@ -193,8 +191,20 @@ def _sim_torch(qa, qw, spec):
     return uu - corr
 
 
+@register_engine("sim", "torch", True)
+def _sim_torch_noisy(qa, qw, spec, seed):
+    from repro_torch.core.bitserial import bitserial_matmul_unsigned
+
+    u_a, u_w, corr = _sim_correction(qa, qw, spec)
+    uu = bitserial_matmul_unsigned(
+        u_a, u_w, bits_a=spec.bits_a, bits_w=spec.bits_w, rows=spec.rows,
+        mode="sim", seed=seed, mismatch_sigma=spec.noise.mismatch_sigma,
+        comparator_offset_sigma=spec.noise.comparator_offset_sigma)
+    return uu - corr
+
+
 @register_engine("sim", "cuda", False)
-def _sim_cuda(qa, qw, spec):
+def _sim_cuda(qa, qw, spec, seed):
     from repro_torch.kernels.bitplane_mac.ops import bitplane_mac
 
     u_a, u_w, corr = _sim_correction(qa, qw, spec)
@@ -203,20 +213,35 @@ def _sim_cuda(qa, qw, spec):
     return uu - corr
 
 
+@register_engine("sim", "cuda", True)
+def _sim_cuda_noisy(qa, qw, spec, seed):
+    from repro_torch.kernels.bitplane_mac.ops import bitplane_mac_noisy
+
+    u_a, u_w, corr = _sim_correction(qa, qw, spec)
+    uu = bitplane_mac_noisy(
+        u_a, u_w, seed, bits_a=spec.bits_a, bits_w=spec.bits_w,
+        rows=spec.rows, mismatch_sigma=spec.noise.mismatch_sigma,
+        comparator_offset_sigma=spec.noise.comparator_offset_sigma)
+    return uu - corr
+
+
 # ------------------------------------------------------------------ matmul
 def fabric_matmul(x: torch.Tensor, w: torch.Tensor,
-                  spec: FabricSpec = FabricSpec()) -> torch.Tensor:
+                  spec: FabricSpec = FabricSpec(), *,
+                  seed: Optional[int] = None) -> torch.Tensor:
     """y[..., N] ~= x[..., K] @ w[K, N] through the fabric described by spec.
 
     Activations quantize per tensor (dynamic, in ``x``'s dtype) at
     ``bits_a``; weights per output channel at ``bits_w``.  The dequant runs
     in the reference's order, ``acc.f32 * scale_a * scale_w``, left to
-    right.
+    right.  ``seed`` (a 64-bit integer) is required iff ``spec.noisy``.
     """
+    if spec.noisy and seed is None:
+        raise ValueError(f"spec {spec.label} is noisy: pass seed=")
     engine = resolve_engine(spec, x.device)
     qx = quantize(x, spec.bits_a, axis=None)
     qw = quantize(w, spec.bits_w, axis=0)  # per-column (output channel)
-    acc = engine(qx.q, qw.q, spec)
+    acc = engine(qx.q, qw.q, spec, seed)
     return acc.to(torch.float32) * qx.scale * qw.scale.reshape(
         (1,) * (acc.ndim - 1) + (-1,))
 
@@ -234,10 +259,9 @@ def add_fabric_cli(ap) -> None:
     ap.add_argument("--imc-backend", default="auto", choices=BACKENDS)
     ap.add_argument("--imc-mismatch-sigma", "--imc-noise-sigma",
                     dest="imc_mismatch_sigma", type=float, default=None,
-                    help="device mismatch sigma (sim only; not ported yet)")
+                    help="device mismatch sigma (sim only; seeded per call)")
     ap.add_argument("--imc-comparator-sigma", type=float, default=None,
-                    help="comparator offset sigma in V (sim only; not "
-                         "ported yet)")
+                    help="comparator offset sigma in V (sim only; seeded)")
 
 
 def fabric_from_cli(args) -> Optional[FabricSpec]:
@@ -258,13 +282,11 @@ def apply_fabric_cli(args, cfg):
     """Shared launcher edge: fold the --imc* flags into a ModelConfig.
 
     Returns ``cfg`` unchanged when ``--imc`` wasn't given; ``--imc off``
-    turns the fabric off.  A spec whose engine is not ported (a noise flag)
-    raises "not ported yet" here, before any weight is made.
+    turns the fabric off.  A noisy spec draws its noise from the server's
+    ``noise_seed`` (the launchers pass ``--seed``).
     """
     if args.imc is None:
         return cfg
     spec = fabric_from_cli(args)
-    if spec is not None:
-        check_ported(spec)
     # the typed field is the one source of truth: clear the legacy channel
     return dataclasses.replace(cfg, fabric=spec, imc_mode="off")

@@ -17,9 +17,12 @@ from repro_torch.core.fabric import FabricSpec, fabric_matmul
 
 def imc_linear_apply(x: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None, *,
-                     spec: FabricSpec | None = None) -> torch.Tensor:
-    """y = fabric(x @ w) + b, configured by ``spec`` (f32 out)."""
-    y = fabric_matmul(x, w, spec if spec is not None else FabricSpec())
+                     spec: FabricSpec | None = None,
+                     seed: Optional[int] = None) -> torch.Tensor:
+    """y = fabric(x @ w) + b, configured by ``spec`` (f32 out); ``seed``
+    feeds a noisy spec (the reference's ``key=``)."""
+    y = fabric_matmul(x, w, spec if spec is not None else FabricSpec(),
+                      seed=seed)
     if b is not None:
         y = y + b
     return y

@@ -87,7 +87,9 @@ def rbl_voltage_physics(k, *, rows: int = C.ROWS,
     x = k * u  # total discharge "budget" in volts
     lin = C.V0_LEAK - x
     x_tri = torch.clamp_min(x - (C.V0_LEAK - C.VD_SAT), 0.0)
-    tri = C.VD_SAT * exp_f32(-x_tri / C.VD_SAT)
+    # divide by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the quotient's rounding
+    tri = C.VD_SAT * exp_f32(-x_tri / _f32(C.VD_SAT, k.device))
     return torch.where(lin >= C.VD_SAT, lin, tri)
 
 

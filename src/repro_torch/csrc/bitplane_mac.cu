@@ -30,51 +30,31 @@
 //     atomicAdd into a zeroed output: integer addition is exact in any order;
 //   * each step stages 32 K-groups: the uint8 operand tiles are read from
 //     device memory and packed into one 32-bit word per (plane, row or
-//     column, group) in shared memory, so a group count is one __popc;
+//     column, group) in shared memory, so a group count is one __popc
+//     (staging, voltage, split and epilogue in bitplane_common.cuh, shared
+//     with bitplane_mac_noisy.cu);
 //   * the decode: counts are integers in [0, rows], so each block builds the
 //     rows+1 entry table dec[] once from the live `thr` data, computing V(k)
-//     in float32 exactly as the reference does (no contracted multiply-adds);
+//     in float32 exactly as the plain version does (no contracted
+//     multiply-adds, core/rbl.py::exp_f32's exponential);
 //   * ragged edges: values past M, N or K stage as zeros, never padded in
 //     device memory.  Only the real ceil(K/rows) groups are decoded: a
 //     zero-padded partial last group is real hardware and is decoded; a group
 //     past K is not.  Rows past M are not computed, columns past N not stored.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bitplane_common.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int BM = 8;           // output rows per block
-constexpr int BN = 32;          // output columns per block (one per lane)
-constexpr int GK = 32;          // K-groups staged per step
-constexpr int MAX_PLANES = 8;
-constexpr int MAX_ROWS = 32;    // one group of one plane fits one 32-bit word
+using namespace bitplane;
+
 constexpr int TARGET_BLOCKS = 264;  // two per SM on a 132-SM H100
-
-// Physics constants (src/repro/core/constants.py), rounded to float32 where
-// they meet a float32 value, as JAX's weak typing rounds them.
-constexpr double U_LIN = 0.216845;
-constexpr double V0_LEAK = 1.758;
-constexpr double VD_SAT = 0.865014;
-
-__device__ float rbl_voltage(int k, int rows) {
-  const float u = static_cast<float>(U_LIN * (8.0 / rows));
-  const float x = __fmul_rn(static_cast<float>(k), u);
-  const float lin = __fsub_rn(static_cast<float>(V0_LEAK), x);
-  const float xt = fmaxf(__fsub_rn(x, static_cast<float>(V0_LEAK - VD_SAT)), 0.f);
-  const float vd = static_cast<float>(VD_SAT);
-  const float tri = __fmul_rn(vd, expf(__fdiv_rn(-xt, vd)));
-  return lin >= vd ? lin : tri;
-}
 
 __global__ void __launch_bounds__(THREADS)
 bitplane_mac_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
                     const float* __restrict__ thr, int32_t* __restrict__ out,
                     int M, int N, int K, int PA, int PW, int rows,
                     int groups_per_split, bool accumulate) {
-  __shared__ uint32_t a_s[MAX_PLANES][BM][GK];   //  8 KB
-  __shared__ uint32_t w_s[MAX_PLANES][GK][BN];   // 32 KB; reused for the warp sums
+  __shared__ Smem s;
   __shared__ int dec_s[MAX_ROWS + 1];
 
   const int tid = threadIdx.x;
@@ -88,7 +68,7 @@ bitplane_mac_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w
   const int g_end = min(groups, g_begin + groups_per_split);
 
   if (tid <= rows) {  // the decode table, from the live thresholds
-    const float v = rbl_voltage(tid, rows);
+    const float v = rbl_voltage(static_cast<float>(tid), rows);
     int d = 0;
     for (int i = 0; i < rows; ++i) d += (v <= thr[i]) ? 1 : 0;
     dec_s[tid] = d;
@@ -101,91 +81,30 @@ bitplane_mac_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w
   for (int gs = g_begin; gs < g_end; gs += GK) {
     const int ng = min(GK, g_end - gs);
     __syncthreads();  // the previous step's reads are done
-    // A: one (row, group) per thread, `rows` bytes packed into PA words.
-    for (int t = tid; t < BM * GK; t += THREADS) {
-      const int i = t / GK;
-      const int g = t % GK;
-      uint32_t word[MAX_PLANES];
-#pragma unroll
-      for (int p = 0; p < MAX_PLANES; ++p) word[p] = 0u;
-      if (i < m_rows && g < ng) {
-        const uint8_t* row = a + static_cast<size_t>(m0 + i) * K;
-        const int kb = (gs + g) * rows;
-        for (int r = 0; r < rows; ++r) {
-          const uint32_t v = (kb + r < K) ? row[kb + r] : 0u;
-#pragma unroll
-          for (int p = 0; p < MAX_PLANES; ++p) word[p] |= ((v >> p) & 1u) << r;
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < MAX_PLANES; ++p)
-        if (p < PA) a_s[p][i][g] = word[p];
-    }
-    // W: one (group, column) per thread; lanes read neighbouring columns.
-    for (int t = tid; t < GK * BN; t += THREADS) {
-      const int g = t / BN;
-      const int c = t % BN;
-      uint32_t word[MAX_PLANES];
-#pragma unroll
-      for (int q = 0; q < MAX_PLANES; ++q) word[q] = 0u;
-      if (g < ng && n0 + c < N) {
-        const int kb = (gs + g) * rows;
-        for (int r = 0; r < rows; ++r) {
-          const uint32_t v =
-              (kb + r < K) ? w[static_cast<size_t>(kb + r) * N + n0 + c] : 0u;
-#pragma unroll
-          for (int q = 0; q < MAX_PLANES; ++q) word[q] |= ((v >> q) & 1u) << r;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < MAX_PLANES; ++q)
-        if (q < PW) w_s[q][g][c] = word[q];
-    }
+    stage(s, a, w, N, K, PA, PW, rows, m0, n0, m_rows, gs, ng);
     __syncthreads();
     // Warp `warp` takes groups warp, warp + 8, ...; lane = column.
     for (int g = warp; g < ng; g += WARPS) {
       uint32_t wq[MAX_PLANES];
 #pragma unroll
-      for (int q = 0; q < MAX_PLANES; ++q) wq[q] = (q < PW) ? w_s[q][g][lane] : 0u;
+      for (int q = 0; q < MAX_PLANES; ++q) wq[q] = (q < PW) ? s.w[q][g][lane] : 0u;
 #pragma unroll
       for (int i = 0; i < BM; ++i) {
         if (i < m_rows) {
-          int s = 0;
+          int sum = 0;
           for (int p = 0; p < PA; ++p) {
-            const uint32_t ap = a_s[p][i][g];
+            const uint32_t ap = s.a[p][i][g];
 #pragma unroll
             for (int q = 0; q < MAX_PLANES; ++q)
-              if (q < PW) s += dec_s[__popc(ap & wq[q])] << (p + q);
+              if (q < PW) sum += dec_s[__popc(ap & wq[q])] << (p + q);
           }
-          acc[i] += s;
+          acc[i] += sum;
         }
       }
     }
   }
-
-  // Sum the 8 warps' partial accumulators; one output per thread.
-  __syncthreads();
-  int* part = reinterpret_cast<int*>(&w_s[0][0][0]);
-#pragma unroll
-  for (int i = 0; i < BM; ++i) part[(warp * BM + i) * BN + lane] = acc[i];
-  __syncthreads();
-  const int i = tid / BN;
-  const int c = tid % BN;
-  int s = 0;
-#pragma unroll
-  for (int wp = 0; wp < WARPS; ++wp) s += part[(wp * BM + i) * BN + c];
-  if (i < m_rows && n0 + c < N) {
-    int32_t* o = out + static_cast<size_t>(m0 + i) * N + n0 + c;
-    if (accumulate) {
-      atomicAdd(o, s);
-    } else {
-      *o = s;
-    }
-  }
+  store_tile(s, acc, out, N, m0, n0, m_rows, accumulate);
 }
-
-static_assert(BM * BN == THREADS, "one output per thread in the final sum");
-static_assert(WARPS * BM * BN <= MAX_PLANES * GK * BN, "warp sums fit in w_s");
 
 }  // namespace
 
@@ -197,33 +116,15 @@ extern "C" int bitplane_mac_launch(const void* a, const void* w, const void* thr
                                    int bits_w, int rows, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (bits_a < 1 || bits_a > MAX_PLANES || bits_w < 1 || bits_w > MAX_PLANES ||
-      rows < 1 || rows > MAX_ROWS || M < 0 || N < 0 || K < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (M == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int groups = (K + rows - 1) / rows;
-  const int tiles_n = (N + BN - 1) / BN;
-  const int tiles_m = (M + BM - 1) / BM;
-  const int tiles = tiles_n * tiles_m;
-  // Split the K-groups across blocks until the grid fills the card; each
-  // split takes a multiple of WARPS groups.
-  int splits = (TARGET_BLOCKS + tiles - 1) / tiles;
-  splits = max(1, min(splits, (groups + WARPS - 1) / WARPS));
-  int per_split = (groups + splits - 1) / splits;
-  per_split = ((per_split + WARPS - 1) / WARPS) * WARPS;
-  splits = groups == 0 ? 1 : (groups + per_split - 1) / per_split;
-  const bool accumulate = splits > 1 || groups == 0;
-  if (accumulate) {
-    err = cudaMemsetAsync(out, 0, sizeof(int32_t) * static_cast<size_t>(M) * N, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (groups == 0) return static_cast<int>(cudaGetLastError());
-  }
-  dim3 grid(tiles_n, tiles_m, splits);
-  bitplane_mac_kernel<<<grid, THREADS, 0, s>>>(
+  Plan p;
+  bool skip = true;
+  const int rc = prepare(out, M, N, K, bits_a, bits_w, rows, TARGET_BLOCKS, s,
+                         &p, &skip);
+  if (skip) return rc;
+  bitplane_mac_kernel<<<p.grid, THREADS, 0, s>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w),
       static_cast<const float*>(thr), static_cast<int32_t*>(out), M, N, K,
-      bits_a, bits_w, rows, per_split, splits > 1);
+      bits_a, bits_w, rows, p.per_split, p.accumulate);
   return static_cast<int>(cudaGetLastError());
 }

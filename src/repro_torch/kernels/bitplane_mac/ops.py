@@ -1,6 +1,7 @@
-"""The ``bitplane_mac`` kernel: the paper's whole bit-plane pyramid in one
-launch, for the ``sim`` fabric engine (port of ``repro/kernels/bitplane_mac``,
-noise-free; CUDA source ``csrc/bitplane_mac.cu``).
+"""The ``bitplane_mac`` kernels: the paper's whole bit-plane pyramid in one
+launch, for the ``sim`` fabric engines (port of ``repro/kernels/bitplane_mac``;
+CUDA sources ``csrc/bitplane_mac.cu`` and, with the NoiseSpec Monte-Carlo in
+the kernel, ``csrc/bitplane_mac_noisy.cu``).
 
 For every plane pair (p, q) and every ``rows``-row K-group it takes the
 binary MAC count, the two-regime physics RBL voltage, the ``rows``-comparator
@@ -19,6 +20,15 @@ Noise-free, every integer count decodes to itself, so the result equals
 (or raises: on a build failure, a refused launch, a wrong dtype, device or
 shape); a CPU tensor takes the plain version :func:`bitplane_mac_torch`.
 ``bitplane_mac.launches`` counts kernel launches and nothing else.
+
+:func:`bitplane_mac_noisy` adds device mismatch on each group count and an
+offset on each comparator reference, drawn per element from the Philox
+stream of :mod:`repro_torch.kernels.common` under a 64-bit ``seed``: the same
+seed gives the same output, on the CPU, in the plain version on the card and
+in the kernel alike (:func:`bitplane_mac_noisy_torch` is the plain version).
+Its stream is not the reference's (that one is keyed by the TPU's grid
+steps), so it agrees with the reference in distribution only.
+``bitplane_mac_noisy.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -32,10 +42,15 @@ from repro_torch.core.bitserial import count_at_or_above, decoded_pyramid
 from repro_torch.core.decoder import thresholds
 from repro_torch.core.rbl import rbl_voltage_physics
 from repro_torch.kernels import build
+from repro_torch.kernels.common import (decode_counts_noisy, element_normals,
+                                        seed_words)
 
 MAX_ROWS = 32  # the kernel packs one K-group of one plane into a 32-bit word
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p,
                                                           ctypes.c_int]
+_NOISY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+    [ctypes.c_uint32] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p,
+                                                    ctypes.c_int]
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,7 +83,7 @@ def bitplane_mac_torch(u_a: torch.Tensor, u_w: torch.Tensor,
         thr = physics_thresholds(rows, u_a.device)
     thr = thr.to(device=u_a.device, dtype=torch.float32)
     return decoded_pyramid(u_a, u_w, bits_a=bits_a, bits_w=bits_w, rows=rows,
-                           decode=lambda c: decode_counts(c, thr, rows))
+                           decode=lambda c, n0: decode_counts(c, thr, rows))
 
 
 def _check(u_a, u_w, thr, bits_a, bits_w, rows):
@@ -94,21 +109,15 @@ def _check(u_a, u_w, thr, bits_a, bits_w, rows):
                          "one CUDA device (or all on the CPU)")
 
 
-def bitplane_mac(u_a: torch.Tensor, u_w: torch.Tensor,
-                 thr: torch.Tensor | None = None, *, bits_a: int = 8,
-                 bits_w: int = 8, rows: int = C.ROWS) -> torch.Tensor:
-    """Fused full-pyramid bit-serial matmul for arbitrary shapes.
+def _on_cpu(*ts) -> bool:
+    return all(t is None or t.device.type == "cpu" for t in ts)
 
-    u_a: int[..., K]; u_w: int[K, N]; leading batch dims of ``u_a`` flatten
-    into M.  ``thr`` (float[rows], descending) defaults to the
-    physics-model references for ``rows``.  Returns int32[..., N].
-    """
-    if u_a.device.type == "cpu" and u_w.device.type == "cpu" and (
-            thr is None or thr.device.type == "cpu"):
-        return bitplane_mac_torch(u_a, u_w, thr, bits_a=bits_a,
-                                  bits_w=bits_w, rows=rows)
+
+def _operands(name, u_a, u_w, thr, bits_a, bits_w, rows):
+    """Checked, contiguous kernel operands: (uint8 a [M, K], uint8 w [K, N],
+    float32 thr, int32 out [M, N], batch shape)."""
     if not u_a.is_cuda:
-        raise ValueError(f"bitplane_mac: operands on {u_a.device} and "
+        raise ValueError(f"{name}: operands on {u_a.device} and "
                          f"{u_w.device}; all must be on one CUDA device (or "
                          "all on the CPU)")
     if thr is None:
@@ -120,8 +129,25 @@ def bitplane_mac(u_a: torch.Tensor, u_w: torch.Tensor,
     a = u_a.reshape(-1, k).to(torch.uint8).contiguous()
     w = u_w.to(torch.uint8).contiguous()
     t = thr.to(torch.float32).contiguous()
-    m = a.shape[0]
-    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    out = torch.empty((a.shape[0], n), dtype=torch.int32, device=a.device)
+    return a, w, t, out, batch
+
+
+def bitplane_mac(u_a: torch.Tensor, u_w: torch.Tensor,
+                 thr: torch.Tensor | None = None, *, bits_a: int = 8,
+                 bits_w: int = 8, rows: int = C.ROWS) -> torch.Tensor:
+    """Fused full-pyramid bit-serial matmul for arbitrary shapes.
+
+    u_a: int[..., K]; u_w: int[K, N]; leading batch dims of ``u_a`` flatten
+    into M.  ``thr`` (float[rows], descending) defaults to the
+    physics-model references for ``rows``.  Returns int32[..., N].
+    """
+    if _on_cpu(u_a, u_w, thr):
+        return bitplane_mac_torch(u_a, u_w, thr, bits_a=bits_a,
+                                  bits_w=bits_w, rows=rows)
+    a, w, t, out, batch = _operands("bitplane_mac", u_a, u_w, thr, bits_a,
+                                    bits_w, rows)
+    (m, k), n = a.shape, w.shape[1]
     lib = build.load("bitplane_mac")
     fn = lib.bitplane_mac_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
@@ -134,3 +160,94 @@ def bitplane_mac(u_a: torch.Tensor, u_w: torch.Tensor,
 
 
 bitplane_mac.launches = 0
+
+
+# ------------------------------------------------------------------- noisy
+def _noisy_decoder(key, thr, rows, bits_a, bits_w, m, mismatch_sigma,
+                   comparator_offset_sigma):
+    """``decode(counts, n0)`` for :func:`decoded_pyramid`: the physics decode
+    of the chunk's counts ``[G, PA*M, PW*nc]`` with each element's normals
+    drawn from the kernel's stream."""
+    draws = ([0] if mismatch_sigma else []) + (
+        list(range(1, rows + 1)) if comparator_offset_sigma else [])
+
+    def decode(counts, n0):
+        g = counts.shape[0]
+        nc = counts.shape[2] // bits_w
+        c = counts.reshape(g, bits_a, m, bits_w, nc)
+        dev = counts.device
+
+        def idx(size, dim, start=0):
+            shape = [1] * 5
+            shape[dim] = size
+            return torch.arange(start, start + size, dtype=torch.int64,
+                                device=dev).reshape(shape)
+
+        pair = idx(bits_a, 1) * bits_w + idx(bits_w, 3)
+        z = element_normals(key, idx(nc, 4, n0), idx(m, 2), idx(g, 0), pair,
+                            draws) if draws else []
+        z_m = z[0] if mismatch_sigma else None
+        z_c = z[1:] if mismatch_sigma else z
+        return decode_counts_noisy(
+            c, thr, rows, z_mismatch=z_m, z_comparator=z_c,
+            mismatch_sigma=mismatch_sigma,
+            comparator_offset_sigma=comparator_offset_sigma)
+
+    return decode
+
+
+def bitplane_mac_noisy_torch(u_a: torch.Tensor, u_w: torch.Tensor, seed: int,
+                             thr: torch.Tensor | None = None, *,
+                             bits_a: int = 8, bits_w: int = 8,
+                             rows: int = C.ROWS, mismatch_sigma=None,
+                             comparator_offset_sigma=None) -> torch.Tensor:
+    """Plain version of :func:`bitplane_mac_noisy`: the physics pyramid
+    chunked over N, each element's normals drawn from the kernel's Philox
+    stream with the kernel's counters, so it equals the kernel bit for bit.
+    The same code runs on the CPU and on the card."""
+    if thr is None:
+        thr = physics_thresholds(rows, u_a.device)
+    thr = thr.to(device=u_a.device, dtype=torch.float32)
+    m = u_a.reshape(-1, u_a.shape[-1]).shape[0]
+    decode = _noisy_decoder(seed_words(seed), thr, rows, bits_a, bits_w, m,
+                            mismatch_sigma, comparator_offset_sigma)
+    return decoded_pyramid(u_a, u_w, bits_a=bits_a, bits_w=bits_w, rows=rows,
+                           decode=decode)
+
+
+def bitplane_mac_noisy(u_a: torch.Tensor, u_w: torch.Tensor, seed: int,
+                       thr: torch.Tensor | None = None, *, bits_a: int = 8,
+                       bits_w: int = 8, rows: int = C.ROWS,
+                       mismatch_sigma: float | None = None,
+                       comparator_offset_sigma: float | None = None
+                       ) -> torch.Tensor:
+    """Fused full-pyramid bit-serial matmul with the NoiseSpec Monte-Carlo
+    in the kernel.
+
+    Same operand contract as :func:`bitplane_mac`, plus ``seed`` (a 64-bit
+    integer; its two words key the Philox stream and ride in as kernel
+    arguments) and the sigmas (None or 0 draws nothing).  Same seed ->
+    identical outputs.  Returns int32[..., N].
+    """
+    if _on_cpu(u_a, u_w, thr):
+        return bitplane_mac_noisy_torch(
+            u_a, u_w, seed, thr, bits_a=bits_a, bits_w=bits_w, rows=rows,
+            mismatch_sigma=mismatch_sigma,
+            comparator_offset_sigma=comparator_offset_sigma)
+    a, w, t, out, batch = _operands("bitplane_mac_noisy", u_a, u_w, thr,
+                                    bits_a, bits_w, rows)
+    (m, k), n = a.shape, w.shape[1]
+    k0, k1 = seed_words(seed)
+    lib = build.load("bitplane_mac_noisy")
+    fn = lib.bitplane_mac_noisy_launch
+    fn.argtypes, fn.restype = _NOISY_ARGTYPES, ctypes.c_int
+    stream, dev = build.stream_and_device(a)
+    build.check_launch("bitplane_mac_noisy", fn(
+        a.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(), m, n, k,
+        bits_a, bits_w, rows, k0, k1, float(mismatch_sigma or 0.0),
+        float(comparator_offset_sigma or 0.0), stream, dev))
+    bitplane_mac_noisy.launches += 1
+    return out.reshape(batch + (n,))
+
+
+bitplane_mac_noisy.launches = 0

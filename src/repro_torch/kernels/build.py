@@ -4,10 +4,12 @@ with a plain C interface, loaded with ``ctypes``.
 Each ``csrc/<name>.cu`` compiles on its own, for Hopper only
 (``-gencode arch=compute_90a,code=sm_90a``), into
 ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout (override
-with ``REPRO_TORCH_BUILD_DIR``).  The hash covers the source and the flags,
-so an edited source never loads a stale library.  A build happens at first
-use, never at import: the CPU tests import every module on machines without
-``nvcc``.  :func:`build_all` starts one ``nvcc`` per source at once.
+with ``REPRO_TORCH_BUILD_DIR``).  The hash covers the source, every header
+under ``csrc/`` (``bitplane_common.cuh`` is shared by two sources) and the
+flags, so an edited source or header never loads a stale library.  A build
+happens at first use, never at import: the CPU tests import every module on
+machines without ``nvcc``.  :func:`build_all` starts one ``nvcc`` per source
+at once, by default for every kernel in ``KERNELS``.
 
 The sources include no PyTorch header: a file with a plain C interface
 builds in seconds, where one that includes ``torch/extension.h`` takes
@@ -24,11 +26,13 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNELS = ("imc_mac", "paged_attn", "bitplane_mac", "flash_attn",
+           "bitplane_mac_noisy")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -60,7 +64,10 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return src, build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -91,7 +98,7 @@ def _finish(name: str, out: Path, proc, tmp) -> str:
     return f"{name}: built {out.name}\n{log}"
 
 
-def build_all(names: List[str]) -> str:
+def build_all(names: Sequence[str] = KERNELS) -> str:
     """Build every named kernel, one nvcc each, all started together.
     Returns the compilers' logs (``-Xptxas -v`` register/smem reports)."""
     started = [(n, *_start(n)) for n in names]

@@ -3,6 +3,7 @@ the port's Server.
 
     python -m repro_torch.launch.profile --arch imc-paper-110m --steps 8
     python -m repro_torch.launch.profile --imc sim           # the sim path
+    python -m repro_torch.launch.profile --imc sim --imc-noise-sigma 0.05
 
 Admits ``--slots`` requests of mixed prompt lengths (random weights and
 prompts from ``--seed``), runs a few warm-up ticks, then profiles ``--steps``
@@ -12,7 +13,8 @@ the logits, so it is device-complete), the device's busy time per step (the
 sum of CUDA kernel and memcpy times the profiler saw), the idle share, the
 kernel launches per step, the busiest device ops and the most frequent CUDA
 runtime calls per step.  ``--trace-out`` also writes the Chrome trace.
-The ``--imc*`` flags select the fabric as in :mod:`repro_torch.launch.serve`.
+The ``--imc*`` flags select the fabric as in :mod:`repro_torch.launch.serve`;
+``--seed`` also seeds a noisy fabric's noise.
 Runs on the card only.
 """
 from __future__ import annotations
@@ -57,7 +59,7 @@ def main(argv=None):
         args.seed), dev)
     server = Server(cfg, params, slots=args.slots, kv="paged",
                     block_size=16, buckets=(16, 32, 64), registry=Registry(),
-                    device=dev)
+                    device=dev, noise_seed=args.seed)
     rng = np.random.default_rng(args.seed)
     budget = args.warmup + args.steps + 2
     for i in range(args.slots):

@@ -3,13 +3,16 @@ shell (port of ``repro/launch/serve.py``).
 
     python -m repro_torch.launch.serve --arch imc-paper-110m --requests 6
     python -m repro_torch.launch.serve --arch imc-paper-110m --imc sim --flash
+    python -m repro_torch.launch.serve --imc sim --imc-noise-sigma 0.05 --seed 7
     python -m repro_torch.launch.serve --arch qwen2.5-3b --reduce --device cpu
 
 Runs on the card by default and exits with an error without one; pass
 ``--device cpu`` to serve on the CPU.  Weights are random, drawn from
-``--seed``.  The ``--imc*`` flags set the fabric (``--imc sim`` is the
-paper's analog pipeline; the noise flags raise "not ported yet") and
-``--flash`` runs prefill attention through the flash-attention kernel.
+``--seed``, which also seeds the fabric's noise.  The ``--imc*`` flags set
+the fabric (``--imc sim`` is the paper's analog pipeline;
+``--imc-noise-sigma`` / ``--imc-comparator-sigma`` add its device mismatch
+and comparator offset) and ``--flash`` runs prefill attention through the
+flash-attention kernel.
 Prints each request's first tokens, then TTFT, TPOT and decode
 tokens/s from the server's telemetry, with the device they were taken on.
 """
@@ -59,7 +62,8 @@ def main(argv=None):
     ap.add_argument("--kv", default="paged", choices=["paged", "ring"])
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and prompts")
+                    help="seed of the random weights, the prompts and the "
+                         "fabric noise (a noisy serve is reproducible in it)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--flash", action="store_true",
@@ -81,7 +85,7 @@ def main(argv=None):
     server = Server(cfg, params, slots=args.slots, kv=args.kv,
                     block_size=args.block_size, buckets=(bucket,),
                     max_seq_len=bucket + args.max_new, registry=Registry(),
-                    device=dev)
+                    device=dev, noise_seed=args.seed)
     rng = np.random.default_rng(args.seed)
     t0 = clock()
     handles = [server.submit(Request(

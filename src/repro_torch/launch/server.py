@@ -25,8 +25,11 @@ against.
 The server calls :func:`~repro_torch.models.model.prefill`,
 :func:`~repro_torch.models.model.decode_step` and
 :func:`~repro_torch.models.kv_cache.merge_prefill_cache` directly, eagerly,
-under ``torch.inference_mode()``.  The reference's ``Engine`` (a step
-cache, per-step noise keys, the straggler monitor) is not ported yet.
+under ``torch.inference_mode()``.  Each model invocation takes its own noise
+seed ``mix_seed(noise_seed, tick, slot)`` (the reference's ``_next_key``),
+so a noisy fabric replays the same token streams under the same
+``noise_seed``.  The reference's ``Engine`` (a step cache, the straggler
+monitor) is not ported yet.
 
 Serving SLOs are host-side telemetry in the server's registry:
 ``server.ttft_s``, ``server.tpot_s``, ``server.admitted`` /
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, device_of, resolve_device
+from repro_torch.kernels.common import mix_seed
 from repro_torch.models.kv_cache import (BlockAllocator, broadcast_slots,
                                          init_paged_cache,
                                          merge_prefill_cache)
@@ -102,6 +106,8 @@ class Server:
     registry: telemetry registry (default: the process-global one).
     device: where ``params`` live; ``None`` means the card and raises
         without one.  Pass ``"cpu"`` to serve on the CPU.
+    noise_seed: the seed of a noisy fabric's noise; one seed per model
+        invocation is mixed from it, the tick and the slot.
     """
 
     def __init__(self, cfg, params, *, slots: int = 4, kv: str = "paged",
@@ -110,7 +116,7 @@ class Server:
                  max_seq_len: Optional[int] = None,
                  fail_at: Optional[Sequence[int]] = None,
                  registry: Optional[Registry] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, noise_seed: int = 0):
         if kv not in ("paged", "ring"):
             raise ValueError(f"kv must be 'paged' or 'ring', got {kv!r}")
         self.device = resolve_device(device)
@@ -137,6 +143,8 @@ class Server:
         self.recoveries = 0
         self.decode_ticks = 0
         self.decode_s = 0.0  # accumulated lockstep-decode wall time
+        self.noise_seed = noise_seed
+        self._tick = 0  # one noise seed per model invocation
         self._fail_at = set(fail_at or ())
         self._ring_shape: Optional[Tuple[int, int]] = None
         reg = registry or get_registry()
@@ -233,6 +241,11 @@ class Server:
                 return b
         raise ValueError(f"no bucket holds a length-{plen} prompt")
 
+    def _next_seed(self, slot: int = 0) -> int:
+        s = mix_seed(self.noise_seed, self._tick, slot)
+        self._tick += 1
+        return s
+
     def _pump(self):
         """Admit queued requests into free slots while blocks allow."""
         for slot in range(self.slots):
@@ -269,7 +282,8 @@ class Server:
             max_new = self._ring_shape[1]
         with span("server.prefill", rid=h.rid, len=plen, bucket=bucket):
             logits, cache1 = prefill(self.params, batch, self.cfg,
-                                     max_new_tokens=max_new)
+                                     max_new_tokens=max_new,
+                                     noise_seed=self._next_seed(slot))
             if self.cache is None:
                 if self.kv == "paged":
                     self.cache = init_paged_cache(cache1, self.slots,
@@ -336,7 +350,8 @@ class Server:
             if self.kv == "paged":
                 table = torch.from_numpy(self.alloc.table()).to(self.device)
             logits, self.cache = decode_step(self.params, self.cache, tok_t,
-                                             self.cfg, block_table=table)
+                                             self.cfg, block_table=table,
+                                             noise_seed=self._next_seed())
             logits = logits.cpu().numpy()  # waits for the step: times are
             # device-complete
         dt = clock() - t0

@@ -3,17 +3,24 @@ and init helpers (port of ``repro/models/common.py``).
 
 Models are functional: params are plain dicts of tensors, as in the
 reference, so the converter from the JAX layout is a rename and an unstack.
-Sharding hints and the noise-key context are not ported: the port runs one
-card and noise-free specs (``exact`` and ``sim``).
+Sharding hints are not ported: the port runs one card.
+
+Noisy fabric specs draw from an ambient seed: inside
+``with fabric_noise_seed(seed):`` each ``dense`` call under a noisy spec takes
+a fresh 64-bit seed ``mix_seed(seed, call index)`` (:func:`next_fabric_seed`,
+the counterpart of the reference's ``fabric_noise_key`` / ``fold_fabric_key``),
+so a forward is fully seeded without threading seeds through every layer.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
 
 from repro_torch.core.fabric import FabricSpec
 from repro_torch.core.imc_linear import imc_linear_apply
+from repro_torch.kernels.common import mix_seed
 
 
 # ---------------------------------------------------------------------- norms
@@ -64,6 +71,40 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int, *,
     return p
 
 
+_FABRIC_SEED = threading.local()
+
+
+class fabric_noise_seed:
+    """Context manager: the seed noisy FabricSpecs draw from.
+
+    ``with fabric_noise_seed(seed): prefill(...)`` — each ``dense`` call
+    under a noisy spec takes :func:`next_fabric_seed`, so one forward's
+    projections draw independent noise, and the same seed replays it.
+    """
+
+    def __init__(self, seed: int):
+        self.seed = int(seed)
+
+    def __enter__(self):
+        self.prev = getattr(_FABRIC_SEED, "state", None)
+        _FABRIC_SEED.state = {"seed": self.seed, "n": 0}
+        return self
+
+    def __exit__(self, *exc):
+        _FABRIC_SEED.state = self.prev
+
+
+def next_fabric_seed() -> Optional[int]:
+    """A fresh seed off the ambient one (the call index mixed in on the
+    host), or None outside a :class:`fabric_noise_seed` context."""
+    st = getattr(_FABRIC_SEED, "state", None)
+    if st is None:
+        return None
+    s = mix_seed(st["seed"], st["n"])
+    st["n"] += 1
+    return s
+
+
 def dense(params, x: torch.Tensor, *,
           spec: Optional[FabricSpec] = None) -> torch.Tensor:
     """Dense projection; routes through the IMC fabric when ``spec`` is given.
@@ -71,10 +112,18 @@ def dense(params, x: torch.Tensor, *,
     Every projection of the model funnels through here.  Under a spec the
     weights are cast to f32 and re-quantized per column on every call, as in
     the reference; the activations quantize per tensor in their own dtype.
+    A noisy spec takes :func:`next_fabric_seed`, and raises outside a
+    :class:`fabric_noise_seed` context.
     """
     if spec is not None:
+        seed = next_fabric_seed() if spec.noisy else None
+        if spec.noisy and seed is None:
+            raise ValueError(
+                f"FabricSpec {spec.label} is noisy but no seed is available: "
+                "wrap the forward in models.common.fabric_noise_seed(seed) "
+                "or pass noise_seed= to prefill/decode_step")
         y = imc_linear_apply(x, params["w"].to(torch.float32),
-                             params.get("b"), spec=spec)
+                             params.get("b"), spec=spec, seed=seed)
         return y.to(x.dtype)
     y = x @ params["w"].to(x.dtype)
     if "b" in params:

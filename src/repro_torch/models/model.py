@@ -7,6 +7,10 @@ Public API:
   prefill(params, batch, cfg)               -> (last_logits, StackCache)
   decode_step(params, cache, token, cfg)    -> (logits, StackCache)
 
+Under a noisy fabric spec each entry point takes ``noise_seed`` and runs its
+forward inside :class:`~repro_torch.models.common.fabric_noise_seed`, as the
+reference's ``launch/steps.py`` does with its per-step key.
+
 Batches: {"tokens": (B, S) int} (+ optional "length": int, the true prompt
 length of a right-padded bucket); decode takes ``token`` (B, 1) int.
 The embedding lookup and the head matmul stay plain torch, as the reference
@@ -14,11 +18,15 @@ leaves them outside any kernel.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import init_dense, init_rmsnorm, rmsnorm
+from repro_torch.models.common import (fabric_noise_seed, init_dense,
+                                       init_rmsnorm, rmsnorm)
 from repro_torch.models.transformer import (StackCache, check_supported,
                                             init_stack, stack_forward)
 
@@ -58,28 +66,38 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.to(torch.int64)]
 
 
+def _noise_ctx(noise_seed: Optional[int]):
+    return contextlib.nullcontext() if noise_seed is None else \
+        fabric_noise_seed(noise_seed)
+
+
 # -------------------------------------------------------------------- logits
-def forward_logits(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def forward_logits(params, batch, cfg: ModelConfig,
+                   noise_seed: Optional[int] = None) -> torch.Tensor:
     """Full (B, S, V) f32 logits of a causal forward — small models only.
 
     The serving slice has no training forward; a prefill with no extra cache
     room computes the same causal forward and its cache is dropped.
     """
     x = _embed(params, batch["tokens"])
-    x, _ = stack_forward(params["blocks"], x, cfg, "prefill")
+    with _noise_ctx(noise_seed):
+        x, _ = stack_forward(params["blocks"], x, cfg, "prefill")
     x = rmsnorm(params["final_norm"], x)
     return (x @ _head_weight(params, cfg).to(x.dtype)).to(torch.float32)
 
 
 # ------------------------------------------------------------------ serving
-def prefill(params, batch, cfg: ModelConfig, max_new_tokens: int = 0):
+def prefill(params, batch, cfg: ModelConfig, max_new_tokens: int = 0,
+            noise_seed: Optional[int] = None):
     """batch: {"tokens": (B, S)} (+ optional "length": the true prompt length
     of a right-padded bucket — the last-token logits then come from position
     ``length - 1`` and the cache marks the padded tail empty)."""
     length = batch.get("length")
     x = _embed(params, batch["tokens"])
-    x, cache = stack_forward(params["blocks"], x, cfg, "prefill",
-                             prefill_extra=max_new_tokens, true_len=length)
+    with _noise_ctx(noise_seed):
+        x, cache = stack_forward(params["blocks"], x, cfg, "prefill",
+                                 prefill_extra=max_new_tokens,
+                                 true_len=length)
     last = x.shape[1] if length is None else int(length)
     x_last = rmsnorm(params["final_norm"], x[:, last - 1:last])
     logits = x_last @ _head_weight(params, cfg).to(x_last.dtype)
@@ -87,7 +105,8 @@ def prefill(params, batch, cfg: ModelConfig, max_new_tokens: int = 0):
 
 
 def decode_step(params, cache: StackCache, token: torch.Tensor,
-                cfg: ModelConfig, block_table=None):
+                cfg: ModelConfig, block_table=None,
+                noise_seed: Optional[int] = None):
     """token: (B, 1) int. Returns (logits (B, V) f32, cache).
 
     ``block_table`` ((B, max_blocks) int32) routes attention through paged
@@ -95,9 +114,10 @@ def decode_step(params, cache: StackCache, token: torch.Tensor,
     K/V tensors are updated in place.
     """
     x = _embed(params, token)
-    x, new_cache = stack_forward(params["blocks"], x, cfg, "decode",
-                                 cache=cache, pos=cache.pos,
-                                 block_table=block_table)
+    with _noise_ctx(noise_seed):
+        x, new_cache = stack_forward(params["blocks"], x, cfg, "decode",
+                                     cache=cache, pos=cache.pos,
+                                     block_table=block_table)
     x = rmsnorm(params["final_norm"], x)
     logits = x @ _head_weight(params, cfg).to(x.dtype)
     return logits[:, 0].to(torch.float32), new_cache

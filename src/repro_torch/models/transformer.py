@@ -15,7 +15,6 @@ from typing import Any, List, NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.fabric import check_ported
 from repro_torch.models.attention import (attn_decode, attn_prefill,
                                           init_attention)
 from repro_torch.models.common import init_rmsnorm, rmsnorm
@@ -45,8 +44,6 @@ def check_supported(cfg: ModelConfig) -> None:
                                   "is not ported yet")
     if cfg.mlp == "none":
         raise NotImplementedError(f"{cfg.name}: mlp='none' is not ported yet")
-    if cfg.imc_fabric is not None:
-        check_ported(cfg.imc_fabric)
 
 
 # ------------------------------------------------------------------ init

@@ -88,7 +88,7 @@ def test_decode_voltage_bit_exact(rows, mode):
             tf(torch.from_numpy(v), rows=rows, mode=mode).numpy())
     dec = td.decode_voltage(torch.from_numpy(levels), rows=rows, mode=mode)
     assert dec.tolist() == list(range(rows + 1))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="generator"):
         td.decode_voltage(torch.from_numpy(v), comparator_offset_sigma=0.01)
 
 
@@ -170,10 +170,14 @@ def test_batch_dims_and_noise_not_ported():
     np.testing.assert_array_equal(out.numpy(), ua @ uw)
     for kw in (dict(mismatch=True), dict(mismatch_sigma=0.05),
                dict(comparator_offset_sigma=0.02)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(ValueError, match="requires a seed"):
             tb.bitserial_matmul_unsigned(torch.from_numpy(ua),
                                          torch.from_numpy(uw), bits_a=4,
                                          bits_w=4, mode="sim", **kw)
+        noisy = tb.bitserial_matmul_unsigned(
+            torch.from_numpy(ua), torch.from_numpy(uw), bits_a=4, bits_w=4,
+            mode="sim", seed=1, **kw)
+        assert noisy.shape == (2, 3, 6)
     with pytest.raises(TypeError, match="unknown"):
         tb.bitserial_matmul_unsigned(torch.from_numpy(ua),
                                      torch.from_numpy(uw), mode="sim",

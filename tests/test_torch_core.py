@@ -5,8 +5,8 @@ scales, at 2..8 bits, as the reference's jitted model path computes them),
 the offset-binary helpers, and the exact ``fabric_matmul`` including
 asymmetric ``bits_a != bits_w``.  Inputs come from numpy with a fixed seed
 and are handed to both packages.  Also here: the spec vocabulary, the
-"not ported yet" guard for noisy specs, and the rule that the port imports
-neither ``jax`` nor ``repro``.
+seed a noisy spec requires, and the rule that the port imports neither
+``jax`` nor ``repro``.
 """
 import subprocess
 import sys
@@ -121,9 +121,12 @@ def test_spec_fields_validation_and_backends():
     w = torch.randn((8, 4), generator=torch.Generator().manual_seed(0))
     assert torch.equal(tfab.fabric_matmul(x + 1, w, tfab.FabricSpec(
         mode="sim")), tfab.fabric_matmul(x + 1, w, spec))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tfab.fabric_matmul(x, w, tfab.FabricSpec(
-            mode="sim", noise=tfab.NoiseSpec.calibrated()))
+    noisy = tfab.FabricSpec(mode="sim", noise=tfab.NoiseSpec.calibrated())
+    with pytest.raises(ValueError, match="pass seed="):
+        tfab.fabric_matmul(x, w, noisy)
+    assert noisy.label == "sim/torch+noise"
+    assert torch.equal(tfab.fabric_matmul(x + 1, w, noisy, seed=3),
+                       tfab.fabric_matmul(x + 1, w, noisy, seed=3))
 
 
 def test_port_imports_neither_jax_nor_repro():

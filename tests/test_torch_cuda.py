@@ -5,8 +5,9 @@ sm_90 card).  Run there with
 
 This file imports neither ``jax`` nor ``repro``: the machine with the card
 has no JAX.  Each kernel is held against its plain PyTorch version on the
-same card tensors: ``imc_mac`` and ``bitplane_mac`` bit for bit (including
-detuned comparator references and 16-row groups), ``paged_attn`` at the
+same card tensors: ``imc_mac``, ``bitplane_mac`` and ``bitplane_mac_noisy``
+bit for bit (including detuned comparator references and 16-row groups; the
+noisy kernel and its plain version draw one Philox stream), ``paged_attn`` at the
 bounds of ``tests/test_paged_attn.py`` (f32 5e-6, bf16 1.6e-2 = one output
 ulp, int8 1e-2), ``flash_attn`` at those of ``tests/test_flash_attn.py``
 (f32 3e-6, bf16 2e-2).  Every launch bumps the wrapper's counter exactly
@@ -16,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.fabric import FabricSpec, fabric_matmul
+from repro_torch.core.fabric import FabricSpec, NoiseSpec, fabric_matmul
 from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
+                                                  bitplane_mac_noisy,
+                                                  bitplane_mac_noisy_torch,
                                                   bitplane_mac_torch,
                                                   physics_thresholds)
 from repro_torch.kernels.flash_attn.ops import (flash_attention,
@@ -191,6 +194,67 @@ def test_sim_fabric_on_the_card_equals_exact(hopper):
     assert torch.equal(sim, fabric_matmul(x, w, FabricSpec(mode="exact")))
     with pytest.raises(ValueError, match="plain version"):
         fabric_matmul(x, w, FabricSpec(mode="sim", backend="torch"))
+
+
+NOISE = {"both": dict(mismatch_sigma=0.3, comparator_offset_sigma=0.03),
+         "mismatch": dict(mismatch_sigma=0.05),
+         "comparator": dict(comparator_offset_sigma=0.03)}
+
+
+@pytest.mark.parametrize("noise", list(NOISE))
+@pytest.mark.parametrize("m,k,n,bits_a,bits_w,rows", [
+    (4, 768, 768, 8, 8, 8), (33, 1030, 129, 8, 8, 8), (16, 768, 96, 4, 8, 8),
+    (4, 100, 40, 8, 8, 16)])
+def test_bitplane_mac_noisy_bit_exact(hopper, noise, m, k, n, bits_a, bits_w,
+                                      rows):
+    g = torch.Generator(device=hopper).manual_seed(m + k + n + rows)
+    ua = torch.randint(0, 1 << bits_a, (m, k), generator=g, device=hopper,
+                       dtype=torch.int32)
+    uw = torch.randint(0, 1 << bits_w, (k, n), generator=g, device=hopper,
+                       dtype=torch.int32)
+    kw = dict(bits_a=bits_a, bits_w=bits_w, rows=rows, **NOISE[noise])
+    before = bitplane_mac_noisy.launches
+    out = bitplane_mac_noisy(ua, uw, 11, **kw)
+    torch.cuda.synchronize()
+    assert bitplane_mac_noisy.launches == before + 1
+    assert torch.equal(out, bitplane_mac_noisy_torch(ua, uw, 11, **kw))
+    assert torch.equal(out, bitplane_mac_noisy(ua, uw, 11, **kw))
+
+
+def test_bitplane_mac_noisy_seeds_sigma0_and_detuned(hopper):
+    g = torch.Generator(device=hopper).manual_seed(12)
+    ua = torch.randint(0, 256, (4, 768), generator=g, device=hopper,
+                       dtype=torch.int32)
+    uw = torch.randint(0, 256, (768, 256), generator=g, device=hopper,
+                       dtype=torch.int32)
+    stress = NOISE["both"]
+    assert not torch.equal(bitplane_mac_noisy(ua, uw, 1, **stress),
+                           bitplane_mac_noisy(ua, uw, 2, **stress))
+    clean = bitplane_mac(ua, uw)
+    assert torch.equal(bitplane_mac_noisy(ua, uw, 3, mismatch_sigma=0.0,
+                                          comparator_offset_sigma=0.0), clean)
+    assert torch.equal(bitplane_mac_noisy(ua, uw, 3), clean)
+    good = physics_thresholds(8, hopper)
+    detuned = torch.cat([torch.tensor([1.9], device=hopper), good[:-1]])
+    bad = bitplane_mac_noisy(ua % 4, uw % 4, 4, detuned, bits_a=2, bits_w=2,
+                             mismatch_sigma=0.05)
+    assert torch.equal(bad, bitplane_mac_noisy_torch(
+        ua % 4, uw % 4, 4, detuned, bits_a=2, bits_w=2, mismatch_sigma=0.05))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bitplane_mac_noisy(ua, uw.cpu(), 0, **stress)
+
+
+def test_noisy_sim_fabric_on_the_card(hopper):
+    g = torch.Generator(device=hopper).manual_seed(13)
+    x = torch.randn((4, 768), generator=g, device=hopper).bfloat16()
+    w = torch.randn((768, 256), generator=g, device=hopper) * 0.05
+    spec = FabricSpec(mode="sim", noise=NoiseSpec(0.3, 0.03))
+    a = fabric_matmul(x, w, spec, seed=5)
+    assert torch.equal(a, fabric_matmul(x, w, spec, seed=5))
+    assert not torch.equal(a, fabric_matmul(x, w, spec, seed=6))
+    assert torch.equal(fabric_matmul(x, w, spec.replace(
+        noise=NoiseSpec(0.0, 0.0)), seed=5), fabric_matmul(
+        x, w, FabricSpec(mode="sim")))
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -177,8 +177,7 @@ def test_unported_paths_raise_up_front(cfg, params):
     assert Server(sim, params, device="cpu").cfg.imc_fabric.mode == "sim"
     noisy = dataclasses.replace(cfg, fabric=FabricSpec(
         mode="sim", noise=NoiseSpec.calibrated()))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Server(noisy, params, device="cpu")
+    assert Server(noisy, params, device="cpu").cfg.imc_fabric.noisy
     moe = dataclasses.replace(cfg, pattern=("moe",))
     with pytest.raises(NotImplementedError, match="not ported"):
         Server(moe, params, device="cpu")
@@ -224,9 +223,11 @@ def test_serve_cli_sim_flash_on_cpu(capsys):
                 "--imc", "sim", "--flash"])
     out = capsys.readouterr().out
     assert "req1: 3 tokens" in out and "fabric=sim/torch, flash=True" in out
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve.main(["--reduce", "--device", "cpu", "--imc", "sim",
-                    "--imc-noise-sigma", "0.05"])
+    serve.main(["--arch", "imc-paper-110m", "--reduce", "--device", "cpu",
+                "--requests", "2", "--max-new", "3", "--prompt-len", "8",
+                "--imc", "sim", "--imc-noise-sigma", "0.3", "--seed", "7"])
+    out = capsys.readouterr().out
+    assert "req1: 3 tokens" in out and "fabric=sim/torch+noise" in out
 
 
 def test_serve_cli_on_cpu(capsys):
