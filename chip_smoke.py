@@ -7,11 +7,14 @@ Drives the port (``src/repro_torch``) only; imports nothing of JAX or of the
 JAX package.  Phases, in order; any failure exits nonzero and prints no
 result:
 
-1. Build every kernel of the serving paths from ``src/repro_torch/csrc``
-   with nvcc for sm_90a, one nvcc per source, all started together.
+1. Build every kernel from ``src/repro_torch/csrc`` with nvcc for sm_90a,
+   one nvcc per source (six), all started together.
 2. ``imc_mac`` against its plain version on the card, bit for bit: the
    demonstrator's shapes M in {4, 16, 64} x (K, N) in {(768, 768),
    (768, 3072), (3072, 768)}, a ragged shape, and the deep-K int32 case.
+   b. ``imc_mac_dequant`` (the same GEMM with the float32 dequant in its
+      flush) against its plain version, bit for bit: the same demonstrator
+      shapes, ragged 130x140x150 and deep K 8x2048x8 at +-127.
 3. ``paged_attn`` against its plain version on the card: f32, bf16 and int8
    pools, window 0 and 16, rep 1 (the demonstrator) and rep 8 (qwen2.5-3b),
    sentinel blocks and an inactive slot; bounds f32 5e-6, bf16 1.6e-2 (one
@@ -27,6 +30,11 @@ result:
       sigmas (0.3, 0.03), the calibrated sigma, a detuned ``thr``;
       ``NoiseSpec(0, 0)`` equal to ``bitplane_mac``; the same seed twice
       identical; two seeds different.
+   c. ``rbl_decode_mac`` (one {0,1} plane pair, decode against live
+      thresholds) against its plain version, bit for bit, under calibrated
+      and detuned thresholds: one plane pair of each demonstrator projection
+      at M in {4, 64}, ragged 50x70x30, rows 16 at 24x160x8 and 64x768x768.
+      Calibrated, it equals the integer product; detuned, it differs.
 5. ``flash_attn`` against its plain version on the card: f32 and bf16,
    window 0 and 16, rep 1 and 8, S in {16, 40, 64}; bounds f32 3e-6,
    bf16 2e-2.
@@ -54,12 +62,35 @@ result:
       request's prefill logits at the stress sigmas under two seeds must
       differ from each other and from noise-free ``sim``; their relative L2
       distance from it is printed beside the calibrated one.
+   d. The paper's macro path, on the card: Table I voltages and codes,
+      ``write_row``/``mac``/``read_bit``/``logic2`` on one 8x8 array (equal
+      to the CPU's); ``Fabric.logic_word`` (six ops) and ``add_nbit`` on
+      2^22 random uint8 pairs in ``exact`` and ``sim`` (equal to the
+      bitwise operators and to (a+b) mod 256 with its carry); under
+      mismatch sigma 0.5 one seed replays and two differ (flip rate
+      printed); ``Fabric.matmul`` at 64x768x3072 launches ``imc_mac``
+      (``exact``) or ``bitplane_mac`` (``sim``) once and nothing else;
+      ``imc_mac_dequant`` on its quantized operands equals
+      ``Fabric(exact).matmul`` bit for bit; the threshold re-tuning study
+      of §IV-C through ``rbl_decode_mac`` on the sign planes of that
+      projection (share of wrong outputs per threshold shift); the STE
+      gradients of ``Fabric.linear`` equal the CPU's within 1e-5 relative;
+      ``Fabric.cost`` equals the CPU's; ``python -m repro_torch.quickstart``
+      exits 0.  ``imc_mac_dequant`` and ``rbl_decode_mac`` must launch here
+      and on no served path.
 7. Each kernel timed at the main path's shapes (CUDA events), beside its
    bound on an H100 SXM (3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16; for
    ``bitplane_mac_noisy`` the special-function units, 16 results per SM per
    clock at 1.98 GHz), its plain version and one library call computing the
    same function (none computes the noisy pyramid: the noise-free
-   ``bitplane_mac`` time stands beside it for context).
+   ``bitplane_mac`` time stands beside it for context).  The two macro
+   kernels are timed on one decode step's 72 projections at M = 4
+   (``rbl_decode_mac`` as one plane pair of each); their library calls are
+   ``torch._int_mm`` (plus the two scale multiplies for the dequant).
+   ``ms`` times the wrappers' launches as a caller makes them (a host-bound
+   loop measures the host); for ``imc_mac``, ``imc_mac_dequant``,
+   ``bitplane_mac`` and ``rbl_decode_mac``, ``graph_ms`` also times the same
+   launches replayed from one CUDA graph, the device's own time.
 
 It prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
@@ -83,6 +114,8 @@ ATTN_ATOL = {"f32": 5e-6, "bf16": 1.6e-2, "int8": 1e-2}
 FLASH_ATOL = {"f32": 3e-6, "bf16": 2e-2}
 LOGIT_RTOL = 2e-2
 PROMPTS = (7, 16, 33, 12, 5, 40)
+MACRO_KERNELS = ("imc_mac_dequant", "rbl_decode_mac")  # no served path
+MACRO_PAIRS = 1 << 22  # uint8 operand pairs of the word-logic checks
 MAX_NEW = 16
 
 
@@ -103,6 +136,21 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Mean device time of ``fn``'s launches replayed from one CUDA graph,
+    in ms: the kernels back to back, without the host's launch gaps
+    (``cuda_ms`` of a host-bound loop measures the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(torch, graph.replay, iters)
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float):
@@ -148,6 +196,37 @@ def phase_imc_mac(torch, dev):
         raise AssertionError("imc_mac int32 accumulation case failed")
     log(f"[2] imc_mac bit-exact on {len(cases) + 1} shapes")
     return 0.0
+
+
+def phase_imc_mac_dequant(torch, dev):
+    from repro_torch.kernels.imc_mac.ops import (imc_mac_dequant,
+                                                 imc_mac_dequant_torch)
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    cases = [(m, k, n) for m in (4, 16, 64)
+             for k, n in ((768, 768), (768, 3072), (3072, 768))]
+    cases += [(130, 140, 150), (8, 2048, 8)]  # ragged; deep K at +-127
+    worst = 0.0
+    for m, k, n in cases:
+        qa = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        qw = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        if k == 2048:  # |acc| = 3.3e7 > 2^24: the int-to-float rounding
+            qa.fill_(127)
+            qw.fill_(-127)
+        # scales as tests/test_kernels.py draws them
+        sa = torch.tensor(0.0123, device=dev)
+        sw = torch.rand((n,), generator=g, device=dev) * 0.099 + 0.001
+        out = imc_mac_dequant(qa, qw, sa, sw)
+        torch.cuda.synchronize()
+        plain = imc_mac_dequant_torch(qa, qw, sa, sw)
+        worst = max(worst, (out - plain).abs().max().item())
+        if not torch.equal(out, plain):
+            raise AssertionError(f"imc_mac_dequant differs from its plain "
+                                 f"version at {(m, k, n)}")
+    log(f"[2b] imc_mac_dequant bit-exact on {len(cases)} shapes")
+    return worst
 
 
 def _ragged_table(rng, pos, mb, nb, bs):
@@ -347,6 +426,47 @@ def phase_bitplane_mac_noisy(torch, dev):
     return float(worst)
 
 
+def phase_rbl_decode_mac(torch, dev):
+    from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
+    from repro_torch.kernels.rbl_decode.ops import (rbl_decode_mac,
+                                                    rbl_decode_mac_torch)
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    # (m, k, n, rows): one plane pair of each demonstrator projection
+    cases = [(m, k, n, 8) for m in (4, 64)
+             for k, n in ((768, 768), (768, 3072), (3072, 768))]
+    cases += [(50, 70, 30, 8), (24, 160, 8, 16), (64, 768, 768, 16)]
+    worst = 0
+    for i, (m, k, n, rows) in enumerate(cases):
+        ua = torch.randint(0, 256, (m, k), generator=g, device=dev,
+                           dtype=torch.int32)
+        uw = torch.randint(0, 256, (k, n), generator=g, device=dev,
+                           dtype=torch.int32)
+        a = ((ua >> (i % 8)) & 1).to(torch.int8)  # plane p of the codes
+        w = ((uw >> (7 - i % 8)) & 1).to(torch.int8)  # plane q
+        good = physics_thresholds(rows, dev)
+        detuned = torch.cat([torch.tensor([1.9], device=dev), good[:-1]])
+        out = rbl_decode_mac(a, w, rows=rows)
+        bad = rbl_decode_mac(a, w, detuned, rows=rows)
+        torch.cuda.synchronize()
+        for got, thr in ((out, good), (bad, detuned)):
+            plain = rbl_decode_mac_torch(a, w, thr, rows=rows)
+            worst = max(worst, (got - plain).abs().max().item())
+            if not torch.equal(got, plain):
+                raise AssertionError(f"rbl_decode_mac differs from its plain "
+                                     f"version at {(m, k, n, rows)}")
+        if not torch.equal(out, (a.double() @ w.double()).to(torch.int32)):
+            raise AssertionError(f"rbl_decode_mac under calibrated thresholds"
+                                 f" is not the integer product at "
+                                 f"{(m, k, n, rows)}")
+        if torch.equal(bad, out):
+            raise AssertionError("detuned thresholds did not change the "
+                                 "decode: the kernel ignores thr")
+    log(f"[4c] rbl_decode_mac bit-exact on {len(cases)} cases, calibrated "
+        "and detuned; calibrated equals the integer product")
+    return float(worst)
+
+
 def phase_flash_attn(torch, dev):
     from repro_torch.kernels.flash_attn.ops import (flash_attention,
                                                     flash_attention_torch)
@@ -383,12 +503,15 @@ def kernel_wrappers():
     from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
                                                       bitplane_mac_noisy)
     from repro_torch.kernels.flash_attn.ops import flash_attention
-    from repro_torch.kernels.imc_mac.ops import imc_mac
+    from repro_torch.kernels.imc_mac.ops import imc_mac, imc_mac_dequant
     from repro_torch.kernels.paged_attn.ops import paged_attention
+    from repro_torch.kernels.rbl_decode.ops import rbl_decode_mac
 
     return {"imc_mac": imc_mac, "paged_attn": paged_attention,
             "bitplane_mac": bitplane_mac, "flash_attn": flash_attention,
-            "bitplane_mac_noisy": bitplane_mac_noisy}
+            "bitplane_mac_noisy": bitplane_mac_noisy,
+            "imc_mac_dequant": imc_mac_dequant,
+            "rbl_decode_mac": rbl_decode_mac}
 
 
 def zero_counts():
@@ -422,8 +545,9 @@ def serve_path(torch, dev, cfg, params, prompts, tag, must, never=(),
                noise_seed=0):
     """Serve the six requests through ``Server``; every launch counter is
     zeroed just before and read just after.  Each kernel in ``must`` has to
-    launch, each in ``never`` must not.  Also counts one decode step's and
-    one prefill's launches at the server's shapes."""
+    launch, each in ``never`` and in ``MACRO_KERNELS`` must not.  Also counts
+    one decode step's and one prefill's launches at the server's shapes."""
+    never = tuple(never) + MACRO_KERNELS
     from repro_torch.kernels.common import mix_seed
     from repro_torch.launch.serve import slo_summary
     from repro_torch.launch.server import Request, Server
@@ -616,6 +740,185 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
+def phase_macro(torch, dev):
+    """The paper's macro API on the card, through the ``Fabric`` facade and
+    the array model, against the CPU and the digital truth; every launch
+    counter is zeroed before and read after (6d)."""
+    import numpy as np
+
+    from repro_torch.core import (ArraySpec, Fabric, FabricSpec, NoiseSpec,
+                                  empty_state, level_voltages, logic2, mac,
+                                  read_bit, thermometer_code, write_row)
+    from repro_torch.core.logic import WORD_OPS
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
+    from repro_torch.kernels.imc_mac.ops import imc_mac_dequant
+    from repro_torch.kernels.rbl_decode.ops import rbl_decode_mac
+
+    cpu = torch.device("cpu")
+    zero_counts()
+    t0 = time.perf_counter()
+    # Table I: voltages and thermometer codes for counts 0-8
+    for mode in ("lut", "physics"):
+        v, vc = (level_voltages(mode=mode, device=d) for d in (dev, cpu))
+        if not (torch.equal(v.cpu(), vc) and torch.equal(
+                thermometer_code(v, mode=mode).cpu(),
+                thermometer_code(vc, mode=mode))):
+            raise AssertionError(f"Table I {mode} voltages or codes on the "
+                                 "card differ from the CPU's")
+    # the array model on one 8x8 array
+    rng = np.random.default_rng(0)
+    b_bits = rng.integers(0, 2, size=(8, 8)).astype(np.uint8)
+    a_bits = rng.integers(0, 2, size=8).astype(np.uint8)
+    arrays = []
+    for d in (dev, cpu):
+        state = empty_state(ArraySpec(), d)
+        for r in range(8):
+            state = write_row(state, r, b_bits[r])
+        logic, res2 = logic2(state, 0, 1)
+        arrays.append([state, *mac(state, a_bits), *res2,
+                       *[read_bit(state, r) for r in range(8)],
+                       *[logic[op] for op in sorted(logic)]])
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(*arrays)):
+        raise AssertionError("write_row/mac/read_bit/logic2 on the card "
+                             "differ from the CPU's")
+    if not np.array_equal(arrays[0][1].cpu().numpy(), a_bits @ b_bits):
+        raise AssertionError("mac counts are not the true MAC counts")
+
+    # word logic and the ripple-carry adder on 2^22 random uint8 pairs
+    g = torch.Generator(device=dev).manual_seed(23)
+    n_pairs = MACRO_PAIRS
+    a, b = (torch.randint(0, 256, (n_pairs,), generator=g, device=dev,
+                          dtype=torch.uint8) for _ in range(2))
+    ai, bi = a.to(torch.int64), b.to(torch.int64)
+    truth = {"AND": ai & bi, "NAND": ~(ai & bi) & 255, "OR": ai | bi,
+             "NOR": ~(ai | bi) & 255, "XOR": ai ^ bi,
+             "XNOR": ~(ai ^ bi) & 255}
+    for mode in ("exact", "sim"):
+        fab = Fabric(FabricSpec(mode=mode), dev)
+        for op in WORD_OPS:
+            if not torch.equal(fab.logic_word(a, b, op).to(torch.int64),
+                               truth[op]):
+                raise AssertionError(f"{mode} logic_word {op} is not the "
+                                     "bitwise operator")
+        s_, c_ = fab.add_nbit(a, b)
+        if not (torch.equal(s_.to(torch.int64), (ai + bi) & 255) and
+                torch.equal(c_.to(torch.int64), (ai + bi) >> 8)):
+            raise AssertionError(f"{mode} add_nbit is not (a+b) mod 256 and "
+                                 "its carry")
+    # device mismatch at sigma 0.5: seeded, replayable, flips bits
+    noisy = Fabric(FabricSpec(mode="sim", noise=NoiseSpec(
+        mismatch_sigma=0.5)), dev)
+    x1, x2, x3 = (noisy.logic_word(a, b, "AND", seed=s) for s in (1, 1, 2))
+    n1, n2 = noisy.add_nbit(a, b, seed=1), noisy.add_nbit(a, b, seed=1)
+    if not (torch.equal(x1, x2) and torch.equal(n1[0], n2[0]) and
+            torch.equal(n1[1], n2[1])):
+        raise AssertionError("noisy facade: one seed gave two results")
+    if torch.equal(x1, x3):
+        raise AssertionError("noisy facade: two seeds gave one result")
+    flips = int(torch.sum(torch.stack(
+        [((x1.to(torch.int64) ^ truth["AND"]) >> i) & 1 for i in range(8)])))
+    flip_rate = flips / (8 * n_pairs)
+    add_wrong = float(((n1[0].to(torch.int64) != (ai + bi) & 255)
+                       ).float().mean())
+    log(f"[6d] word logic and add_nbit on {n_pairs} uint8 pairs equal the "
+        f"bitwise operators and (a+b) mod 256 in exact and sim; at mismatch "
+        f"sigma 0.5 the AND bit flip rate is {flip_rate:.4f}, "
+        f"{add_wrong:.4f} of the sums are wrong; seeds replay and differ")
+
+    # Fabric.matmul at one MLP projection: which kernel each mode launches
+    x = torch.randn((64, 768), generator=g, device=dev)
+    w = torch.randn((768, 3072), generator=g, device=dev) * 0.05
+    ys = {}
+    for mode, kernel in (("exact", "imc_mac"), ("sim", "bitplane_mac")):
+        before = read_counts()
+        ys[mode] = Fabric(FabricSpec(mode=mode), dev).matmul(x, w)
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in read_counts().items()}
+        if delta[kernel] != 1 or sum(delta.values()) != 1:
+            raise AssertionError(f"Fabric({mode}).matmul launched {delta}; "
+                                 f"expected {kernel} once and nothing else")
+    if not torch.equal(ys["exact"], ys["sim"]):
+        raise AssertionError("noise-free sim matmul differs from exact")
+    if not torch.equal(ys["exact"].cpu(), Fabric(FabricSpec(), cpu).matmul(
+            x.cpu(), w.cpu())):
+        raise AssertionError("exact matmul on the card differs from the CPU")
+    # the fused-dequant GEMM computes the exact fabric's whole flush
+    qx, qw = quantize(x, 8, axis=None), quantize(w, 8, axis=0)
+    y_dq = imc_mac_dequant(qx.q, qw.q, qx.scale, qw.scale)
+    if not torch.equal(y_dq, ys["exact"]):
+        raise AssertionError("imc_mac_dequant differs from Fabric(exact)."
+                             "matmul at 64x768x3072")
+    # the threshold re-tuning study (paper §IV-C) on the sign planes of
+    # that projection: every reference moved up by delta volts
+    ua = (qx.q.to(torch.int32) + 128) >> 7
+    uw = (qw.q.to(torch.int32) + 128) >> 7
+    a7, w7 = ua.to(torch.int8), uw.to(torch.int8)
+    exact_bits = (a7.double() @ w7.double()).to(torch.int32)
+    good = physics_thresholds(8, dev)
+    margins = {}
+    for delta_v in (0.0, 0.01, 0.05, 0.1, 0.2):
+        out = rbl_decode_mac(a7, w7, good + delta_v)
+        margins[delta_v] = float((out != exact_bits).float().mean())
+    if margins[0.0] != 0.0 or margins[0.01] != 0.0:
+        raise AssertionError(f"calibrated or 10 mV thresholds misdecoded: "
+                             f"{margins}")
+    log(f"[6d] Fabric.matmul 64x768x3072 launches imc_mac (exact) or "
+        f"bitplane_mac (sim) once and nothing else; imc_mac_dequant equals "
+        f"Fabric(exact).matmul bit for bit; threshold shift -> share of "
+        f"wrong outputs of rbl_decode_mac: {margins}")
+
+    # Fabric.linear: STE gradients on the card and on the CPU
+    gx = torch.randn((4, 768), generator=g, device=dev)
+    gw = torch.randn((768, 256), generator=g, device=dev) * 0.05
+    gb = torch.randn((256,), generator=g, device=dev)
+    gy = torch.randn((4, 256), generator=g, device=dev)
+    grads = []
+    for d in (dev, cpu):
+        leaves = [t.detach().to(d).clone().requires_grad_(True)
+                  for t in (gx, gw, gb)]
+        y = Fabric(FabricSpec(mode="sim"), d).linear(
+            {"w": leaves[1], "b": leaves[2]}, leaves[0])
+        (y * gy.to(d)).sum().backward()
+        grads.append([y.detach()] + [t.grad for t in leaves])
+    if not torch.equal(grads[0][0].cpu(), grads[1][0]):
+        raise AssertionError("Fabric.linear forward differs card vs CPU")
+    grad_err = max(((c.cpu() - r).abs().max() / r.abs().max()).item()
+                   for c, r in zip(grads[0][1:], grads[1][1:]))
+    if not grad_err <= 1e-5:
+        raise AssertionError(f"STE gradients card vs CPU: relative {grad_err}")
+    for xs, ws in (((4, 768), (768, 3072)), ((2, 64, 3072), (3072, 768))):
+        for spec in (FabricSpec(), FabricSpec(bits_a=4, mode="sim")):
+            if Fabric(spec, dev).cost(xs, ws) != Fabric(spec, cpu).cost(
+                    xs, ws):
+                raise AssertionError("Fabric.cost differs card vs CPU")
+    launches = read_counts()
+    for name in ("imc_mac_dequant", "rbl_decode_mac"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the macro path launched {name} no time")
+    wall = time.perf_counter() - t0
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
+                                       if env.get("PYTHONPATH") else []))
+    t1 = time.perf_counter()
+    qs = subprocess.run([sys.executable, "-m", "repro_torch.quickstart"],
+                        cwd=ROOT, env=env, capture_output=True, text=True,
+                        timeout=300)
+    if qs.returncode != 0 or "quickstart OK" not in qs.stdout:
+        raise AssertionError(f"python -m repro_torch.quickstart failed "
+                             f"(rc={qs.returncode}):\n{qs.stdout[-2000:]}\n"
+                             f"{qs.stderr[-2000:]}")
+    log(f"[6d] STE gradients card vs CPU: relative {grad_err:.3g}; cost "
+        f"equal; macro path {wall:.2f} s, launches {launches}; "
+        f"python -m repro_torch.quickstart exited 0 in "
+        f"{time.perf_counter() - t1:.2f} s")
+    return {"launches": launches, "flip_rate_sigma_0.5": flip_rate,
+            "add_wrong_sigma_0.5": add_wrong, "threshold_margins": margins,
+            "ste_grad_rel_err": grad_err, "wall_s": wall}
+
+
 def time_imc_mac(torch, dev):
     """One decode step's imc_mac work: 12 layers x 6 projections at M = 4
     (4 slots), cycling 12 distinct weight sets (85 MB, more than L2)."""
@@ -637,16 +940,103 @@ def time_imc_mac(torch, dev):
                 fn(act[w.shape[0]], w)
 
     ms = cuda_ms(torch, lambda: step(imc_mac, a), iters=20)
+    g_ms = graph_ms(torch, lambda: step(imc_mac, a))
     plain = cuda_ms(torch, lambda: step(imc_mac_torch, a), iters=5)
     lib = cuda_ms(torch, lambda: step(torch._int_mm, a_pad), iters=20)
     nbytes = layers * sum(m * k + k * n + 4 * m * n for k, n in shapes)
     ops = layers * sum(2 * m * k * n for k, n in shapes)
     b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=by,
+    return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=by,
                 shape="one decode step: 12 layers x {4x (768,768), "
                       "(768,3072), (3072,768)} at M=4; library: "
                       "torch._int_mm with M padded to 32")
+
+
+def time_imc_mac_dequant(torch, dev):
+    """One decode step's projections through the fused-dequant GEMM: 12
+    layers x 6 projections at M = 4, cycling 12 distinct weight sets (85 MB,
+    more than L2), each with its float32 per-channel scales."""
+    from repro_torch.kernels.imc_mac.ops import (imc_mac_dequant,
+                                                 imc_mac_dequant_torch)
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    shapes = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
+    m, layers = 4, 12
+    a = {k: torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                          dtype=torch.int8) for k in (768, 3072)}
+    a_pad = {k: torch.cat([v, v.new_zeros((32 - m, k))]) for k, v in a.items()}
+    sa = torch.tensor(0.0123, device=dev)
+    ws = [[(torch.randint(-127, 128, s, generator=g, device=dev,
+                          dtype=torch.int8),
+            torch.rand((s[1],), generator=g, device=dev) * 0.099 + 0.001)
+           for s in shapes] for _ in range(layers)]
+
+    def step(fn, act):
+        for lw in ws:
+            for w, sw in lw:
+                fn(act[w.shape[0]], w, sa, sw)
+
+    def library(qa, w, sa_, sw):  # three calls: _int_mm, then two multiplies
+        return torch._int_mm(qa, w) * sa_ * sw
+
+    ms = cuda_ms(torch, lambda: step(imc_mac_dequant, a), iters=20)
+    g_ms = graph_ms(torch, lambda: step(imc_mac_dequant, a))
+    plain = cuda_ms(torch, lambda: step(imc_mac_dequant_torch, a), iters=5)
+    lib = cuda_ms(torch, lambda: step(library, a_pad), iters=20)
+    nbytes = layers * sum(m * k + k * n + 4 + 4 * n + 4 * m * n
+                          for k, n in shapes)
+    ops = layers * sum(2 * m * k * n for k, n in shapes)
+    b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
+    return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=by,
+                shape="one decode step: 12 layers x {4x (768,768), "
+                      "(768,3072), (3072,768)} at M=4, f32 out; library: "
+                      "three calls, torch._int_mm (M padded to 32) then "
+                      "* scale_a * scale_w")
+
+
+def time_rbl_decode_mac(torch, dev):
+    """One decode step's projections as one {0,1} plane pair each: 12 layers
+    x 6 projections at M = 4, rows 8, cycling 12 distinct weight sets (85
+    MB of one-byte operands, more than L2)."""
+    from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
+    from repro_torch.kernels.rbl_decode.ops import (rbl_decode_mac,
+                                                    rbl_decode_mac_torch)
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    shapes = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
+    m, layers, rows = 4, 12, 8
+    a = {k: torch.randint(0, 2, (m, k), generator=g, device=dev,
+                          dtype=torch.int8) for k in (768, 3072)}
+    a_pad = {k: torch.cat([v, v.new_zeros((32 - m, k))]) for k, v in a.items()}
+    ws = [[torch.randint(0, 2, s, generator=g, device=dev, dtype=torch.int8)
+           for s in shapes] for _ in range(layers)]
+    thr = physics_thresholds(rows, dev)
+
+    def step(fn, act, *args):
+        for lw in ws:
+            for w in lw:
+                fn(act[w.shape[0]], w, *args)
+
+    ms = cuda_ms(torch, lambda: step(rbl_decode_mac, a, thr), iters=20)
+    g_ms = graph_ms(torch, lambda: step(rbl_decode_mac, a, thr))
+    plain = cuda_ms(torch, lambda: step(rbl_decode_mac_torch, a, thr),
+                    iters=3, warmup=1)
+    lib = cuda_ms(torch, lambda: step(torch._int_mm, a_pad), iters=20)
+    nbytes = layers * sum(m * k + k * n + 4 * rows + 4 * m * n
+                          for k, n in shapes)
+    ops = layers * sum(2 * m * k * n for k, n in shapes)
+    b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
+    return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=by,
+                shape="one decode step as one plane pair per projection: 12 "
+                      "layers x {4x (768,768), (768,3072), (3072,768)} at "
+                      "M=4, {0,1} int8 operands, rows 8, calibrated thr; "
+                      "ops = 2*M*K*N binary MACs at the int8 rate; library: "
+                      "torch._int_mm on the {0,1} operands (M padded to "
+                      "32), the same values only under calibrated "
+                      "thresholds")
 
 
 def time_paged_attn(torch, dev):
@@ -723,6 +1113,8 @@ def time_bitplane_mac(torch, dev):
 
     ms = cuda_ms(torch, lambda: step(bitplane_mac, a8, ws8, bits_a=bits,
                                      bits_w=bits, rows=rows), iters=10)
+    g_ms = graph_ms(torch, lambda: step(bitplane_mac, a8, ws8, bits_a=bits,
+                                        bits_w=bits, rows=rows))
     plain = cuda_ms(torch, lambda: step(bitplane_mac_torch, a, ws,
                                         bits_a=bits, bits_w=bits, rows=rows),
                     iters=1, warmup=1)
@@ -730,8 +1122,8 @@ def time_bitplane_mac(torch, dev):
     nbytes = layers * sum(m * k + k * n + 4 * m * n for k, n in shapes)
     ops = layers * sum(2 * bits * bits * m * k * n for k, n in shapes)
     b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=by,
+    return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=by,
                 shape="one decode step: 12 layers x {4x (768,768), "
                       "(768,3072), (3072,768)} at M=4, 8x8 bits, rows 8, "
                       "uint8 operands; ops = 2*PA*PW*M*K*N binary MACs at the "
@@ -851,18 +1243,23 @@ def main() -> int:
 
     build_s = phase_build()
     mac_err = phase_imc_mac(torch, dev)
+    dq_err = phase_imc_mac_dequant(torch, dev)
     attn_err, attn_worst = phase_paged_attn(torch, dev)
     bp_err = phase_bitplane_mac(torch, dev)
     bpn_err = phase_bitplane_mac_noisy(torch, dev)
+    rbl_err = phase_rbl_decode_mac(torch, dev)
     flash_err, flash_worst = phase_flash_attn(torch, dev)
     served = phase_server(torch, dev)
     exact, sim = served["exact"], served["sim_flash"]
     noisy = served["sim_noise"]
+    macro = phase_macro(torch, dev)
     timed = {"imc_mac": time_imc_mac(torch, dev),
              "paged_attn": time_paged_attn(torch, dev),
              "bitplane_mac": time_bitplane_mac(torch, dev),
              "flash_attn": time_flash_attn(torch, dev),
-             "bitplane_mac_noisy": time_bitplane_mac_noisy(torch, dev)}
+             "bitplane_mac_noisy": time_bitplane_mac_noisy(torch, dev),
+             "imc_mac_dequant": time_imc_mac_dequant(torch, dev),
+             "rbl_decode_mac": time_rbl_decode_mac(torch, dev)}
     timed["bitplane_mac_noisy"]["noise_free_bitplane_mac_ms"] = \
         timed["bitplane_mac"]["ms"]
 
@@ -897,14 +1294,32 @@ def main() -> int:
                  "bitplane_mac_noisy"],
              launches_per_prefill=noisy["per_prefill"]["bitplane_mac_noisy"],
              max_abs_err=bpn_err),
+        dict(name="imc_mac_dequant",
+             replaces=f"{tpu}/imc_mac/imc_mac.py:91",
+             source="src/repro_torch/csrc/imc_mac.cu", path="macro (6d)",
+             launches=macro["launches"]["imc_mac_dequant"],
+             launches_per_decode_step=exact["per_decode_step"][
+                 "imc_mac_dequant"],
+             launches_per_prefill=exact["per_prefill"]["imc_mac_dequant"],
+             max_abs_err=dq_err),
+        dict(name="rbl_decode_mac",
+             replaces=f"{tpu}/rbl_decode/rbl_decode.py:67",
+             path="macro (6d)", launches=macro["launches"]["rbl_decode_mac"],
+             launches_per_decode_step=exact["per_decode_step"][
+                 "rbl_decode_mac"],
+             launches_per_prefill=exact["per_prefill"]["rbl_decode_mac"],
+             max_abs_err=rbl_err),
     ]
     for k in kernels:
-        k.update(route="cuda", source=f"src/repro_torch/csrc/{k['name']}.cu",
-                 **timed[k["name"]])
+        k.setdefault("source", f"src/repro_torch/csrc/{k['name']}.cu")
+        k.update(route="cuda", **timed[k["name"]])
         lib = "none" if k["library_ms"] is None else \
             f"{k['library_ms']:.4f} ms"
-        log(f"[7] {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms"
-            f" by {k['bound_by']}; plain {k['plain_ms']:.4f} ms; library "
+        graph = "" if "graph_ms" not in k else \
+            f"; {k['graph_ms']:.4f} ms replayed from a CUDA graph"
+        log(f"[7] {k['name']}: {k['ms']:.4f} ms{graph} (bound "
+            f"{k['bound_ms']:.4f} ms by {k['bound_by']}; plain "
+            f"{k['plain_ms']:.4f} ms; library "
             f"{lib}); {k['launches_per_decode_step']} "
             f"launches per decode step, {k['launches_per_prefill']} per "
             f"prefill, {k['launches']} in the {k['path']} run")
@@ -913,7 +1328,8 @@ def main() -> int:
         f"{t['ms_both']:.4f} ms (bound {t['bound_ms_both']:.4f} ms by "
         f"{t['bound_by_both']}; plain {t['plain_ms_both']:.4f} ms); "
         f"noise-free bitplane_mac {t['noise_free_bitplane_mac_ms']:.4f} ms")
-    log(f"[8] build {build_s:.2f} s; served {json.dumps(served)}")
+    log(f"[8] build {build_s:.2f} s; served {json.dumps(served)}; macro "
+        f"{json.dumps(macro)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -27,8 +27,15 @@ models, as in the reference: ``sim/torch+noise`` decodes with the LUT
 voltage (the reference's ``_sim_jnp_noisy``), ``sim/cuda+noise`` with the
 physics voltage and thresholds (its ``_sim_pallas_noisy``).  A noisy spec
 needs a 64-bit ``seed`` per call; the same seed gives the same result.
-The ``Fabric`` facade, MAC-derived logic and the cost model come in a later
-slice.
+
+The :class:`Fabric` facade bundles the four things you do with a macro, on
+one device (the card unless ``device="cpu"`` is asked for):
+
+    fab = Fabric(FabricSpec(mode="sim", noise=NoiseSpec(mismatch_sigma=0.05)))
+    y   = fab.matmul(x, w, seed=7)           # quant -> fabric GEMM -> dequant
+    y   = fab.linear(params, x, seed=7)      # Linear layer, STE backward
+    c   = fab.logic(a, b, "XOR")             # MAC-derived bitwise logic
+    rep = fab.cost(x.shape, w.shape)         # energy/latency FabricReport
 """
 from __future__ import annotations
 
@@ -36,11 +43,18 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import constants as C
+from repro_torch.core.bitserial import (bitserial_matmul_unsigned,
+                                        decode_group_counts)
+from repro_torch.core.energy import FabricReport
+from repro_torch.core.logic import OPS, add_nbit, logic_from_count, logic_word
 from repro_torch.core.quant import (quantize, signed_product_correction,
                                     to_offset_binary)
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.common import mix_seed
 
 MODES = ("exact", "sim")
 BACKENDS = ("auto", "torch", "cuda")
@@ -159,6 +173,14 @@ def resolve_engine(spec: FabricSpec, device: torch.device) -> Callable:
     return _ENGINES[(spec.mode, spec.resolve_backend(device), spec.noisy)]
 
 
+def int_matmul(qa: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+    """int8[..., K] x int8[K, N] -> int32[..., N]: the ``imc_mac`` kernel
+    for CUDA tensors, its plain version for CPU tensors."""
+    from repro_torch.kernels.imc_mac.ops import imc_mac
+
+    return imc_mac(qa, qw)
+
+
 @register_engine("exact", "torch", False)
 def _exact_torch(qa, qw, spec, seed):
     from repro_torch.kernels.imc_mac.ops import imc_mac_torch
@@ -182,8 +204,6 @@ def _sim_correction(qa, qw, spec):
 
 @register_engine("sim", "torch", False)
 def _sim_torch(qa, qw, spec, seed):
-    from repro_torch.core.bitserial import bitserial_matmul_unsigned
-
     u_a, u_w, corr = _sim_correction(qa, qw, spec)
     uu = bitserial_matmul_unsigned(u_a, u_w, bits_a=spec.bits_a,
                                    bits_w=spec.bits_w, rows=spec.rows,
@@ -193,8 +213,6 @@ def _sim_torch(qa, qw, spec, seed):
 
 @register_engine("sim", "torch", True)
 def _sim_torch_noisy(qa, qw, spec, seed):
-    from repro_torch.core.bitserial import bitserial_matmul_unsigned
-
     u_a, u_w, corr = _sim_correction(qa, qw, spec)
     uu = bitserial_matmul_unsigned(
         u_a, u_w, bits_a=spec.bits_a, bits_w=spec.bits_w, rows=spec.rows,
@@ -244,6 +262,133 @@ def fabric_matmul(x: torch.Tensor, w: torch.Tensor,
     acc = engine(qx.q, qw.q, spec, seed)
     return acc.to(torch.float32) * qx.scale * qw.scale.reshape(
         (1,) * (acc.ndim - 1) + (-1,))
+
+
+# ------------------------------------------------------------------ facade
+class Fabric:
+    """All four faces of the macro — GEMM, layer, logic, cost — on one spec
+    and one device.
+
+    ``device`` resolves through :func:`repro_torch.device.resolve_device`:
+    None means the card, and raises without one.  The engine is resolved
+    up front, so a spec the device cannot run raises here.  Operands (numpy
+    arrays, Python numbers or tensors) are moved to the fabric's device.
+    """
+
+    def __init__(self, spec: FabricSpec = FabricSpec(),
+                 device: DeviceLike = None):
+        self.spec = spec
+        self.device = resolve_device(device)
+        self._engine = resolve_engine(spec, self.device)
+
+    def __repr__(self):
+        return f"Fabric({self.spec!r}, device={str(self.device)!r})"
+
+    def _t(self, x) -> torch.Tensor:
+        """``x`` on the fabric's device; a float64 array becomes float32, as
+        the reference's ``jnp.asarray`` makes it."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+            if x.dtype == np.float64:
+                x = x.astype(np.float32)
+        return torch.as_tensor(x, device=self.device)
+
+    def _words(self, x) -> torch.Tensor:
+        """Packed words as int64 (numpy's unsigned types included)."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x).astype(np.int64)
+        return self._t(x).to(torch.int64)
+
+    def matmul(self, x, w, *, seed: Optional[int] = None) -> torch.Tensor:
+        """Quantize -> fabric GEMM -> dequant.  See :func:`fabric_matmul`."""
+        return fabric_matmul(self._t(x), self._t(w), self.spec, seed=seed)
+
+    def linear(self, params, x, *, seed: Optional[int] = None
+               ) -> torch.Tensor:
+        """Linear layer on the fabric: params {"w": (K,N)[, "b": (N,)]}.
+
+        Straight-through estimator backward (the gradients of the float
+        matmul), so the same layer trains and serves.
+        """
+        from repro_torch.core.imc_linear import imc_linear_apply
+
+        b = params.get("b")
+        return imc_linear_apply(self._t(x), self._t(params["w"]),
+                                None if b is None else self._t(b),
+                                spec=self.spec, seed=seed)
+
+    def _count_decode(self, seed: Optional[int]):
+        """counts -> counts through the spec's decode path.
+
+        Under a noisy spec, evaluation ``n`` of the returned closure draws
+        from its own generator seeded ``mix_seed(seed, n)`` (the reference
+        folds ``n`` into its key), so multi-evaluation word ops (ripple-carry
+        stages) draw independent noise per MAC activation.
+        """
+        if self.spec.noisy and seed is None:
+            raise ValueError(f"spec {self.spec.label} is noisy: pass seed=")
+        n = [0]
+
+        def decode(count):
+            kw = {}
+            if self.spec.noisy:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    mix_seed(seed, n[0]))
+                kw = dict(generator=gen,
+                          mismatch_sigma=self.spec.noise.mismatch_sigma,
+                          comparator_offset_sigma=(
+                              self.spec.noise.comparator_offset_sigma))
+                n[0] += 1
+            return decode_group_counts(count, mode=self.spec.mode,
+                                       rows=self.spec.rows, **kw)
+
+        return decode
+
+    def logic(self, a, b, op: str, *, seed: Optional[int] = None
+              ) -> torch.Tensor:
+        """MAC-derived bitwise logic (paper §III-B..E, Table II).
+
+        ``a``, ``b``: {0,1} values (any shape, broadcastable).  The
+        2-operand MAC count goes through the spec's decode path (exact clip,
+        or the analog voltage + comparator model for ``mode="sim"``, with
+        the spec's noise under ``seed``), then the Boolean function is read
+        off the count.  Returns uint8.
+        """
+        op = op.upper()
+        if op not in OPS:
+            raise ValueError(f"op must be one of {OPS}, got {op!r}")
+        count = self._t(a).to(torch.int32) + self._t(b).to(torch.int32)
+        dec = self._count_decode(seed)(count)
+        return logic_from_count(dec, m=2)[op]
+
+    def logic_word(self, a, b, op: str, *, bits: int = 8,
+                   seed: Optional[int] = None) -> torch.Tensor:
+        """Bitwise ``op`` over packed ``bits``-wide words (paper §III).
+
+        8 columns evaluate in parallel per macro activation, so a uint8 word
+        is one MAC cycle; every column's count runs through the spec's
+        decode path (``seed`` required iff noisy).
+        """
+        return logic_word(self._words(a), self._words(b), op, bits=bits,
+                          decode=self._count_decode(seed))
+
+    def add_nbit(self, a, b, *, bits: int = 8, seed: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Ripple-carry word addition from 1-bit MAC adders (paper §III-E).
+
+        Returns ``(sum mod 2**bits, carry_out)``; each half-adder stage is a
+        separate seeded MAC evaluation under a noisy spec.
+        """
+        return add_nbit(self._words(a), self._words(b), bits=bits,
+                        decode=self._count_decode(seed))
+
+    def cost(self, x_shape, w_shape, *, n_macros: int = 1,
+             schedule: str = "weight_stationary") -> FabricReport:
+        """Energy/latency projection of ``matmul(x, w)`` on this fabric."""
+        from repro_torch.core.imc_matmul import imc_matmul_cost
+
+        return imc_matmul_cost(x_shape, w_shape, spec=self.spec,
+                               n_macros=n_macros, schedule=schedule)
 
 
 # --------------------------------------------------------------------- CLI

@@ -1,9 +1,17 @@
 // imc_mac: int8[M,K] x int8[K,N] -> int32[M,N], exact integer accumulation.
+// imc_mac_dequant: the same GEMM flushed as float32
+//   out[m,n] = (float(acc) * scale_a) * scale_w[n].
 //
-// Replaces the TPU kernel imc_mac_raw (_mac_kernel) in
-// src/repro/kernels/imc_mac/imc_mac.py: the `exact` fabric engine, which every
-// projection of the demonstrator config runs.  Integer accumulation is exact,
-// so the result is bit-identical to any other int32 GEMM of the same operands.
+// Replaces the TPU kernels imc_mac_raw (_mac_kernel) and imc_mac_dequant_raw
+// (_mac_dequant_kernel) in src/repro/kernels/imc_mac/imc_mac.py.  imc_mac is
+// the `exact` fabric engine, which every projection of the demonstrator
+// config runs.  Integer accumulation is exact, so its result is bit-identical
+// to any other int32 GEMM of the same operands.  The dequant epilogue rounds
+// in the reference's left-to-right order, __int2float_rn, then __fmul_rn by
+// scale_a, then by scale_w[n], so it is bit-identical too; above 2^24 (deep K)
+// the int-to-float rounding shows and is the reference's.  scale_a is read
+// from device memory (no host copy, no sync).  The kernel has no split-K:
+// the epilogue sees the whole sum.
 //
 // What bounds it on an H100: at decode (M = 4 slots) the work is a few
 // hundred int8 MACs per weight byte read, far below the card's ~590 int8
@@ -49,9 +57,27 @@ __device__ __forceinline__ uint32_t load_word(const int8_t* __restrict__ row,
   return w;
 }
 
+// The two epilogues: store the int32 sum, or dequantize it to float32.
+struct StoreInt {
+  int32_t* __restrict__ c;
+  __device__ __forceinline__ void operator()(size_t i, int, int acc) const {
+    c[i] = acc;
+  }
+};
+
+struct Dequant {
+  float* __restrict__ c;
+  const float* __restrict__ scale_a;
+  const float* __restrict__ scale_w;
+  __device__ __forceinline__ void operator()(size_t i, int n, int acc) const {
+    c[i] = __fmul_rn(__fmul_rn(__int2float_rn(acc), *scale_a), scale_w[n]);
+  }
+};
+
+template <typename Epilogue>
 __global__ void __launch_bounds__(THREADS)
 imc_mac_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-               int32_t* __restrict__ c, int M, int N, int K) {
+               Epilogue epilogue, int M, int N, int K) {
   __shared__ uint32_t as[BM][KQ + 1];  // +1 word: rows 2 apart hit distinct banks
   __shared__ uint32_t bs[KQ][BN];
 
@@ -127,21 +153,43 @@ imc_mac_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx + 8 * j;
-      if (gn < N) c[static_cast<size_t>(gm) * N + gn] = acc[i][j];
+      if (gn < N) epilogue(static_cast<size_t>(gm) * N + gn, gn, acc[i][j]);
     }
   }
 }
 
-}  // namespace
-
-extern "C" int imc_mac_launch(const void* a, const void* b, void* c, int M,
-                              int N, int K, void* stream, int device) {
+template <typename Epilogue>
+int launch(const void* a, const void* b, Epilogue epilogue, int M, int N,
+           int K, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (M <= 0 || N <= 0) return 0;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   imc_mac_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
-      static_cast<int32_t*>(c), M, N, K);
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), epilogue,
+      M, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// a: int8[M,K], b: int8[K,N] row-major; c: int32[M,N].  Returns a
+// cudaError_t value.
+extern "C" int imc_mac_launch(const void* a, const void* b, void* c, int M,
+                              int N, int K, void* stream, int device) {
+  return launch(a, b, StoreInt{static_cast<int32_t*>(c)}, M, N, K, stream,
+                device);
+}
+
+// As imc_mac_launch, plus scale_a: float32[1] and scale_w: float32[N] in
+// device memory; c: float32[M,N].
+extern "C" int imc_mac_dequant_launch(const void* a, const void* b,
+                                      const void* scale_a, const void* scale_w,
+                                      void* c, int M, int N, int K,
+                                      void* stream, int device) {
+  return launch(a, b,
+                Dequant{static_cast<float*>(c),
+                        static_cast<const float*>(scale_a),
+                        static_cast<const float*>(scale_w)},
+                M, N, K, stream, device);
 }

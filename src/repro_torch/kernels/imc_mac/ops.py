@@ -1,10 +1,14 @@
-"""The ``imc_mac`` kernel: int8 x int8 -> int32 GEMM for the exact fabric
-engine (port of ``repro/kernels/imc_mac``; CUDA source ``csrc/imc_mac.cu``).
+"""The ``imc_mac`` kernels: int8 x int8 -> int32 GEMM for the exact fabric
+engine, and the same GEMM with the per-tensor x per-channel dequant fused
+into its flush (port of ``repro/kernels/imc_mac``; CUDA source
+``csrc/imc_mac.cu``, two entry points).
 
-:func:`imc_mac` dispatches by device: a CUDA tensor launches the kernel (or
-raises: on a build failure, a refused launch, a wrong dtype or shape); a CPU
-tensor takes the plain version :func:`imc_mac_torch`.  No fallback hides the
-kernel.  ``imc_mac.launches`` counts kernel launches and nothing else.
+:func:`imc_mac` and :func:`imc_mac_dequant` dispatch by device: a CUDA
+tensor launches the kernel (or raises: on a build failure, a refused launch,
+a wrong dtype, device or shape); a CPU tensor takes the plain version
+(:func:`imc_mac_torch`, :func:`imc_mac_dequant_torch`).  No fallback hides a
+kernel.  ``imc_mac.launches`` and ``imc_mac_dequant.launches`` count kernel
+launches and nothing else.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ from repro_torch.kernels import build
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p,
                                                           ctypes.c_int]
+_DEQUANT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
+    [ctypes.c_void_p, ctypes.c_int]
 
 
 def _flatten(qa: torch.Tensor, qw: torch.Tensor):
@@ -72,3 +78,63 @@ def imc_mac(qa: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
 
 
 imc_mac.launches = 0
+
+
+# ------------------------------------------------------------- dequant
+def imc_mac_dequant_torch(qa: torch.Tensor, qw: torch.Tensor, scale_a,
+                          scale_w) -> torch.Tensor:
+    """Plain version: float32[..., N] = (f32(qa @ qw) * scale_a) * scale_w[n],
+    rounded left to right as the reference's ``acc * sa * sw``."""
+    acc = imc_mac_torch(qa, qw).to(torch.float32)
+    sa = torch.as_tensor(scale_a, dtype=torch.float32, device=acc.device)
+    sw = torch.as_tensor(scale_w, dtype=torch.float32, device=acc.device)
+    return acc * sa.reshape(()) * sw.reshape(-1)
+
+
+def imc_mac_dequant(qa: torch.Tensor, qw: torch.Tensor, scale_a,
+                    scale_w) -> torch.Tensor:
+    """Fused int8 GEMM + per-channel dequant -> float32[..., N].
+
+    ``scale_a``: the per-tensor activation scale, one float32 value;
+    ``scale_w``: float32[N] per-output-channel scales.  On the card both
+    are float32 tensors on the operands' device (``scale_a`` is read there
+    by the kernel: no host copy, no sync).  Leading batch dims of ``qa``
+    flatten into M.
+    """
+    if all(not isinstance(t, torch.Tensor) or t.device.type == "cpu"
+           for t in (qa, qw, scale_a, scale_w)):
+        return imc_mac_dequant_torch(qa, qw, scale_a, scale_w)
+    ts = (qa, qw, scale_a, scale_w)
+    if not all(isinstance(t, torch.Tensor) and t.is_cuda and
+               t.device == qa.device for t in ts):
+        raise ValueError("imc_mac_dequant: operands and scales must all be "
+                         "tensors on one CUDA device (or all on the CPU)")
+    if qa.dtype != torch.int8 or qw.dtype != torch.int8:
+        raise TypeError(f"imc_mac_dequant: needs int8 operands, got "
+                        f"{qa.dtype} x {qw.dtype}")
+    batch, a2 = _flatten(qa, qw)
+    n = qw.shape[1]
+    if scale_a.dtype != torch.float32 or scale_a.numel() != 1 or \
+            scale_w.dtype != torch.float32 or scale_w.numel() != n:
+        raise ValueError(f"imc_mac_dequant: needs a float32 scale_a of one "
+                         f"value and a float32 scale_w of {n}, got "
+                         f"{scale_a.dtype}{list(scale_a.shape)} and "
+                         f"{scale_w.dtype}{list(scale_w.shape)}")
+    a2 = a2.contiguous()
+    b = qw.contiguous()
+    sa = scale_a.contiguous()
+    sw = scale_w.reshape(-1).contiguous()
+    m, k = a2.shape
+    out = torch.empty((m, n), dtype=torch.float32, device=a2.device)
+    lib = build.load("imc_mac")
+    fn = lib.imc_mac_dequant_launch
+    fn.argtypes, fn.restype = _DEQUANT_ARGTYPES, ctypes.c_int
+    stream, dev = build.stream_and_device(a2)
+    build.check_launch("imc_mac_dequant", fn(
+        a2.data_ptr(), b.data_ptr(), sa.data_ptr(), sw.data_ptr(),
+        out.data_ptr(), m, n, k, stream, dev))
+    imc_mac_dequant.launches += 1
+    return out.reshape(*batch, n)
+
+
+imc_mac_dequant.launches = 0

@@ -1,0 +1,118 @@
+"""The ``rbl_decode_mac`` kernel: the grouped binary MAC with the analog RBL
+decode in the loop, for one bit-plane pair (port of
+``repro/kernels/rbl_decode``; CUDA source ``csrc/rbl_decode_mac.cu``).
+
+    out[m, n] = sum_g #{i : thr[i] >= V(count[g, m, n])}
+
+with ``count`` the binary MAC count of each ``rows``-row K-group, ``V`` the
+two-regime physics RBL voltage and ``thr`` the comparator references (live
+data: a detuned ``thr`` corrupts the result, the paper's §IV-C threshold
+re-tuning study).  Under the calibrated ``thr`` every count decodes to
+itself and the result is the integer product ``a_bits @ w_bits``.
+
+Operands are {0,1} (int8 or uint8).  The kernel counts bit 0 of each byte;
+the plain version raises on any other value, the kernel's wrapper does not
+read values back to check.  Only the real ``ceil(K/rows)`` groups are
+decoded (a zero-padded partial last group is real and decoded); the
+reference also decodes the groups of its K padding to 256, which under a
+detuned ``thr`` with ``dec(0) != 0`` adds ``dec(0)`` per padded group.
+
+:func:`rbl_decode_mac` dispatches by device: a CUDA tensor launches the
+kernel (or raises: on a build failure, a refused launch, a wrong dtype,
+device or shape, a ``thr`` that is not float32[rows]); a CPU tensor takes the
+plain version :func:`rbl_decode_mac_torch`.  ``rbl_decode_mac.launches``
+counts kernel launches and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import constants as C
+from repro_torch.core.bitserial import group_counts
+from repro_torch.kernels import build
+from repro_torch.kernels.bitplane_mac.ops import (MAX_ROWS, decode_counts,
+                                                  physics_thresholds)
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p,
+                                                          ctypes.c_int]
+_BYTES = (torch.int8, torch.uint8)
+
+
+def _check(a_bits, w_bits, thr, rows):
+    if w_bits.ndim != 2 or a_bits.ndim < 1 or \
+            a_bits.shape[-1] != w_bits.shape[0]:
+        raise ValueError(f"rbl_decode_mac: shapes {tuple(a_bits.shape)} x "
+                         f"{tuple(w_bits.shape)} do not contract")
+    if not 2 <= rows <= MAX_ROWS:
+        raise ValueError(f"rbl_decode_mac: rows must be in [2, {MAX_ROWS}], "
+                         f"got {rows}")
+    if thr.dtype != torch.float32 or thr.shape != (rows,):
+        raise ValueError(f"rbl_decode_mac: thr must be float32[{rows}], got "
+                         f"{thr.dtype}{list(thr.shape)}")
+    if any(t.device != a_bits.device for t in (w_bits, thr)):
+        raise ValueError(f"rbl_decode_mac: operands on {a_bits.device}, "
+                         f"{w_bits.device} and {thr.device}; all must be on "
+                         "one CUDA device (or all on the CPU)")
+
+
+def rbl_decode_mac_torch(a_bits: torch.Tensor, w_bits: torch.Tensor,
+                         thr: torch.Tensor | None = None, *,
+                         rows: int = C.ROWS) -> torch.Tensor:
+    """Plain version: ``group_counts`` -> physics voltage -> the number of
+    references ``thr[i] >= V`` per group, summed over the real groups.
+    Returns int32[..., N].  Runs on the CPU and on the card alike."""
+    if thr is None:
+        thr = physics_thresholds(rows, a_bits.device)
+    _check(a_bits, w_bits, thr, rows)
+    for name, t in (("a_bits", a_bits), ("w_bits", w_bits)):
+        if not bool(((t == 0) | (t == 1)).all()):
+            raise ValueError(f"rbl_decode_mac: {name} must hold {{0, 1}}")
+    counts = group_counts(a_bits, w_bits, rows)  # [..., G, N]
+    return torch.sum(decode_counts(counts, thr, rows), dim=-2,
+                     dtype=torch.int32)
+
+
+def rbl_decode_mac(a_bits: torch.Tensor, w_bits: torch.Tensor,
+                   thr: torch.Tensor | None = None, *,
+                   rows: int = C.ROWS) -> torch.Tensor:
+    """Grouped analog-decode binary MAC for arbitrary shapes.
+
+    a_bits: {0,1}[..., K]; w_bits: {0,1}[K, N]; leading batch dims of
+    ``a_bits`` flatten into M.  ``thr`` (float32[rows], descending) defaults
+    to the physics-model references for ``rows`` (re-tunable, §IV-C).
+    Returns int32[..., N].
+    """
+    if all(t is None or t.device.type == "cpu" for t in (a_bits, w_bits,
+                                                         thr)):
+        return rbl_decode_mac_torch(a_bits, w_bits, thr, rows=rows)
+    if not a_bits.is_cuda:
+        raise ValueError(f"rbl_decode_mac: operands on {a_bits.device} and "
+                         f"{w_bits.device}; all must be on one CUDA device "
+                         "(or all on the CPU)")
+    if thr is None:
+        thr = physics_thresholds(rows, a_bits.device)
+    _check(a_bits, w_bits, thr, rows)
+    if a_bits.dtype not in _BYTES or w_bits.dtype not in _BYTES:
+        raise TypeError(f"rbl_decode_mac: needs int8 or uint8 {{0, 1}} "
+                        f"operands, got {a_bits.dtype} x {w_bits.dtype}")
+    batch = tuple(a_bits.shape[:-1])
+    k, n = w_bits.shape
+    a = a_bits.reshape(-1, k).contiguous()
+    w = w_bits.contiguous()
+    t = thr.contiguous()
+    m = a.shape[0]
+    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    lib = build.load("rbl_decode_mac")
+    fn = lib.rbl_decode_mac_launch
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    stream, dev = build.stream_and_device(a)
+    build.check_launch("rbl_decode_mac", fn(
+        a.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(), m, n, k,
+        rows, stream, dev))
+    rbl_decode_mac.launches += 1
+    return out.reshape(batch + (n,))
+
+
+rbl_decode_mac.launches = 0

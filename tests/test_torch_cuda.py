@@ -5,19 +5,23 @@ sm_90 card).  Run there with
 
 This file imports neither ``jax`` nor ``repro``: the machine with the card
 has no JAX.  Each kernel is held against its plain PyTorch version on the
-same card tensors: ``imc_mac``, ``bitplane_mac`` and ``bitplane_mac_noisy``
-bit for bit (including detuned comparator references and 16-row groups; the
-noisy kernel and its plain version draw one Philox stream), ``paged_attn`` at the
+same card tensors: ``imc_mac``, ``imc_mac_dequant``, ``bitplane_mac``,
+``bitplane_mac_noisy`` and ``rbl_decode_mac`` bit for bit (including detuned
+comparator references and 16-row groups; the noisy kernel and its plain
+version draw one Philox stream), ``paged_attn`` at the
 bounds of ``tests/test_paged_attn.py`` (f32 5e-6, bf16 1.6e-2 = one output
 ulp, int8 1e-2), ``flash_attn`` at those of ``tests/test_flash_attn.py``
 (f32 3e-6, bf16 2e-2).  Every launch bumps the wrapper's counter exactly
-once; wrong dtypes and devices raise.
+once; wrong dtypes and devices raise.  The ``Fabric`` facade's word logic,
+adder and matmul on the card equal the CPU's.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.fabric import FabricSpec, NoiseSpec, fabric_matmul
+from repro_torch.core.fabric import (Fabric, FabricSpec, NoiseSpec,
+                                     fabric_matmul)
+from repro_torch.core.logic import WORD_OPS
 from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
                                                   bitplane_mac_noisy,
                                                   bitplane_mac_noisy_torch,
@@ -25,9 +29,13 @@ from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
                                                   physics_thresholds)
 from repro_torch.kernels.flash_attn.ops import (flash_attention,
                                                 flash_attention_torch)
-from repro_torch.kernels.imc_mac.ops import imc_mac, imc_mac_torch
+from repro_torch.kernels.imc_mac.ops import (imc_mac, imc_mac_dequant,
+                                             imc_mac_dequant_torch,
+                                             imc_mac_torch)
 from repro_torch.kernels.paged_attn.ops import (paged_attention,
                                                 paged_decode_torch)
+from repro_torch.kernels.rbl_decode.ops import (rbl_decode_mac,
+                                                rbl_decode_mac_torch)
 from repro_torch.models.attention import _kv_quant
 
 ATOL = {"f32": 5e-6, "bf16": 1.6e-2, "int8": 1e-2}
@@ -288,3 +296,103 @@ def test_flash_attn_rejects_bad_operands(hopper):
         flash_attention(q, k.cpu(), k.cpu())
     with pytest.raises(ValueError, match="does not fit"):
         flash_attention(q, k[:, :4], k[:, :4])
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 768, 768), (16, 768, 3072),
+                                   (64, 3072, 768), (130, 140, 150),
+                                   (8, 2048, 8)])
+def test_imc_mac_dequant_bit_exact(hopper, m, k, n):
+    g = torch.Generator(device=hopper).manual_seed(m + k + n)
+    qa = torch.randint(-127, 128, (m, k), generator=g, device=hopper,
+                       dtype=torch.int8)
+    qw = torch.randint(-127, 128, (k, n), generator=g, device=hopper,
+                       dtype=torch.int8)
+    if k == 2048:  # deep K at +-127: |acc| = 3.3e7 > 2^24
+        qa.fill_(127)
+        qw.fill_(-127)
+    sa = torch.tensor(0.0123, device=hopper)
+    sw = torch.rand((n,), generator=g, device=hopper) * 0.099 + 0.001
+    before = imc_mac_dequant.launches
+    out = imc_mac_dequant(qa, qw, sa, sw)
+    torch.cuda.synchronize()
+    assert imc_mac_dequant.launches == before + 1
+    assert out.dtype == torch.float32
+    assert torch.equal(out, imc_mac_dequant_torch(qa, qw, sa, sw))
+
+
+def test_imc_mac_dequant_operand_errors(hopper):
+    qa = torch.ones((4, 32), dtype=torch.int8, device=hopper)
+    qw = torch.ones((32, 8), dtype=torch.int8, device=hopper)
+    sa = torch.tensor(0.5, device=hopper)
+    sw = torch.ones((8,), device=hopper)
+    out = imc_mac_dequant(qa.reshape(2, 2, 32), qw, sa.reshape(1, 1), sw)
+    assert out.shape == (2, 2, 8) and bool((out == 16.0).all())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        imc_mac_dequant(qa, qw, sa.cpu(), sw)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        imc_mac_dequant(qa, qw, 0.5, sw)
+    with pytest.raises(TypeError, match="int8"):
+        imc_mac_dequant(qa.to(torch.int32), qw, sa, sw)
+    with pytest.raises(ValueError, match="float32"):
+        imc_mac_dequant(qa, qw, sa.double(), sw)
+    with pytest.raises(ValueError, match="float32"):
+        imc_mac_dequant(qa, qw, sa, sw[:4])
+
+
+@pytest.mark.parametrize("m,k,n,rows", [
+    (4, 768, 768, 8), (4, 3072, 768, 8), (64, 768, 3072, 8), (50, 70, 30, 8),
+    (5, 3, 7, 8), (24, 160, 8, 16), (64, 768, 768, 16), (7, 100, 37, 32)])
+def test_rbl_decode_mac_bit_exact(hopper, m, k, n, rows):
+    g = torch.Generator(device=hopper).manual_seed(m * k + n + rows)
+    a = torch.randint(0, 2, (m, k), generator=g, device=hopper,
+                      dtype=torch.int8)
+    w = torch.randint(0, 2, (k, n), generator=g, device=hopper,
+                      dtype=torch.int8)
+    before = rbl_decode_mac.launches
+    out = rbl_decode_mac(a, w, rows=rows)
+    torch.cuda.synchronize()
+    assert rbl_decode_mac.launches == before + 1
+    assert torch.equal(out, rbl_decode_mac_torch(a, w, rows=rows))
+    assert torch.equal(out, (a.double() @ w.double()).to(torch.int32))
+    good = physics_thresholds(rows, hopper)
+    detuned = torch.cat([torch.tensor([1.9], device=hopper), good[:-1]])
+    bad = rbl_decode_mac(a, w, detuned, rows=rows)
+    assert torch.equal(bad, rbl_decode_mac_torch(a, w, detuned, rows=rows))
+    assert not torch.equal(bad, out)
+
+
+def test_rbl_decode_mac_operand_errors(hopper):
+    a = torch.randint(0, 2, (2, 3, 40), device=hopper, dtype=torch.uint8)
+    w = torch.randint(0, 2, (40, 6), device=hopper, dtype=torch.uint8)
+    out = rbl_decode_mac(a, w)
+    assert out.shape == (2, 3, 6) and out.dtype == torch.int32
+    assert torch.equal(out.reshape(6, 6), (a.reshape(6, 40).double()
+                                           @ w.double()).to(torch.int32))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rbl_decode_mac(a, w.cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rbl_decode_mac(a, w, physics_thresholds(8, "cpu"))
+    with pytest.raises(TypeError, match="int8 or uint8"):
+        rbl_decode_mac(a.to(torch.int32), w)
+    with pytest.raises(ValueError, match="float32"):
+        rbl_decode_mac(a, w, physics_thresholds(8, hopper).double())
+    with pytest.raises(ValueError, match="rows"):
+        rbl_decode_mac(a, w, rows=64)
+
+
+@pytest.mark.parametrize("mode", ["exact", "sim"])
+def test_facade_on_the_card_equals_the_cpu(hopper, mode):
+    rng = np.random.default_rng(14)
+    a = rng.integers(0, 256, size=(64, 33)).astype(np.uint8)
+    b = rng.integers(0, 256, size=(64, 33)).astype(np.uint8)
+    card = Fabric(FabricSpec(mode=mode), hopper)
+    cpu = Fabric(FabricSpec(mode=mode), "cpu")
+    for op in WORD_OPS:
+        assert torch.equal(card.logic_word(a, b, op).cpu(),
+                           cpu.logic_word(a, b, op))
+    for x, y in zip(card.add_nbit(a, b), cpu.add_nbit(a, b)):
+        assert torch.equal(x.cpu(), y)
+    x = rng.normal(size=(4, 768)).astype(np.float32)
+    w = (rng.normal(size=(768, 96)) * 0.05).astype(np.float32)
+    assert torch.equal(card.matmul(x, w).cpu(), cpu.matmul(x, w))
+    assert card.cost(x.shape, w.shape) == cpu.cost(x.shape, w.shape)
