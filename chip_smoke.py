@@ -19,10 +19,13 @@ result:
    pools, window 0 and 16, rep 1 (the demonstrator) and rep 8 (qwen2.5-3b),
    sentinel blocks and an inactive slot; bounds f32 5e-6, bf16 1.6e-2 (one
    output ulp), int8 1e-2.
-4. ``bitplane_mac`` against its plain version on the card, bit for bit:
-   the demonstrator's shapes at M in {4, 64}, a ragged shape, bits 4x8,
-   rows 16, and a detuned ``thr`` (equal to the plain version, and
-   different from the calibrated result).
+4. ``bitplane_mac`` against its plain version on the card, bit for bit,
+   one launch per call: the demonstrator's shapes at M in {4, 64}; the
+   served-case kernel (rows 8, 8x8 bits) at every M in {1, 3, 4, 5, 9, 64},
+   K in {8, 100, 1030, 3072} and N in {1, 31, 129, 768} and on all-255
+   operands; a ragged shape; the generic kernel at bits 4x8, 6x6, 3x5 and
+   rows 16; detuned (2x2 and 8x8 bits) and random (8x8) ``thr``, equal to
+   the plain version and different from the calibrated result.
    b. ``bitplane_mac_noisy`` against its plain version on the card, bit for
       bit (both draw one Philox stream with the same float32 arithmetic):
       the demonstrator's shapes at M in {4, 64}, ragged 33x1030x129, bits
@@ -89,11 +92,20 @@ result:
    ``torch._int_mm`` (plus the two scale multiplies for the dequant).
    ``ms`` times the wrappers' launches as a caller makes them (a host-bound
    loop measures the host); for ``imc_mac``, ``imc_mac_dequant``,
-   ``bitplane_mac`` and ``rbl_decode_mac``, ``graph_ms`` also times the same
-   launches replayed from one CUDA graph, the device's own time.
+   ``bitplane_mac``, ``rbl_decode_mac`` and ``bitplane_mac_noisy``,
+   ``graph_ms`` also times the same launches replayed from one CUDA graph,
+   the device's own time, and ``library_graph_ms`` does the same for the
+   ``torch._int_mm`` yardstick of ``imc_mac``, ``bitplane_mac`` and
+   ``rbl_decode_mac``.
 
 It prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --time bitplane_mac [imc_mac ...]
+
+runs phase 7 alone for the named kernels (built first) and prints one JSON
+line of their timings and the nvidia-smi line: the way to compare two trees
+in turns on one card (copy this script into the other tree's root).
 """
 from __future__ import annotations
 
@@ -117,6 +129,12 @@ PROMPTS = (7, 16, 33, 12, 5, 40)
 MACRO_KERNELS = ("imc_mac_dequant", "rbl_decode_mac")  # no served path
 MACRO_PAIRS = 1 << 22  # uint8 operand pairs of the word-logic checks
 MAX_NEW = 16
+# bitplane_mac's served-case kernel: every M in {1, 3, 4, 5, 9, 64}, K in
+# {8, 100, 1030, 3072} and N in {1, 31, 129, 768} appears
+R8_SHAPES = ((1, 8, 1), (3, 100, 31), (4, 1030, 129), (5, 3072, 768),
+             (9, 8, 768), (64, 100, 129), (1, 3072, 31), (3, 1030, 1),
+             (4, 8, 31), (5, 100, 1), (9, 1030, 768), (64, 3072, 129))
+R8_ODD_SHAPES = ((3, 100, 31), (4, 1030, 129), (4, 768, 768), (9, 8, 1))
 
 
 def log(*a):
@@ -298,52 +316,81 @@ def phase_paged_attn(torch, dev):
 
 
 def phase_bitplane_mac(torch, dev):
+    from repro_torch.core.rbl import rbl_voltage_physics
     from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
                                                       bitplane_mac_torch,
                                                       physics_thresholds)
 
     g = torch.Generator(device=dev).manual_seed(3)
-    # (m, k, n, bits_a, bits_w, rows)
-    cases = [(m, k, n, 8, 8, 8) for m in (4, 64)
-             for k, n in ((768, 768), (768, 3072), (3072, 768))]
-    cases += [(33, 1030, 129, 8, 8, 8),  # ragged in M, K (a partial group), N
-              (16, 768, 768, 4, 8, 8),   # asymmetric precision
-              (4, 768, 768, 8, 8, 16),   # 16-row groups (physics decode)
-              (4, 100, 40, 8, 8, 16)]    # 16-row groups, ragged
     worst = 0
-    for m, k, n, ba, bw, rows in cases:
-        ua = torch.randint(0, 1 << ba, (m, k), generator=g, device=dev,
-                           dtype=torch.int32)
-        uw = torch.randint(0, 1 << bw, (k, n), generator=g, device=dev,
-                           dtype=torch.int32)
-        out = bitplane_mac(ua, uw, bits_a=ba, bits_w=bw, rows=rows)
+
+    def check(ua, uw, thr, ba, bw, rows):
+        nonlocal worst
+        before = bitplane_mac.launches
+        out = bitplane_mac(ua, uw, thr, bits_a=ba, bits_w=bw, rows=rows)
         torch.cuda.synchronize()
-        plain = bitplane_mac_torch(ua, uw, bits_a=ba, bits_w=bw, rows=rows)
+        where = (tuple(ua.shape), tuple(uw.shape), ba, bw, rows)
+        if bitplane_mac.launches != before + 1:
+            raise AssertionError(f"bitplane_mac launched "
+                                 f"{bitplane_mac.launches - before} times")
+        plain = bitplane_mac_torch(ua, uw, thr, bits_a=ba, bits_w=bw,
+                                   rows=rows)
         worst = max(worst, (out - plain).abs().max().item())
         if not torch.equal(out, plain):
-            raise AssertionError(f"bitplane_mac differs from its plain version"
-                                 f" at {(m, k, n, ba, bw, rows)}")
+            raise AssertionError(f"bitplane_mac differs from its plain "
+                                 f"version at {where}")
+        return out
+
+    def draw(m, k, n, ba, bw, fill=None):
+        if fill is not None:
+            return (torch.full((m, k), fill, device=dev, dtype=torch.int32),
+                    torch.full((k, n), fill, device=dev, dtype=torch.int32))
+        return (torch.randint(0, 1 << ba, (m, k), generator=g, device=dev,
+                              dtype=torch.int32),
+                torch.randint(0, 1 << bw, (k, n), generator=g, device=dev,
+                              dtype=torch.int32))
+
+    # (m, k, n, bits_a, bits_w, rows, fill)
+    cases = [(m, k, n, 8, 8, 8, None) for m in (4, 64)
+             for k, n in ((768, 768), (768, 3072), (3072, 768))]
+    # the served-case kernel (rows 8, 8x8 bits) at every M, K and N below
+    cases += [(m, k, n, 8, 8, 8, None) for m, k, n in R8_SHAPES]
+    cases += [(4, 1030, 129, 8, 8, 8, 255),  # every count 8
+              (9, 3072, 31, 8, 8, 8, 255),
+              (33, 1030, 129, 8, 8, 8, None),  # ragged M, K (partial group), N
+              # the generic kernel
+              (16, 768, 768, 4, 8, 8, None),   # asymmetric precision
+              (5, 40, 12, 6, 6, 8, None),
+              (7, 100, 37, 3, 5, 16, None),
+              (4, 768, 768, 8, 8, 16, None),   # 16-row groups (physics decode)
+              (4, 100, 40, 8, 8, 16, None)]    # 16-row groups, ragged
+    for m, k, n, ba, bw, rows, fill in cases:
+        ua, uw = draw(m, k, n, ba, bw, fill)
+        out = check(ua, uw, None, ba, bw, rows)
         if not torch.equal(out, (ua.double() @ uw.double()).to(torch.int32)):
             raise AssertionError(f"bitplane_mac noise-free is not u_a @ u_w at"
                                  f" {(m, k, n, ba, bw, rows)}")
-    # detuned comparator references: the decode must follow the thr data
+    # detuned and random comparator references: the decode must follow the
+    # thr data, in both kernels
     good = physics_thresholds(8, dev)
     detuned = torch.cat([torch.tensor([1.9], device=dev), good[:-1]])
-    for m, k, n in ((8, 16, 8), (4, 768, 768), (5, 20, 7)):
-        ua = torch.randint(0, 4, (m, k), generator=g, device=dev,
-                           dtype=torch.int32)
-        uw = torch.randint(0, 4, (k, n), generator=g, device=dev,
-                           dtype=torch.int32)
-        bad = bitplane_mac(ua, uw, detuned, bits_a=2, bits_w=2)
-        torch.cuda.synchronize()
-        if not torch.equal(bad, bitplane_mac_torch(ua, uw, detuned, bits_a=2,
-                                                   bits_w=2)):
-            raise AssertionError(f"bitplane_mac with detuned thresholds "
-                                 f"differs from its plain version at {(m, k, n)}")
-        if torch.equal(bad, bitplane_mac(ua, uw, good, bits_a=2, bits_w=2)):
-            raise AssertionError("detuned thresholds did not change the "
+    v0, v8 = rbl_voltage_physics(torch.tensor([0.0, 8.0]), rows=8).tolist()
+    rand = torch.sort(torch.rand(8, generator=g, device=dev) * (v0 - v8) + v8,
+                      descending=True).values
+    odd = [(8, 16, 8, 2, 2, detuned), (4, 768, 768, 2, 2, detuned),
+           (5, 20, 7, 2, 2, detuned)]
+    odd += [(m, k, n, 8, 8, thr) for m, k, n in R8_ODD_SHAPES
+            for thr in (detuned, rand)]
+    for m, k, n, ba, bw, thr in odd:
+        ua, uw = draw(m, k, n, ba, bw)
+        bad = check(ua, uw, thr, ba, bw, 8)
+        if torch.equal(bad, bitplane_mac(ua, uw, good, bits_a=ba, bits_w=bw)):
+            raise AssertionError("changed thresholds did not change the "
                                  "decode: the kernel ignores thr")
-    log(f"[4] bitplane_mac bit-exact on {len(cases) + 3} cases (3 detuned)")
+    ua, uw = draw(4, 1030, 129, 8, 8, 255)
+    check(ua, uw, detuned, 8, 8, 8)
+    log(f"[4] bitplane_mac bit-exact on {len(cases) + len(odd) + 1} cases "
+        f"({len(odd) + 1} with detuned or random thresholds)")
     return float(worst)
 
 
@@ -943,11 +990,12 @@ def time_imc_mac(torch, dev):
     g_ms = graph_ms(torch, lambda: step(imc_mac, a))
     plain = cuda_ms(torch, lambda: step(imc_mac_torch, a), iters=5)
     lib = cuda_ms(torch, lambda: step(torch._int_mm, a_pad), iters=20)
+    lib_g = graph_ms(torch, lambda: step(torch._int_mm, a_pad))
     nbytes = layers * sum(m * k + k * n + 4 * m * n for k, n in shapes)
     ops = layers * sum(2 * m * k * n for k, n in shapes)
     b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
     return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=by,
+                library_graph_ms=lib_g, bound_ms=b_ms, bound_by=by,
                 shape="one decode step: 12 layers x {4x (768,768), "
                       "(768,3072), (3072,768)} at M=4; library: "
                       "torch._int_mm with M padded to 32")
@@ -1024,12 +1072,13 @@ def time_rbl_decode_mac(torch, dev):
     plain = cuda_ms(torch, lambda: step(rbl_decode_mac_torch, a, thr),
                     iters=3, warmup=1)
     lib = cuda_ms(torch, lambda: step(torch._int_mm, a_pad), iters=20)
+    lib_g = graph_ms(torch, lambda: step(torch._int_mm, a_pad))
     nbytes = layers * sum(m * k + k * n + 4 * rows + 4 * m * n
                           for k, n in shapes)
     ops = layers * sum(2 * m * k * n for k, n in shapes)
     b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
     return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=by,
+                library_graph_ms=lib_g, bound_ms=b_ms, bound_by=by,
                 shape="one decode step as one plane pair per projection: 12 "
                       "layers x {4x (768,768), (768,3072), (3072,768)} at "
                       "M=4, {0,1} int8 operands, rows 8, calibrated thr; "
@@ -1119,11 +1168,12 @@ def time_bitplane_mac(torch, dev):
                                         bits_a=bits, bits_w=bits, rows=rows),
                     iters=1, warmup=1)
     lib = cuda_ms(torch, lambda: step(torch._int_mm, a_lib, ws_lib), iters=20)
+    lib_g = graph_ms(torch, lambda: step(torch._int_mm, a_lib, ws_lib))
     nbytes = layers * sum(m * k + k * n + 4 * m * n for k, n in shapes)
     ops = layers * sum(2 * bits * bits * m * k * n for k, n in shapes)
     b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
     return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=by,
+                library_graph_ms=lib_g, bound_ms=b_ms, bound_by=by,
                 shape="one decode step: 12 layers x {4x (768,768), "
                       "(768,3072), (3072,768)} at M=4, 8x8 bits, rows 8, "
                       "uint8 operands; ops = 2*PA*PW*M*K*N binary MACs at the "
@@ -1166,12 +1216,15 @@ def time_bitplane_mac_noisy(torch, dev):
             ("_both", STRESS, 1 + rows, 2)):
         ms = cuda_ms(torch, lambda: step(bitplane_mac_noisy, a, ws, **kw),
                      iters=iters, warmup=1)
+        g_ms = graph_ms(torch, lambda: step(bitplane_mac_noisy, a, ws, **kw),
+                        iters=iters)
         plain = 12 * cuda_ms(torch, lambda: step(
             bitplane_mac_noisy_torch, a32, [w32], **kw), iters=1, warmup=1)
         # log, sqrt, cos per normal, and sqrt(k) for the mismatch
         sfu_ops = elems * (3 * normals + 1)
         b_ms, by = bound(nbytes, sfu_ops, SFU_OPS_PER_S)
-        out.update({f"ms{tag}": ms, f"plain_ms{tag}": plain,
+        out.update({f"ms{tag}": ms, f"graph_ms{tag}": g_ms,
+                    f"plain_ms{tag}": plain,
                     f"bound_ms{tag}": b_ms, f"bound_by{tag}": by,
                     f"sfu_ops{tag}": sfu_ops})
     out.update(library_ms=None, elements=elems, bytes=nbytes,
@@ -1219,6 +1272,13 @@ def time_flash_attn(torch, dev):
                       "F.scaled_dot_product_attention(is_causal=True)")
 
 
+TIMERS = {"imc_mac": time_imc_mac, "paged_attn": time_paged_attn,
+          "bitplane_mac": time_bitplane_mac, "flash_attn": time_flash_attn,
+          "bitplane_mac_noisy": time_bitplane_mac_noisy,
+          "imc_mac_dequant": time_imc_mac_dequant,
+          "rbl_decode_mac": time_rbl_decode_mac}
+
+
 def main() -> int:
     import torch
 
@@ -1241,6 +1301,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--time":
+        from repro_torch.kernels import build
+
+        log(build.build_all([n for n in sys.argv[2:] if n in build.KERNELS]))
+        out = {n: TIMERS[n](torch, dev) for n in sys.argv[2:]}
+        print(json.dumps({"timed": out, "kind": kind}))
+        print(smi)
+        return 0
     build_s = phase_build()
     mac_err = phase_imc_mac(torch, dev)
     dq_err = phase_imc_mac_dequant(torch, dev)
@@ -1253,13 +1321,7 @@ def main() -> int:
     exact, sim = served["exact"], served["sim_flash"]
     noisy = served["sim_noise"]
     macro = phase_macro(torch, dev)
-    timed = {"imc_mac": time_imc_mac(torch, dev),
-             "paged_attn": time_paged_attn(torch, dev),
-             "bitplane_mac": time_bitplane_mac(torch, dev),
-             "flash_attn": time_flash_attn(torch, dev),
-             "bitplane_mac_noisy": time_bitplane_mac_noisy(torch, dev),
-             "imc_mac_dequant": time_imc_mac_dequant(torch, dev),
-             "rbl_decode_mac": time_rbl_decode_mac(torch, dev)}
+    timed = {name: fn(torch, dev) for name, fn in TIMERS.items()}
     timed["bitplane_mac_noisy"]["noise_free_bitplane_mac_ms"] = \
         timed["bitplane_mac"]["ms"]
 
@@ -1317,6 +1379,8 @@ def main() -> int:
             f"{k['library_ms']:.4f} ms"
         graph = "" if "graph_ms" not in k else \
             f"; {k['graph_ms']:.4f} ms replayed from a CUDA graph"
+        if "library_graph_ms" in k:
+            lib += f", {k['library_graph_ms']:.4f} ms from a graph"
         log(f"[7] {k['name']}: {k['ms']:.4f} ms{graph} (bound "
             f"{k['bound_ms']:.4f} ms by {k['bound_by']}; plain "
             f"{k['plain_ms']:.4f} ms; library "
@@ -1325,7 +1389,7 @@ def main() -> int:
             f"prefill, {k['launches']} in the {k['path']} run")
     t = timed["bitplane_mac_noisy"]
     log(f"[7] bitplane_mac_noisy, mismatch + comparator offset: "
-        f"{t['ms_both']:.4f} ms (bound {t['bound_ms_both']:.4f} ms by "
+        f"{t['ms_both']:.4f} ms, {t['graph_ms_both']:.4f} ms from a graph (bound {t['bound_ms_both']:.4f} ms by "
         f"{t['bound_by_both']}; plain {t['plain_ms_both']:.4f} ms); "
         f"noise-free bitplane_mac {t['noise_free_bitplane_mac_ms']:.4f} ms")
     log(f"[8] build {build_s:.2f} s; served {json.dumps(served)}; macro "

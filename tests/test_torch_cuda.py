@@ -7,8 +7,10 @@ This file imports neither ``jax`` nor ``repro``: the machine with the card
 has no JAX.  Each kernel is held against its plain PyTorch version on the
 same card tensors: ``imc_mac``, ``imc_mac_dequant``, ``bitplane_mac``,
 ``bitplane_mac_noisy`` and ``rbl_decode_mac`` bit for bit (including detuned
-comparator references and 16-row groups; the noisy kernel and its plain
-version draw one Philox stream), ``paged_attn`` at the
+comparator references and 16-row groups; ``bitplane_mac``'s served-case
+kernel, rows 8 at 8x8 bits, also under random references and on all-255
+operands; the noisy kernel and its plain version draw one Philox stream),
+``paged_attn`` at the
 bounds of ``tests/test_paged_attn.py`` (f32 5e-6, bf16 1.6e-2 = one output
 ulp, int8 1e-2), ``flash_attn`` at those of ``tests/test_flash_attn.py``
 (f32 3e-6, bf16 2e-2).  Every launch bumps the wrapper's counter exactly
@@ -22,6 +24,7 @@ import torch
 from repro_torch.core.fabric import (Fabric, FabricSpec, NoiseSpec,
                                      fabric_matmul)
 from repro_torch.core.logic import WORD_OPS
+from repro_torch.core.rbl import rbl_voltage_physics
 from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
                                                   bitplane_mac_noisy,
                                                   bitplane_mac_noisy_torch,
@@ -137,10 +140,18 @@ def test_paged_attn_rejects_bad_operands(hopper):
         paged_attention(q, k.bfloat16(), k.bfloat16(), tbl, p, impl="torch")
 
 
+# the served-case kernel (rows 8, 8x8 bits): every M in {1, 3, 4, 5, 9, 64},
+# K in {8, 100, 1030, 3072} and N in {1, 31, 129, 768} appears
+R8_SHAPES = [(1, 8, 1), (3, 100, 31), (4, 1030, 129), (5, 3072, 768),
+             (9, 8, 768), (64, 100, 129), (1, 3072, 31), (3, 1030, 1),
+             (4, 8, 31), (5, 100, 1), (9, 1030, 768), (64, 3072, 129)]
+
+
 @pytest.mark.parametrize("m,k,n,bits_a,bits_w,rows", [
     (4, 768, 768, 8, 8, 8), (4, 3072, 768, 8, 8, 8), (64, 768, 3072, 8, 8, 8),
     (33, 1030, 129, 8, 8, 8), (16, 768, 768, 4, 8, 8), (5, 40, 12, 6, 6, 8),
-    (4, 768, 768, 8, 8, 16), (7, 100, 37, 3, 5, 16)])
+    (4, 768, 768, 8, 8, 16), (7, 100, 37, 3, 5, 16)] +
+    [(m, k, n, 8, 8, 8) for m, k, n in R8_SHAPES])
 def test_bitplane_mac_bit_exact(hopper, m, k, n, bits_a, bits_w, rows):
     g = torch.Generator(device=hopper).manual_seed(m * k + n + rows)
     ua = torch.randint(0, 1 << bits_a, (m, k), generator=g, device=hopper,
@@ -174,6 +185,47 @@ def test_bitplane_mac_detuned_thresholds(hopper, m, k, n, rows):
                                                bits_w=2, rows=rows))
     assert not torch.equal(bad, bitplane_mac(ua, uw, good, bits_a=2,
                                              bits_w=2, rows=rows))
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 1030, 129), (9, 3072, 31),
+                                   (1, 8, 1)])
+def test_bitplane_mac_all_255(hopper, m, k, n):
+    """Every count is 8: the decode's ninth table entry, every group."""
+    ua = torch.full((m, k), 255, device=hopper, dtype=torch.int32)
+    uw = torch.full((k, n), 255, device=hopper, dtype=torch.int32)
+    before = bitplane_mac.launches
+    out = bitplane_mac(ua, uw)
+    torch.cuda.synchronize()
+    assert bitplane_mac.launches == before + 1
+    assert torch.equal(out, bitplane_mac_torch(ua, uw))
+    assert torch.equal(out, torch.full_like(out, 255 * 255 * k))
+
+
+@pytest.mark.parametrize("thr_kind", ["detuned", "random"])
+@pytest.mark.parametrize("m,k,n", [(3, 100, 31), (4, 1030, 129),
+                                   (4, 768, 768), (9, 8, 1)])
+def test_bitplane_mac_8x8_live_thresholds(hopper, m, k, n, thr_kind):
+    """The served-case kernel decodes detuned and random references as the
+    plain version does (its padded bytes weigh nothing)."""
+    good = physics_thresholds(8, hopper)
+    g = torch.Generator(device=hopper).manual_seed(m + k + n)
+    if thr_kind == "detuned":
+        thr = torch.cat([torch.tensor([1.9], device=hopper), good[:-1]])
+    else:  # uniform between V(8) and V(0), descending
+        v0, v8 = rbl_voltage_physics(torch.tensor([0.0, 8.0]),
+                                     rows=8).tolist()
+        thr = torch.sort(torch.rand(8, generator=g, device=hopper)
+                         * (v0 - v8) + v8, descending=True).values
+    ua = torch.randint(0, 256, (m, k), generator=g, device=hopper,
+                       dtype=torch.int32)
+    uw = torch.randint(0, 256, (k, n), generator=g, device=hopper,
+                       dtype=torch.int32)
+    before = bitplane_mac.launches
+    out = bitplane_mac(ua, uw, thr)
+    torch.cuda.synchronize()
+    assert bitplane_mac.launches == before + 1
+    assert torch.equal(out, bitplane_mac_torch(ua, uw, thr))
+    assert not torch.equal(out, bitplane_mac(ua, uw, good))
 
 
 def test_bitplane_mac_batch_dims_and_operand_errors(hopper):
