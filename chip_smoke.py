@@ -16,9 +16,16 @@ result:
       flush) against its plain version, bit for bit: the same demonstrator
       shapes, ragged 130x140x150 and deep K 8x2048x8 at +-127.
 3. ``paged_attn`` against its plain version on the card: f32, bf16 and int8
-   pools, window 0 and 16, rep 1 (the demonstrator) and rep 8 (qwen2.5-3b),
-   sentinel blocks and an inactive slot; bounds f32 5e-6, bf16 1.6e-2 (one
-   output ulp), int8 1e-2.
+   pools, window 0 and 16, rep 1 (the demonstrator) and rep 8 (qwen2.5-3b)
+   on the split kernel, hd 24 on the staged kernel (which kernel ran is
+   asserted), positions 5/47/100 and 0/15/16/127 (at pos 0, and at 127
+   under the window, whole warps of the split kernel see no key), sentinel
+   blocks and an inactive slot that must flush zeros; bounds f32 5e-6,
+   bf16 1.6e-2 (one output ulp), int8 1e-2.  int8 at hd 24 is not in the
+   case list: the 1e-2 bound is below one bf16 output ulp at |out| >= 2,
+   where a kernel that keeps K, V and P in f32 can land one ulp from the
+   plain version, which rounds them to bf16 (``--int8-witness`` below);
+   ``tests/test_torch_cuda.py`` holds that geometry.
 4. ``bitplane_mac`` against its plain version on the card, bit for bit,
    one launch per call: the demonstrator's shapes at M in {4, 64}; the
    served-case kernel (rows 8, 8x8 bits) at every M in {1, 3, 4, 5, 9, 64},
@@ -39,7 +46,9 @@ result:
       at M in {4, 64}, ragged 50x70x30, rows 16 at 24x160x8 and 64x768x768.
       Calibrated, it equals the integer product; detuned, it differs.
 5. ``flash_attn`` against its plain version on the card: f32 and bf16,
-   window 0 and 16, rep 1 and 8, S in {16, 40, 64}; bounds f32 3e-6,
+   window 0 and 16, rep 1 and 8 at hd 64 and 128, rep 2 at hd 32 and 24,
+   S in {1, 15, 16, 17, 40, 64, 100}; bf16 at hd 32-128 must take the
+   tensor-core kernel, f32 and hd 24 the CUDA-core kernel; bounds f32 3e-6,
    bf16 2e-2.
 6. The served paths, each on full-width ``imc-paper-110m`` (random weights
    from a fixed seed), 4 slots, paged KV, block 16, buckets (16, 32, 64),
@@ -51,7 +60,11 @@ result:
       weights run through the plain path on the CPU (bound: 2e-2 of the
       largest |logit|).
    b. the paper's ``sim`` fabric with flash prefill: ``bitplane_mac``,
-      ``flash_attn`` and ``paged_attn`` must launch, ``imc_mac`` never.
+      ``flash_attn`` and ``paged_attn`` must launch, ``imc_mac`` never;
+      the tensor-core ``flash_attn`` kernel 12 times per bucketed prefill
+      and the split ``paged_attn`` kernel 12 times per decode step, the
+      CUDA-core flash and staged paged kernels never (on any served
+      path).
       On the card, ``sim`` prefill logits (flash off) must equal ``exact``'s
       bit for bit.  ``sim`` + flash must lie within 2e-2 of the largest
       |logit| of the plain path on the CPU with flash attention, and give
@@ -91,12 +104,11 @@ result:
    (``rbl_decode_mac`` as one plane pair of each); their library calls are
    ``torch._int_mm`` (plus the two scale multiplies for the dequant).
    ``ms`` times the wrappers' launches as a caller makes them (a host-bound
-   loop measures the host); for ``imc_mac``, ``imc_mac_dequant``,
-   ``bitplane_mac``, ``rbl_decode_mac`` and ``bitplane_mac_noisy``,
-   ``graph_ms`` also times the same launches replayed from one CUDA graph,
-   the device's own time, and ``library_graph_ms`` does the same for the
-   ``torch._int_mm`` yardstick of ``imc_mac``, ``bitplane_mac`` and
-   ``rbl_decode_mac``.
+   loop measures the host); ``graph_ms`` times the same launches replayed
+   from one CUDA graph, the device's own time, and ``library_graph_ms`` does
+   the same for every library yardstick (``torch._int_mm``, the dequant's
+   three calls, SDPA).  The attention rows add ``floor_graph_ms``, 12
+   one-element launches from a graph.
 
 It prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
@@ -106,6 +118,15 @@ nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
 runs phase 7 alone for the named kernels (built first) and prints one JSON
 line of their timings and the nvidia-smi line: the way to compare two trees
 in turns on one card (copy this script into the other tree's root).
+
+    python3 chip_smoke.py --int8-witness
+
+runs ``paged_attn`` (whichever kernel the tree's wrapper picks) on two int8
+inputs that have read one bf16 ulp over the 1e-2 bound: rep 8, hd 128,
+window 0 at seed 13, and rep 2, hd 24, window 16 at seed 105, positions
+5/47/100 and an inactive slot.  It prints, for each, the kernel's and the
+plain version's distance from the same function in float64 (int8 K/V
+dequantized and P kept exact), rounded to bf16 and unrounded.
 """
 from __future__ import annotations
 
@@ -169,6 +190,13 @@ def graph_ms(torch, fn, iters: int = 20) -> float:
     with torch.cuda.graph(graph):
         fn()
     return cuda_ms(torch, graph.replay, iters)
+
+
+def floor_graph_ms(torch, dev, launches: int = 12) -> float:
+    """``launches`` trivial one-element kernels (``x.add_(1)``) replayed
+    from one CUDA graph: the per-launch floor of a graph at these shapes."""
+    x = torch.zeros(1, device=dev)
+    return graph_ms(torch, lambda: [x.add_(1) for _ in range(launches)])
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float):
@@ -285,34 +313,116 @@ def attn_inputs(torch, dev, dtype, B, H, KV, hd, pos, bs=16, mb=8, seed=0,
             torch.tensor(pos, dtype=torch.int32, device=dev), kw)
 
 
+def _paged_cases():
+    """Phase 3's cases as (seed, pos, dtype, window, geom).  The last slot
+    gets an empty table; at pos 0, and at pos 127 under a window of 16,
+    whole warps of the split kernel see no key.  The twelve cases at
+    positions 5/47/100, hd 64 and 128, take seeds 0-11, the others 100 up
+    in the order of the full grid; int8 at hd 24 is left out (module
+    docstring, phase 3)."""
+    grid = [(pos, dtype, window, geom)
+            for pos in ([5, 47, 100, 0], [0, 15, 16, 127, 3])
+            for dtype in ("f32", "bf16", "int8") for window in (0, 16)
+            for geom in ((4, 12, 12, 64), (3, 16, 2, 128), (3, 4, 2, 24))]
+    old = [c for c in grid if len(c[0]) == 4 and c[3][3] != 24]
+    new = [c for c in grid if c not in old]
+    return [(n,) + c for n, c in list(enumerate(old)) +
+            list(enumerate(new, 100)) if not (c[1] == "int8" and
+                                              c[3][3] == 24)]
+
+
+PAGED_CASES = _paged_cases()
+
+
 def phase_paged_attn(torch, dev):
     from repro_torch.kernels.paged_attn.ops import (paged_attention,
                                                     paged_decode_torch)
 
     worst = {}
-    n = 0
-    for dtype in ("f32", "bf16", "int8"):
-        for window in (0, 16):
-            for B, H, KV, hd in ((4, 12, 12, 64), (3, 16, 2, 128)):
-                pos = [5, 47, 100, 0][:B]  # the last slot gets an empty table
-                q, k, v, tbl, p, kw = attn_inputs(
-                    torch, dev, dtype, B, H, KV, hd, pos, seed=n,
-                    inactive_last=True)
-                out = paged_attention(q, k, v, tbl, p, window=window, **kw)
-                torch.cuda.synchronize()
-                ref = paged_decode_torch(q, k, v, tbl, p, window=window, **kw)
-                if not bool(torch.isfinite(out).all()):
-                    raise AssertionError("paged_attn output is not finite")
-                err = (out[:B - 1].float() - ref[:B - 1].float()
-                       ).abs().max().item()
-                worst[dtype] = max(worst.get(dtype, 0.0), err)
-                if err > ATTN_ATOL[dtype]:
-                    raise AssertionError(
-                        f"paged_attn {dtype} window={window} rep={H // KV}: "
-                        f"max err {err} > {ATTN_ATOL[dtype]}")
-                n += 1
-    log(f"[3] paged_attn within bounds on {n} cases; worst {worst}")
+    for n, pos, dtype, window, (B, H, KV, hd) in PAGED_CASES:
+        B = B if len(pos) == 4 else len(pos)
+        q, k, v, tbl, p, kw = attn_inputs(torch, dev, dtype, B, H, KV, hd,
+                                          pos[:B], seed=n, inactive_last=True)
+        split = paged_attention.split_launches
+        out = paged_attention(q, k, v, tbl, p, window=window, **kw)
+        torch.cuda.synchronize()
+        if paged_attention.split_launches != split + (hd != 24):
+            raise AssertionError(f"paged_attn hd={hd}: the split kernel must "
+                                 "run at hd 64 and 128, the staged kernel at "
+                                 "hd 24")
+        ref = paged_decode_torch(q, k, v, tbl, p, window=window, **kw)
+        if not bool(torch.isfinite(out).all()) or \
+                bool((out[B - 1] != 0).any()):
+            raise AssertionError("paged_attn output is not finite, or an "
+                                 "empty table did not flush zeros")
+        err = (out[:B - 1].float() - ref[:B - 1].float()).abs().max().item()
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+        if err > ATTN_ATOL[dtype]:
+            raise AssertionError(
+                f"paged_attn {dtype} window={window} rep={H // KV} hd={hd} "
+                f"pos={pos[:B]}: max err {err} > {ATTN_ATOL[dtype]}")
+    log(f"[3] paged_attn within bounds on {len(PAGED_CASES)} cases; worst "
+        f"{worst}")
     return max(worst.values()), worst
+
+
+def paged_decode_f64(q, k, v, tbl, pos, k_scale, v_scale, window=0):
+    """Paged decode in float64 on the CPU, int8 pools dequantized against
+    their scales and P kept exact: (B, 1, H, hd) float64."""
+    q, k, v, tbl, pos = (t.cpu() for t in (q, k, v, tbl, pos))
+    kd, vd = k.double(), v.double()
+    if k_scale is not None:
+        kd = kd * k_scale.cpu().double()[..., None]
+        vd = vd * v_scale.cpu().double()[..., None]
+    b_, _, h, hd = q.shape
+    bs, kvh = k.shape[1], k.shape[2]
+    out = q.new_zeros(q.shape, dtype=kd.dtype)
+    for b in range(b_):
+        p = int(pos[b])
+        keys = [t for t in range(p + 1) if int(tbl[b, t // bs]) >= 0
+                and (not window or t > p - window)]
+        if not keys:
+            continue
+        blk = [int(tbl[b, t // bs]) for t in keys]
+        off = [t % bs for t in keys]
+        qg = q[b, 0].double().reshape(kvh, h // kvh, hd)
+        sc = (qg @ kd[blk, off].permute(1, 2, 0)) * hd ** -0.5
+        out[b, 0] = (sc.softmax(-1) @ vd[blk, off].transpose(0, 1)
+                     ).reshape(h, hd)
+    return out
+
+
+def int8_witness(torch, dev):
+    from repro_torch.kernels.paged_attn.ops import (paged_attention,
+                                                    paged_decode_torch)
+
+    rows = []
+    for seed, window, (H, KV, hd) in ((13, 0, (16, 2, 128)),
+                                      (105, 16, (4, 2, 24))):
+        pos = [5, 47, 100]
+        q, k, v, tbl, p, kw = attn_inputs(torch, dev, "int8", 3, H, KV, hd,
+                                          pos, seed=seed, inactive_last=True)
+        split = getattr(paged_attention, "split_launches", 0)
+        out = paged_attention(q, k, v, tbl, p, window=window, **kw)
+        torch.cuda.synchronize()
+        kernel = "split" if getattr(paged_attention, "split_launches",
+                                    0) != split else "staged"
+        ref = paged_decode_torch(q, k, v, tbl, p, window=window, **kw)
+        exact = paged_decode_f64(q, k, v, tbl, p, kw["k_scale"],
+                                 kw["v_scale"], window)[:2]
+        exact_bf16 = exact.to(torch.bfloat16).double()
+
+        def dist(x, y):
+            return (x[:2].cpu().double() - y).abs().max().item()
+
+        rows.append(dict(
+            seed=seed, window=window, rep=H // KV, hd=hd, kernel=kernel,
+            kernel_vs_plain=dist(out, ref[:2].cpu().double()),
+            kernel_vs_f64=dist(out, exact), plain_vs_f64=dist(ref, exact),
+            kernel_vs_bf16_f64=dist(out, exact_bf16),
+            plain_vs_bf16_f64=dist(ref, exact_bf16),
+            max_abs_out=exact.abs().max().item()))
+    return rows
 
 
 def phase_bitplane_mac(torch, dev):
@@ -524,13 +634,21 @@ def phase_flash_attn(torch, dev):
     for dtype in ("f32", "bf16"):
         dt = torch.float32 if dtype == "f32" else torch.bfloat16
         for window in (0, 16):
-            for H, KV, hd in ((12, 12, 64), (16, 2, 128)):
-                for S in (16, 40, 64):
+            for H, KV, hd in ((12, 12, 64), (16, 2, 128), (4, 2, 32),
+                              (4, 2, 24)):
+                for S in (16, 40, 64, 1, 15, 17, 100):
                     q, k, v = (torch.randn((1, S, h, hd), generator=g,
                                            device=dev).to(dt)
                                for h in (H, KV, KV))
+                    tc = flash_attention.tc_launches
                     out = flash_attention(q, k, v, window=window)
                     torch.cuda.synchronize()
+                    if flash_attention.tc_launches != tc + (
+                            dtype == "bf16" and hd != 24):
+                        raise AssertionError(
+                            f"flash_attn {dtype} hd={hd}: the tensor-core "
+                            "kernel must run for bf16 at hd 32, 64 and 128, "
+                            "the CUDA-core kernel otherwise")
                     ref = flash_attention_torch(q, k, v, window=window)
                     if not bool(torch.isfinite(out).all()):
                         raise AssertionError("flash_attn output is not finite")
@@ -561,13 +679,27 @@ def kernel_wrappers():
             "rbl_decode_mac": rbl_decode_mac}
 
 
+# the attention wrappers also count each of their two kernels
+VARIANTS = {"flash_attn_tc": ("flash_attn", "tc_launches"),
+            "flash_attn_simt": ("flash_attn", "simt_launches"),
+            "paged_attn_split": ("paged_attn", "split_launches"),
+            "paged_attn_staged": ("paged_attn", "staged_launches")}
+
+
 def zero_counts():
-    for fn in kernel_wrappers().values():
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    for name, attr in VARIANTS.values():
+        setattr(wrappers[name], attr, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    wrappers = kernel_wrappers()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts.update({v: getattr(wrappers[name], attr)
+                   for v, (name, attr) in VARIANTS.items()})
+    return counts
 
 
 def first_prefill(torch, dev, params, cfg, prompt, noise_seed=None):
@@ -674,7 +806,7 @@ def phase_server(torch, dev):
     exact, card = serve_path(torch, dev, cfg, params, prompts, "exact",
                              must=("imc_mac", "paged_attn"),
                              never=("bitplane_mac", "flash_attn",
-                                    "bitplane_mac_noisy"))
+                                    "bitplane_mac_noisy", "paged_attn_staged"))
     # its first prefill: card vs the plain path on the CPU
     with torch.inference_mode():
         padded = torch.zeros((1, 16), dtype=torch.int32)
@@ -698,7 +830,17 @@ def phase_server(torch, dev):
     sim, sim_flash = serve_path(
         torch, dev, sim_cfg, params, prompts, "sim+flash",
         must=("bitplane_mac", "flash_attn", "paged_attn"),
-        never=("imc_mac", "bitplane_mac_noisy"))
+        never=("imc_mac", "bitplane_mac_noisy", "flash_attn_simt",
+               "paged_attn_staged"))
+    # the redesigned kernels carry the served path: 12 layers, 12 launches
+    # of each per bucketed prefill and per decode step
+    for per, new, old in (("per_prefill", "flash_attn_tc", "flash_attn_simt"),
+                          ("per_decode_step", "paged_attn_split",
+                           "paged_attn_staged")):
+        if sim[per][new] != cfg.n_layers or sim[per][old] != 0:
+            raise AssertionError(f"sim+flash: {sim[per]} {per}; expected "
+                                 f"{cfg.n_layers} launches of {new} and "
+                                 f"none of {old}")
     sim_dense = first_prefill(torch, dev, params, dataclasses.replace(
         sim_cfg, use_flash_kernel=False), prompts[0])
     if not torch.equal(sim_dense, card):
@@ -737,7 +879,8 @@ def phase_server(torch, dev):
     noisy_cfg = dataclasses.replace(sim_cfg, fabric=FabricSpec(
         mode="sim", noise=NoiseSpec.calibrated()))
     must = ("bitplane_mac_noisy", "flash_attn", "paged_attn")
-    never = ("imc_mac", "bitplane_mac")
+    never = ("imc_mac", "bitplane_mac", "flash_attn_simt",
+             "paged_attn_staged")
     noisy, noisy_first = serve_path(torch, dev, noisy_cfg, params, prompts,
                                     "sim+noise+flash", must, never,
                                     noise_seed=NOISE_SEED)
@@ -1032,12 +1175,13 @@ def time_imc_mac_dequant(torch, dev):
     g_ms = graph_ms(torch, lambda: step(imc_mac_dequant, a))
     plain = cuda_ms(torch, lambda: step(imc_mac_dequant_torch, a), iters=5)
     lib = cuda_ms(torch, lambda: step(library, a_pad), iters=20)
+    lib_g = graph_ms(torch, lambda: step(library, a_pad))
     nbytes = layers * sum(m * k + k * n + 4 + 4 * n + 4 * m * n
                           for k, n in shapes)
     ops = layers * sum(2 * m * k * n for k, n in shapes)
     b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
     return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=by,
+                library_graph_ms=lib_g, bound_ms=b_ms, bound_by=by,
                 shape="one decode step: 12 layers x {4x (768,768), "
                       "(768,3072), (3072,768)} at M=4, f32 out; library: "
                       "three calls, torch._int_mm (M padded to 32) then "
@@ -1113,23 +1257,32 @@ def time_paged_attn(torch, dev):
         dense.append((q.permute(0, 2, 1, 3).contiguous(), kd.contiguous(),
                       vd.contiguous(), valid[:, None, None, :]))
 
-    ms = cuda_ms(torch, lambda: [paged_attention(q, k, v, t, p)
-                                 for q, k, v, t, p, _ in ins], iters=50)
+    def run():
+        return [paged_attention(q, k, v, t, p) for q, k, v, t, p, _ in ins]
+
+    def library():
+        return [F.scaled_dot_product_attention(q, k, v, attn_mask=msk)
+                for q, k, v, msk in dense]
+
+    ms = cuda_ms(torch, run, iters=50)
+    g_ms = graph_ms(torch, run)
     plain = cuda_ms(torch, lambda: [paged_decode_torch(q, k, v, t, p)
                                     for q, k, v, t, p, _ in ins], iters=20)
-    lib = cuda_ms(torch, lambda: [F.scaled_dot_product_attention(
-        q, k, v, attn_mask=msk) for q, k, v, msk in dense], iters=50)
+    lib = cuda_ms(torch, library, iters=50)
+    lib_g = graph_ms(torch, library)
     live = sum(p_ + 1 for p_ in pos)
     nbytes = layers * (live * KV * hd * 2 * 2 + 2 * B * H * hd * 2
                        + 4 * (B * mb + B))
     ops = layers * live * H * hd * 2 * 2
     b_ms, by = bound(nbytes, ops, BF16_FLOPS_PER_S)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=by,
+    return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
+                library_graph_ms=lib_g, floor_graph_ms=floor_graph_ms(
+                    torch, dev, layers), bound_ms=b_ms, bound_by=by,
                 shape="one decode step: 12 layers x (B=4, H=KV=12, hd=64, "
                       "bf16, block 16, 8 blocks/slot, pos 22/31/48/27); "
                       "library: F.scaled_dot_product_attention over the "
-                      "pre-gathered span")
+                      "pre-gathered span; floor: 12 one-element launches "
+                      "from a graph")
 
 
 def time_bitplane_mac(torch, dev):
@@ -1255,21 +1408,30 @@ def time_flash_attn(torch, dev):
         torch.bfloat16) for _ in range(3)) for _ in range(layers)]
     # the library call takes (B, H, S, hd)
     lib_ins = [tuple(t.transpose(1, 2).contiguous() for t in x) for x in ins]
-    ms = cuda_ms(torch, lambda: [flash_attention(q, k, v)
-                                 for q, k, v in ins], iters=50)
+    def run():
+        return [flash_attention(q, k, v) for q, k, v in ins]
+
+    def library():
+        return [F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                for q, k, v in lib_ins]
+
+    ms = cuda_ms(torch, run, iters=50)
+    g_ms = graph_ms(torch, run)
     plain = cuda_ms(torch, lambda: [flash_attention_torch(q, k, v)
                                     for q, k, v in ins], iters=20)
-    lib = cuda_ms(torch, lambda: [F.scaled_dot_product_attention(
-        q, k, v, is_causal=True) for q, k, v in lib_ins], iters=50)
+    lib = cuda_ms(torch, library, iters=50)
+    lib_g = graph_ms(torch, library)
     nbytes = layers * 4 * B * S * H * hd * 2  # q, k, v read; out written
     visible = S * (S + 1) // 2  # causal (query, key) pairs
     ops = layers * B * H * visible * hd * 2 * 2  # q.k and p.v
     b_ms, by = bound(nbytes, ops, BF16_FLOPS_PER_S)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=by,
+    return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
+                library_graph_ms=lib_g, floor_graph_ms=floor_graph_ms(
+                    torch, dev, layers), bound_ms=b_ms, bound_by=by,
                 shape="one bucket-64 prefill: 12 layers x (B=1, S=64, "
                       "H=KV=12, hd=64, bf16, causal); library: "
-                      "F.scaled_dot_product_attention(is_causal=True)")
+                      "F.scaled_dot_product_attention(is_causal=True); "
+                      "floor: 12 one-element launches from a graph")
 
 
 TIMERS = {"imc_mac": time_imc_mac, "paged_attn": time_paged_attn,
@@ -1309,6 +1471,14 @@ def main() -> int:
         print(json.dumps({"timed": out, "kind": kind}))
         print(smi)
         return 0
+    if sys.argv[1:] == ["--int8-witness"]:
+        from repro_torch.kernels import build
+
+        log(build.build_all(["paged_attn"]))
+        print(json.dumps({"int8_witness": int8_witness(torch, dev),
+                          "kind": kind}))
+        print(smi)
+        return 0
     build_s = phase_build()
     mac_err = phase_imc_mac(torch, dev)
     dq_err = phase_imc_mac_dequant(torch, dev)
@@ -1337,6 +1507,8 @@ def main() -> int:
              launches_sim_flash=sim["launches"]["paged_attn"],
              launches_per_decode_step=exact["per_decode_step"]["paged_attn"],
              launches_per_prefill=exact["per_prefill"]["paged_attn"],
+             launches_split=exact["launches"]["paged_attn_split"],
+             launches_staged=exact["launches"]["paged_attn_staged"],
              max_abs_err=attn_err, max_abs_err_by_dtype=attn_worst),
         dict(name="bitplane_mac",
              replaces=f"{tpu}/bitplane_mac/bitplane_mac.py:98",
@@ -1348,6 +1520,8 @@ def main() -> int:
              path="sim_flash", launches=sim["launches"]["flash_attn"],
              launches_per_decode_step=sim["per_decode_step"]["flash_attn"],
              launches_per_prefill=sim["per_prefill"]["flash_attn"],
+             launches_tc=sim["launches"]["flash_attn_tc"],
+             launches_cuda_core=sim["launches"]["flash_attn_simt"],
              max_abs_err=flash_err, max_abs_err_by_dtype=flash_worst),
         dict(name="bitplane_mac_noisy",
              replaces=f"{tpu}/bitplane_mac/bitplane_mac.py:187",
@@ -1381,6 +1555,9 @@ def main() -> int:
             f"; {k['graph_ms']:.4f} ms replayed from a CUDA graph"
         if "library_graph_ms" in k:
             lib += f", {k['library_graph_ms']:.4f} ms from a graph"
+        if "floor_graph_ms" in k:
+            graph += (f"; 12 trivial launches from a graph "
+                      f"{k['floor_graph_ms']:.4f} ms")
         log(f"[7] {k['name']}: {k['ms']:.4f} ms{graph} (bound "
             f"{k['bound_ms']:.4f} ms by {k['bound_by']}; plain "
             f"{k['plain_ms']:.4f} ms; library "

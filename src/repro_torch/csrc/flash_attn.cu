@@ -12,7 +12,7 @@
 //     l     = alpha*l + rowsum(p);  acc = alpha*acc + p v_j
 //     out   = acc / max(l, 1e-30)
 //
-// Scores and probabilities never leave shared memory: device memory sees the
+// Scores and probabilities never leave the SM: device memory sees the
 // q/k/v reads and the output write only.  GQA reads kv head h / (H / KV)
 // directly; K/V are never repeated in device memory.  The sequence length is
 // taken as it is, with no padding in device memory, so the TPU kernel's
@@ -20,17 +20,34 @@
 //
 // What bounds it on an H100: at the serving prefill shapes (B = 1, S = 16 to
 // 64, H = 12, hd = 64, bf16) the work is a few MFLOP and a few hundred KB per
-// layer, microseconds or less either way; the launch and the serial
-// per-tile steps set the time.  At long sequences the S^2*hd score and
-// value products make it bound by operations on the tensor cores, which this
-// simple kernel does not use.
+// layer, a microsecond or less either way; the launch, the load latency and
+// the dependent chains of each key tile set the time.  At long sequences
+// the S^2*hd score and value products make it bound by operations on the
+// tensor cores.
 //
-// Design (simple and right first): one 128-thread block per (query tile of
-// 16 rows, head, batch); each key tile of 32 rows is staged as f32 in shared
-// memory (K rows padded by one float, so that neighbouring threads scoring
-// neighbouring keys hit distinct banks), scored by dot products in f32, its
-// statistics updated by one thread per query row, and the f32 accumulator
-// rescaled in shared memory.
+// Two kernels, chosen by flash_attn_tc_launch's caller (the wrapper's rule):
+//
+// * flash_attn_tc_kernel (bf16, hd % 16 == 0, hd <= 128): each warp owns 16
+//   query rows, held in registers as mma A-fragments (ldmatrix from a
+//   cp.async-staged copy).  Key tiles of 32 rows of K and V are staged into
+//   shared memory with 16-byte cp.async, double-buffered, rows padded by 16
+//   bytes so that ldmatrix (.trans for V) reads them without bank
+//   conflicts.  S = Q K^T runs on mma.sync m16n8k16 bf16 with an f32
+//   accumulator; masks, row max (shuffles within the quad of lanes that
+//   shares a row) and the online softmax stay in registers.  P.V keeps the
+//   accuracy of an f32 P by splitting P into P_hi = bf16(P) and
+//   P_lo = bf16(P - P_hi), two mma into one f32 accumulator (V is exact in
+//   bf16).  Tiles wholly past a warp's last row or left of its window are
+//   skipped; rows and keys past S load as zeros and are never stored.
+//   WARPS = 4 warps per block share one head's K/V tiles (on the H100 this
+//   was 0.5-3% faster than one warp per block loading its own causal
+//   prefix; PERF.md).
+// * flash_attn_kernel (f32, and bf16 at any other hd; CUDA cores): one 128-thread
+//   block per (query tile of 16 rows, head, batch); each key tile of 32 rows
+//   is staged as f32 in shared memory (K rows padded by one float), scored
+//   by dot products in f32, its statistics updated by one thread per query
+//   row, and the f32 accumulator rescaled in shared memory.  f32 keeps it:
+//   its 3e-6 bound rules out TF32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -178,6 +195,291 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ------------------------------------------------- the tensor-core kernel
+namespace tc {
+
+constexpr int BQ = 16;  // query rows per warp: one m16 tile
+constexpr int BK = 32;  // keys per tile: four n8 tiles of S, two k16 of P.V
+constexpr int WARPS = 4;  // warps per block, sharing one head's K/V tiles
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !in (rows
+// past S: src is then only a valid address, no byte of it is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices; lane i gives the row address of matrix i / 8.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// P = hi + lo to ~2^-18 relative: hi = bf16(p), lo = bf16(p - hi).  Packs
+// the pair (p0, p1) of neighbouring columns as one A-fragment register.
+__device__ __forceinline__ void split2(float p0, float p1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16(p0), h1 = __float2bfloat16(p1);
+  hi = pack(h0, h1);
+  lo = pack(__float2bfloat16(p0 - __bfloat162float(h0)),
+            __float2bfloat16(p1 - __bfloat162float(h1)));
+}
+
+// Shared layout (bf16, rows padded to LD = HD + 8): q[WARPS*BQ][LD] |
+// k[2][BK][LD] | v[2][BK][LD].  The 16-byte pad puts the 8 rows that one
+// ldmatrix reads on 8 distinct 4-bank groups.
+template <int HD>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                     int S, int H, int KV, float scale, int window) {
+  constexpr int LD = HD + 8;
+  constexpr int CH = HD / 8;   // 16-byte chunks per row
+  constexpr int KS = HD / 16;  // k16 steps of Q K^T
+  constexpr int NT = HD / 8;   // n8 tiles of the output
+  constexpr int THREADS = WARPS * 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_s = q_s + WARPS * BQ * LD;
+  __nv_bfloat16* v_s = k_s + 2 * BK * LD;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // the fragment row (and row + 8) this lane holds
+  const int tg = lane & 3;  // its column pair within an n8 tile
+  const int mi = lane >> 3;  // the ldmatrix matrix whose row address it gives
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int qb0 = blockIdx.x * WARPS * BQ;  // the block's first row
+  const int q0 = qb0 + warp * BQ;           // the warp's first row
+  // q / out: (B, S, H, HD); k / v: (B, S, KV, HD), all contiguous
+  const size_t q_row = static_cast<size_t>(H) * HD;
+  const size_t kv_row = static_cast<size_t>(KV) * HD;
+  const __nv_bfloat16* qg = q + static_cast<size_t>(b) * S * q_row + static_cast<size_t>(h) * HD;
+  const __nv_bfloat16* kg = k + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(kvh) * HD;
+  const __nv_bfloat16* vg = v + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(kvh) * HD;
+
+  // Key tiles any row of the block can see: [t_first, t_end).
+  const int kb_hi = min(S, qb0 + WARPS * BQ);
+  const int kb_lo = window ? max(0, qb0 - window + 1) : 0;
+  const int t_first = kb_lo / BK;
+  const int t_end = (kb_hi + BK - 1) / BK;
+  // Keys this warp's rows can see: [kw_lo, kw_hi).
+  const int kw_hi = min(S, q0 + BQ);
+  const int kw_lo = window ? max(0, q0 - window + 1) : 0;
+
+  for (int i = tid; i < WARPS * BQ * CH; i += THREADS) {
+    const int r = i / CH, c = i % CH;
+    const bool in = qb0 + r < S;
+    cp_async16(q_s + r * LD + c * 8, in ? qg + (qb0 + r) * q_row + c * 8 : qg, in);
+  }
+  auto load_tile = [&](int t, int buf) {
+    for (int i = tid; i < BK * CH; i += THREADS) {
+      const int r = i / CH, c = i % CH;
+      const int key = t * BK + r;
+      const bool in = key < S;
+      const size_t off = static_cast<size_t>(key) * kv_row + c * 8;
+      cp_async16(k_s + (buf * BK + r) * LD + c * 8, in ? kg + off : kg, in);
+      cp_async16(v_s + (buf * BK + r) * LD + c * 8, in ? vg + off : vg, in);
+    }
+  };
+  load_tile(t_first, 0);
+  cp_commit();  // one group: Q and the first tile
+
+  const int r0 = q0 + g, r1 = r0 + 8;  // this lane's two query rows
+  auto visible = [&](int key, int row) {
+    return key <= row && key < S && (window == 0 || key > row - window);
+  };
+  uint32_t qf[KS][4];
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // l: this lane's part
+
+  for (int t = t_first; t < t_end; ++t) {
+    const int buf = (t - t_first) & 1;
+    if (t + 1 < t_end) {
+      load_tile(t + 1, buf ^ 1);  // its buffer was released by the last barrier
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // every thread's copies of tile t (and Q) have landed
+    if (t == t_first) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        ldsm4(qf[ks], q_s + (warp * BQ + (mi & 1) * 8 + (lane & 7)) * LD + ks * 16 + (mi >> 1) * 8);
+      }
+    }
+    const int j0 = t * BK;
+    if (q0 < S && j0 < kw_hi && j0 + BK > kw_lo) {  // uniform across the warp
+      const __nv_bfloat16* kt = k_s + buf * BK * LD;
+      const __nv_bfloat16* vt = v_s + buf * BK * LD;
+      float s[BK / 8][4];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {  // 16 keys: two n8 tiles
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t kb[4];
+          ldsm4(kb, kt + (np * 16 + (mi >> 1) * 8 + (lane & 7)) * LD + ks * 16 + (mi & 1) * 8);
+          mma(s[2 * np], qf[ks], kb[0], kb[1]);
+          mma(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+        }
+      }
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = j0 + n * 8 + tg * 2 + e;
+          s[n][e] = visible(key, r0) ? s[n][e] * scale : NEG_INF;
+          s[n][2 + e] = visible(key, r1) ? s[n][2 + e] * scale : NEG_INF;
+          mx0 = fmaxf(mx0, s[n][e]);
+          mx1 = fmaxf(mx1, s[n][2 + e]);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the quad that shares a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = j0 + n * 8 + tg * 2 + e;
+          s[n][e] = visible(key, r0) ? expf(s[n][e] - mn0) : 0.f;
+          s[n][2 + e] = visible(key, r1) ? expf(s[n][2 + e] - mn1) : 0.f;
+          sum0 += s[n][e];
+          sum1 += s[n][2 + e];
+        }
+      }
+      l0 = a0 * l0 + sum0;
+      l1 = a1 * l1 + sum1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[n][0] *= a0;
+        o[n][1] *= a0;
+        o[n][2] *= a1;
+        o[n][3] *= a1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {  // 16 keys of P.V
+        // The C fragments of n8 tiles 2kk and 2kk+1 are the A fragment.
+        uint32_t ph[4], pl[4];
+        split2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int np = 0; np < HD / 16; ++np) {
+          uint32_t vb[4];
+          ldsm4_t(vb, vt + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LD + np * 16 + (mi >> 1) * 8);
+          mma(o[2 * np], ph, vb[0], vb[1]);
+          mma(o[2 * np], pl, vb[0], vb[1]);
+          mma(o[2 * np + 1], ph, vb[2], vb[3]);
+          mma(o[2 * np + 1], pl, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();  // tile t's buffer is free for tile t + 2
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* ob = out + static_cast<size_t>(b) * S * q_row + static_cast<size_t>(h) * HD;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + tg * 2;
+    if (r0 < S) {
+      *reinterpret_cast<uint32_t*>(ob + r0 * q_row + col) =
+          pack(__float2bfloat16(o[n][0] / d0), __float2bfloat16(o[n][1] / d0));
+    }
+    if (r1 < S) {
+      *reinterpret_cast<uint32_t*>(ob + r1 * q_row + col) =
+          pack(__float2bfloat16(o[n][2] / d1), __float2bfloat16(o[n][3] / d1));
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+           int KV, float scale, int window, cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * (WARPS * BQ + 4 * BK) * (HD + 8);
+  auto kernel = flash_attn_tc_kernel<HD>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dim3 grid((S + WARPS * BQ - 1) / (WARPS * BQ), H, B);
+  kernel<<<grid, WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, H, KV, scale,
+      window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+              int KV, int hd, float scale, int window, cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch<16>(q, k, v, out, B, S, H, KV, scale, window, s);
+    case 32: return launch<32>(q, k, v, out, B, S, H, KV, scale, window, s);
+    case 48: return launch<48>(q, k, v, out, B, S, H, KV, scale, window, s);
+    case 64: return launch<64>(q, k, v, out, B, S, H, KV, scale, window, s);
+    case 80: return launch<80>(q, k, v, out, B, S, H, KV, scale, window, s);
+    case 96: return launch<96>(q, k, v, out, B, S, H, KV, scale, window, s);
+    case 112: return launch<112>(q, k, v, out, B, S, H, KV, scale, window, s);
+    case 128: return launch<128>(q, k, v, out, B, S, H, KV, scale, window, s);
+    default: return -1;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q, out: (B, S, H, hd); k, v: (B, S, KV, hd); all contiguous, one dtype:
@@ -199,4 +501,21 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
     return launch<__nv_bfloat16>(q, k, v, out, B, S, H, KV, hd, scale, window, s);
   }
   return -1;
+}
+
+// The tensor-core kernel.  q, out: (B, S, H, hd); k, v: (B, S, KV, hd); all
+// contiguous bf16 with 16-byte aligned pointers; hd in {16, 32, ..., 128}.
+// H must be a multiple of KV.  Returns a cudaError_t value, or -1 for an hd
+// the kernel does not take.
+extern "C" int flash_attn_tc_launch(const void* q, const void* k, const void* v,
+                                    void* out, int B, int S, int H, int KV, int hd,
+                                    float scale, int window, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (KV <= 0 || H % KV != 0 || hd <= 0 || window < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tc::launch_hd(q, k, v, out, B, S, H, KV, hd, scale, window, s);
 }

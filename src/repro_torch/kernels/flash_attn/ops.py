@@ -1,15 +1,21 @@
-"""The ``flash_attn`` kernel: causal online-softmax self-attention for
+"""The ``flash_attn`` kernels: causal online-softmax self-attention for
 prefill (port of ``repro/kernels/flash_attn``; CUDA source
 ``csrc/flash_attn.cu``).
 
 :func:`flash_attention` keeps the reference's layout: q (B, S, H, hd), k/v
 (B, S, KV, hd), output (B, S, H, hd) in q's dtype; causal, with an optional
-sliding ``window``.  It dispatches by device: a CUDA tensor launches the
+sliding ``window``.  It dispatches by device: a CUDA tensor launches a
 kernel (GQA by reading kv head ``h // (H // KV)``, never a repeat in device
 memory), or raises on a build failure, a refused launch, a wrong dtype,
 device or shape; a CPU tensor takes the plain version
-:func:`flash_attention_torch`.  ``flash_attention.launches`` counts kernel
-launches and nothing else.
+:func:`flash_attention_torch`.
+
+Which kernel, by a fixed rule: bf16 q/k/v with ``hd % 16 == 0``,
+``hd <= 128`` and 16-byte aligned pointers take the tensor-core kernel
+(``flash_attn_tc_launch``, 4 warps per block); f32, and bf16 at
+any other hd, take the CUDA-core kernel (``flash_attn_launch``).  Counters:
+``flash_attention.launches`` counts every kernel launch and nothing else,
+``tc_launches`` and ``simt_launches`` those of each kernel.
 """
 from __future__ import annotations
 
@@ -21,8 +27,33 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int])
+# both entry points: q, k, v, out, B, S, H, KV, hd, scale, window, then the
+# dtype (flash_attn_launch only), stream and device
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+         + [ctypes.c_float, ctypes.c_int])
+_STREAM = [ctypes.c_void_p, ctypes.c_int]
+_ARGTYPES = {"flash_attn_launch": _ARGS + [ctypes.c_int] + _STREAM,
+             "flash_attn_tc_launch": _ARGS + _STREAM}
+_FNS = {}
+
+
+def _entry(name: str):
+    """The C entry point ``name``, its argument types set once, at the
+    library's first load."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(build.load("flash_attn"), name)
+        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def takes_tensor_cores(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> bool:
+    """The dispatch rule: does this call take the tensor-core kernel?"""
+    hd = q.shape[-1]
+    return (q.dtype == torch.bfloat16 and hd % 16 == 0 and hd <= 128
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,13 +98,17 @@ def _launch(q, k, v, window: int) -> torch.Tensor:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(qc)
-    lib = build.load("flash_attn")
-    fn = lib.flash_attn_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     stream, dev = build.stream_and_device(qc)
-    build.check_launch("flash_attn", fn(
-        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, s, h,
-        kv, hd, hd ** -0.5, int(window), _DTYPES[q.dtype], stream, dev))
+    args = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b,
+            s, h, kv, hd, hd ** -0.5, int(window))
+    if takes_tensor_cores(qc, kc, vc):
+        rc = _entry("flash_attn_tc_launch")(*args, stream, dev)
+        build.check_launch("flash_attn_tc", rc)
+        flash_attention.tc_launches += 1
+    else:
+        rc = _entry("flash_attn_launch")(*args, _DTYPES[q.dtype], stream, dev)
+        build.check_launch("flash_attn", rc)
+        flash_attention.simt_launches += 1
     flash_attention.launches += 1
     return out
 
@@ -93,3 +128,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
+flash_attention.simt_launches = 0

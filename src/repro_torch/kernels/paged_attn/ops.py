@@ -8,7 +8,15 @@ launches the kernel (grouped GQA, heads regrouped to ``(B, KV, rep, hd)``
 with head ``h = kvh * rep + r``, so K/V are never repeated); a CPU tensor
 takes the plain dense-gather version :func:`paged_decode_torch`.
 ``impl="cuda"`` on a CPU tensor and ``impl="torch"`` on a CUDA tensor raise.
-``paged_attention.launches`` counts kernel launches and nothing else.
+
+Which kernel, by a fixed rule (:func:`takes_split`): rep 1 to 8, rows of
+``hd`` elements that split into a power of two of lanes, 1 to 32, of E
+elements each (E = 4 for f32, 8 for bf16 and int8: one 16-byte load, 8
+bytes for int8), and pools aligned to that load, take the split kernel
+(``paged_attn_split_launch``); every other geometry takes the staged kernel
+(``paged_attn_launch``).  Counters: ``paged_attention.launches`` counts
+every kernel launch and nothing else, ``split_launches`` and
+``staged_launches`` those of each kernel.
 """
 from __future__ import annotations
 
@@ -21,8 +29,34 @@ from repro_torch.kernels import build
 ATTN_IMPLS = ("auto", "torch", "cuda")
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_CHUNK = {torch.float32: 4, torch.bfloat16: 8, torch.int8: 8}  # E
+# both entry points take the same arguments
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int])
+_FNS = {}
+
+
+def _entry(name: str):
+    """The C entry point ``name``, its argument types set once, at the
+    library's first load."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(build.load("paged_attn"), name)
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def takes_split(rep: int, k_pool: torch.Tensor, v_pool: torch.Tensor) -> bool:
+    """The dispatch rule: does this call take the split kernel?"""
+    e = _CHUNK[k_pool.dtype]
+    hd = k_pool.shape[-1]
+    lanes = hd // e
+    align = e * k_pool.element_size()
+    return (1 <= rep <= 8 and hd % e == 0 and lanes <= 32
+            and lanes & (lanes - 1) == 0
+            and k_pool.data_ptr() % align == 0
+            and v_pool.data_ptr() % align == 0)
 
 
 def paged_decode_torch(q, k_pool, v_pool, block_table, pos, *, k_scale=None,
@@ -102,16 +136,19 @@ def _launch(q, k_pool, v_pool, block_table, pos, k_scale, v_scale,
     ks = k_scale.contiguous() if int8 else None
     vs = v_scale.contiguous() if int8 else None
     out = torch.empty_like(qg)
-    lib = build.load("paged_attn")
-    fn = lib.paged_attn_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     stream, dev = build.stream_and_device(qg)
-    rc = fn(qg.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+    args = (qg.data_ptr(), kp.data_ptr(), vp.data_ptr(),
             ks.data_ptr() if int8 else None, vs.data_ptr() if int8 else None,
             tbl.data_ptr(), ps.data_ptr(), out.data_ptr(),
             b, kv, h // kv, hd, bs, mb, hd ** -0.5, int(window),
             _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], stream, dev)
-    build.check_launch("paged_attn", rc)
+    if takes_split(h // kv, kp, vp):
+        build.check_launch("paged_attn_split",
+                           _entry("paged_attn_split_launch")(*args))
+        paged_attention.split_launches += 1
+    else:
+        build.check_launch("paged_attn", _entry("paged_attn_launch")(*args))
+        paged_attention.staged_launches += 1
     paged_attention.launches += 1
     return out.reshape(b, 1, h, hd)
 
@@ -143,3 +180,5 @@ def paged_attention(q, k_pool, v_pool, block_table, pos, *, k_scale=None,
 
 
 paged_attention.launches = 0
+paged_attention.split_launches = 0
+paged_attention.staged_launches = 0

@@ -13,7 +13,9 @@ operands; the noisy kernel and its plain version draw one Philox stream),
 ``paged_attn`` at the
 bounds of ``tests/test_paged_attn.py`` (f32 5e-6, bf16 1.6e-2 = one output
 ulp, int8 1e-2), ``flash_attn`` at those of ``tests/test_flash_attn.py``
-(f32 3e-6, bf16 2e-2).  Every launch bumps the wrapper's counter exactly
+(f32 3e-6, bf16 2e-2); for these two, each case asserts which kernel ran
+(the split or the staged paged kernel, the tensor-core or the CUDA-core flash
+kernel).  Every launch bumps the wrapper's counter exactly
 once; wrong dtypes and devices raise.  The ``Fabric`` facade's word logic,
 adder and matmul on the card equal the CPU's.
 """
@@ -93,12 +95,19 @@ def _ragged(rng, pos, mb, nb, bs):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("window", [0, 16])
-@pytest.mark.parametrize("geom", [(4, 12, 12, 64), (3, 16, 2, 128)])
-def test_paged_attn_matches_plain(hopper, dtype, window, geom):
-    """Demonstrator (MHA, hd 64) and qwen2.5-3b (rep 8, hd 128) geometries;
-    ragged tables with sentinels, the last slot inactive."""
+@pytest.mark.parametrize("geom", [(4, 12, 12, 64), (3, 16, 2, 128),
+                                  (3, 4, 2, 24)])
+@pytest.mark.parametrize("positions", [None, (0, 15, 16, 127, 3)],
+                         ids=["pos5-17-40", "pos0-15-16-127"])
+def test_paged_attn_matches_plain(hopper, dtype, window, geom, positions):
+    """Demonstrator (MHA, hd 64) and qwen2.5-3b (rep 8, hd 128) geometries
+    take the split kernel, hd 24 the staged kernel; ragged tables with
+    sentinels, the last slot inactive.  At pos 0, and at pos 127 under a
+    window of 16, whole warps of the split kernel see no key."""
     B, H, KV, hd = geom
-    bs, mb = 16, 4
+    pos = [5, 17, 40, 0][:B] if positions is None else list(positions)
+    B = len(pos)
+    bs, mb = 16, 4 if positions is None else 8
     nb = B * mb
     rng = np.random.default_rng(7)
     qdt = torch.float32 if dtype == "f32" else torch.bfloat16
@@ -113,15 +122,16 @@ def test_paged_attn_matches_plain(hopper, dtype, window, geom):
     if dtype == "int8":
         (k, ks), (v, vs) = _kv_quant(k), _kv_quant(v)
         kw = dict(k_scale=ks, v_scale=vs)
-    pos = [5, 17, 40, 0][:B]
     tbl = _ragged(rng, pos, mb, nb, bs)
     tbl[B - 1] = -1
     tbl = torch.tensor(tbl, device=hopper)
     p = torch.tensor(pos, dtype=torch.int32, device=hopper)
     before = paged_attention.launches
+    split = paged_attention.split_launches
     out = paged_attention(q, k, v, tbl, p, window=window, **kw)
     torch.cuda.synchronize()
     assert paged_attention.launches == before + 1
+    assert paged_attention.split_launches == split + (hd != 24)
     ref = paged_decode_torch(q, k, v, tbl, p, window=window, **kw)
     assert bool(torch.isfinite(out).all())
     assert bool((out[B - 1] == 0).all()), "an empty table flushes zeros"
@@ -319,18 +329,24 @@ def test_noisy_sim_fabric_on_the_card(hopper):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("window", [0, 16])
-@pytest.mark.parametrize("geom", [(1, 12, 12, 64), (2, 16, 2, 128)])
-@pytest.mark.parametrize("s", [16, 40, 64, 130])
+@pytest.mark.parametrize("geom", [(1, 12, 12, 64), (2, 16, 2, 128),
+                                  (1, 4, 2, 32), (1, 4, 2, 24)])
+@pytest.mark.parametrize("s", [16, 40, 64, 130, 1, 15, 17, 100])
 def test_flash_attn_matches_plain(hopper, dtype, window, geom, s):
+    """bf16 at hd 32, 64 and 128 takes the tensor-core kernel; f32, and
+    bf16 at hd 24, the CUDA-core kernel."""
     B, H, KV, hd = geom
     dt = torch.float32 if dtype == "f32" else torch.bfloat16
     g = torch.Generator(device=hopper).manual_seed(s + window + H)
     q, k, v = (torch.randn((B, s, h, hd), generator=g, device=hopper).to(dt)
                for h in (H, KV, KV))
     before = flash_attention.launches
+    tc = flash_attention.tc_launches
     out = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert flash_attention.tc_launches == tc + (dtype == "bf16" and
+                                                hd != 24)
     assert out.dtype == dt and out.shape == q.shape
     ref = flash_attention_torch(q, k, v, window=window)
     err = (out.float() - ref.float()).abs().max().item()
