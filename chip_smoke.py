@@ -39,7 +39,12 @@ result:
       4x8, rows 16, mismatch only, comparator only and both at the stress
       sigmas (0.3, 0.03), the calibrated sigma, a detuned ``thr``;
       ``NoiseSpec(0, 0)`` equal to ``bitplane_mac``; the same seed twice
-      identical; two seeds different.
+      identical; two seeds different.  Then cases chosen against the
+      kernel's skip (it draws only where a draw can change the decode):
+      dense operands (every count is ``rows``: nothing is free) and zero
+      ones (everything is), thresholds a hair inside and outside a count's
+      band (linear and triode regime, mismatch and comparator offset),
+      mismatch 1.0, rows 16 and 3.
    c. ``rbl_decode_mac`` (one {0,1} plane pair, decode against live
       thresholds) against its plain version, bit for bit, under calibrated
       and detuned thresholds: one plane pair of each demonstrator projection
@@ -96,10 +101,15 @@ result:
       and on no served path.
 7. Each kernel timed at the main path's shapes (CUDA events), beside its
    bound on an H100 SXM (3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16; for
-   ``bitplane_mac_noisy`` the special-function units, 16 results per SM per
-   clock at 1.98 GHz), its plain version and one library call computing the
-   same function (none computes the noisy pyramid: the noise-free
-   ``bitplane_mac`` time stands beside it for context).  The two macro
+   ``bitplane_mac_noisy`` one Philox4x32-10 for every element a draw can
+   change, at 64 integer operations per SM per clock, and apart from it a
+   hardware Box-Muller's floor on the special-function units, 16 results
+   per SM per clock at 1.98 GHz, which the bit-exact stream cannot reach),
+   its plain version and one library call computing the same function
+   (none computes the noisy pyramid: the noise-free ``bitplane_mac`` time
+   stands beside it for context).  ``bitplane_mac_noisy`` is timed at the
+   calibrated and the stress sigmas, on uniform and on dense (all-255)
+   operands, each row with the share of elements per tier of its skip.  The two macro
    kernels are timed on one decode step's 72 projections at M = 4
    (``rbl_decode_mac`` as one plane pair of each); their library calls are
    ``torch._int_mm`` (plus the two scale multiplies for the dequant).
@@ -118,6 +128,12 @@ nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
 runs phase 7 alone for the named kernels (built first) and prints one JSON
 line of their timings and the nvidia-smi line: the way to compare two trees
 in turns on one card (copy this script into the other tree's root).
+
+    python3 chip_smoke.py --serve-noisy
+
+serves phase 6c's requests once (calibrated noise, ``noise_seed`` 7) and
+prints their token streams, SLOs and launches per decode step: copied into
+another tree, it holds the two trees' noisy streams against each other.
 
     python3 chip_smoke.py --int8-witness
 
@@ -141,6 +157,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
 SFU_OPS_PER_S = 16 * 132 * 1.98e9  # 16 per SM per clock, 132 SMs, boost
+INT_OPS_PER_S = 64 * 132 * 1.98e9  # 64 INT32 lanes per SM per clock
+# Philox4x32-10: per round two 32x32->64-bit multiplies, two 3-input XORs
+PHILOX_INT_OPS = 40
 STRESS = dict(mismatch_sigma=0.3, comparator_offset_sigma=0.03)
 NOISE_SEED = 7
 ATTN_ATOL = {"f32": 5e-6, "bf16": 1.6e-2, "int8": 1e-2}
@@ -574,13 +593,103 @@ def phase_bitplane_mac_noisy(torch, dev):
     if torch.equal(bad, bitplane_mac_noisy(ua, uw, 3, good, **kw)):
         raise AssertionError("detuned thresholds did not change the noisy "
                              "decode: the kernel ignores thr")
+    adverse = noisy_adversarial_cases(torch, dev)
+    for tag, m, k, n, rows, kw, fill, thr in adverse:
+        if fill is None:
+            ua = torch.randint(0, 256, (m, k), generator=g, device=dev,
+                               dtype=torch.int32)
+            uw = torch.randint(0, 256, (k, n), generator=g, device=dev,
+                               dtype=torch.int32)
+        else:
+            ua = torch.full((m, k), fill, device=dev, dtype=torch.int32)
+            uw = torch.full((k, n), fill, device=dev, dtype=torch.int32)
+        before = bitplane_mac_noisy.launches
+        out = bitplane_mac_noisy(ua, uw, 11, thr, rows=rows, **kw)
+        torch.cuda.synchronize()
+        if bitplane_mac_noisy.launches != before + 1:
+            raise AssertionError("bitplane_mac_noisy launched "
+                                 f"{bitplane_mac_noisy.launches - before} "
+                                 f"times at {tag}")
+        plain = bitplane_mac_noisy_torch(ua, uw, 11, thr, rows=rows, **kw)
+        worst = max(worst, (out - plain).abs().max().item())
+        if not torch.equal(out, plain):
+            raise AssertionError(
+                f"bitplane_mac_noisy differs from its plain version at {tag} "
+                f"{(m, k, n, rows, kw)} in {int((out != plain).sum())} of "
+                f"{out.numel()} elements")
     log(f"[4b] bitplane_mac_noisy bit-exact on {len(cases) + 1} cases "
-        "(1 detuned); NoiseSpec(0, 0) equals bitplane_mac; same seed "
-        "identical, two seeds differ")
+        f"(1 detuned) and {len(adverse)} adversarial ones (dense and zero "
+        "operands, thresholds a hair inside and outside a band edge, "
+        "mismatch 1.0, rows 16 and 3); NoiseSpec(0, 0) equals bitplane_mac; "
+        "same seed identical, two seeds differ")
     # the plain version's Philox temporaries filled the caching allocator
     # with GBs of int64 blocks; hand them back before the served paths
     torch.cuda.empty_cache()
     return float(worst)
+
+
+def hair_thresholds(torch, dev, rows, k, reach, f):
+    """The physics thresholds for ``rows`` with the two nearest count k's
+    noise-free voltage moved to f x ``reach`` (in counts) either side of k:
+    ``thr[k-1] = V(k - f reach)``, ``thr[k] = V(k + f reach)``.  With f just
+    under 1 they lie a hair inside count k's band, just over 1 outside."""
+    from repro_torch.core.rbl import rbl_voltage_physics
+    from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
+
+    thr = physics_thresholds(rows, "cpu").clone()
+    thr[k - 1], thr[k] = rbl_voltage_physics(
+        torch.tensor([k - f * reach, k + f * reach]), rows=rows)
+    return thr.to(dev)
+
+
+def hair_offsets(torch, dev, rows, k, reach, f):
+    """As :func:`hair_thresholds`, for a comparator offset reaching
+    ``reach`` volts around V(k)."""
+    from repro_torch.core.rbl import rbl_voltage_physics
+    from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
+
+    thr = physics_thresholds(rows, "cpu").clone()
+    v = rbl_voltage_physics(torch.tensor(float(k)), rows=rows)
+    thr[k - 1], thr[k] = v + f * reach, v - f * reach
+    return thr.to(dev)
+
+
+def noisy_adversarial_cases(torch, dev):
+    """Phase 4b's cases for the kernel's skip: (tag, m, k, n, rows, noise,
+    fill, thr).  Dense operands (every count is `rows`: no element is free),
+    zero operands (every element free), thresholds a hair inside and
+    outside a count's band edge (linear and triode regime, mismatch and
+    comparator offset), mismatch 1.0, rows 16 and 3."""
+    from repro_torch.core.constants import MC_SIGMA_VK
+    from repro_torch.kernels.common import U1_GRID, radius
+
+    zmax = float(radius(U1_GRID - 1))
+    cal = dict(mismatch_sigma=MC_SIGMA_VK)
+    big = dict(mismatch_sigma=1.0)
+    off = dict(comparator_offset_sigma=0.03)
+    cases = [("dense", 4, 768, 768, 8, cal, 255, None),
+             ("dense", 4, 768, 768, 8, STRESS, 255, None),
+             ("dense", 4, 768, 768, 8, dict(mismatch_sigma=0.3), 255, None),
+             ("dense", 4, 768, 256, 16, cal, 255, None),
+             ("dense", 4, 300, 200, 3, STRESS, 255, None),
+             ("zero", 4, 768, 768, 8, cal, 0, None),
+             ("zero", 4, 768, 768, 8, STRESS, 0, None),
+             ("mismatch 1.0", 4, 768, 768, 8, big, None, None),
+             ("mismatch 1.0 + offset", 4, 768, 256, 8,
+              dict(big, comparator_offset_sigma=0.03), None, None),
+             ("rows 16", 16, 768, 256, 16, cal, None, None),
+             ("rows 16", 4, 768, 256, 16, STRESS, None, None),
+             ("rows 3", 4, 300, 200, 3, cal, None, None),
+             ("rows 3", 4, 300, 200, 3, STRESS, None, None)]
+    for k in (3, 6):  # linear and triode regime
+        reach = MC_SIGMA_VK * k ** 0.5 * zmax
+        for f, where in ((0.999, "inside"), (1.001, "outside")):
+            cases.append((f"hair {where} count {k}", 4, 768, 768, 8, cal,
+                          None, hair_thresholds(torch, dev, 8, k, reach, f)))
+    for f, where in ((0.999, "inside"), (1.001, "outside")):
+        cases.append((f"offset hair {where} count 3", 4, 768, 768, 8, off,
+                      None, hair_offsets(torch, dev, 8, 3, 0.03 * zmax, f)))
+    return cases
 
 
 def phase_rbl_decode_mac(torch, dev):
@@ -783,14 +892,13 @@ def serve_path(torch, dev, cfg, params, prompts, tag, must, never=(),
             "streams": [h.tokens for h in handles]}, first
 
 
-def phase_server(torch, dev):
-    import dataclasses
-
+def served_model(torch, dev):
+    """Phase 6's model (full-width imc-paper-110m, random weights from seed
+    0) and its six prompts."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.fabric import FabricSpec, NoiseSpec
-    from repro_torch.models.model import init_params, prefill
+    from repro_torch.models.model import init_params
 
     cfg = get_config("imc-paper-110m")
     t0 = time.perf_counter()
@@ -801,6 +909,38 @@ def phase_server(torch, dev):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in PROMPTS]
+    return cfg, params, prompts
+
+
+def noisy_config(cfg):
+    """Phase 6c's configuration: sim with the calibrated noise, flash
+    prefill."""
+    import dataclasses
+
+    from repro_torch.core.fabric import FabricSpec, NoiseSpec
+
+    return dataclasses.replace(cfg, use_flash_kernel=True, fabric=FabricSpec(
+        mode="sim", noise=NoiseSpec.calibrated()))
+
+
+def serve_noisy(torch, dev):
+    """Phase 6c's first serve alone: its token streams, SLOs and launches
+    (``--serve-noisy``, to hold two trees' streams against each other)."""
+    cfg, params, prompts = served_model(torch, dev)
+    noisy, _ = serve_path(torch, dev, noisy_config(cfg), params, prompts,
+                          "sim+noise+flash", ("bitplane_mac_noisy",),
+                          noise_seed=NOISE_SEED)
+    return {k: noisy[k] for k in ("streams", "slos", "per_decode_step",
+                                  "wall_s")}
+
+
+def phase_server(torch, dev):
+    import dataclasses
+
+    from repro_torch.core.fabric import FabricSpec, NoiseSpec
+    from repro_torch.models.model import prefill
+
+    cfg, params, prompts = served_model(torch, dev)
 
     # a. exact fabric
     exact, card = serve_path(torch, dev, cfg, params, prompts, "exact",
@@ -876,8 +1016,7 @@ def phase_server(torch, dev):
                max_err_vs_dense=dense_err)
 
     # c. the paper's sim fabric with its calibrated noise, flash prefill
-    noisy_cfg = dataclasses.replace(sim_cfg, fabric=FabricSpec(
-        mode="sim", noise=NoiseSpec.calibrated()))
+    noisy_cfg = noisy_config(cfg)
     must = ("bitplane_mac_noisy", "flash_attn", "paged_attn")
     never = ("imc_mac", "bitplane_mac", "flash_attn_simt",
              "paged_attn_staged")
@@ -1335,11 +1474,58 @@ def time_bitplane_mac(torch, dev):
                       "calibrated thresholds")
 
 
+def noisy_tiers(torch, dev, act, weights, rows, kw):
+    """Share of the elements per tier of ``bitplane_mac_noisy`` for one
+    step's operands: the plain path's group counts (torch ops on the card,
+    core/bitserial.py::decoded_pyramid) against the twin of the kernel's
+    tables (``noisy_skip_tables``).  tier2: counts no draw can change (no
+    Philox); tier3: the rest (one Philox each); full: the share expected to
+    run the whole decode (with mismatch alone, a u1 index at or above
+    cut[k]; with comparator offset, every tier-3 element).  None on a tree
+    without the twin (a parent tree timed in turns)."""
+    try:
+        from repro_torch.kernels.bitplane_mac.ops import noisy_skip_tables
+    except ImportError:
+        return None
+    from repro_torch.core.bitserial import decoded_pyramid
+    from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
+    from repro_torch.kernels.common import U1_GRID
+
+    hist = torch.zeros(rows + 1, dtype=torch.int64, device=dev)
+
+    def count(c, n0):
+        hist.add_(torch.bincount(c.reshape(-1).to(torch.int64),
+                                 minlength=rows + 1))
+        return torch.zeros(c.shape, dtype=torch.int32, device=c.device)
+
+    for lw in weights:
+        for w in lw:
+            decoded_pyramid(act[w.shape[0]], w, bits_a=8, bits_w=8, rows=rows,
+                            decode=count)
+    _, need, cut = noisy_skip_tables(physics_thresholds(rows, "cpu"), rows,
+                                     **kw)
+    h = hist.cpu().double()
+    total = float(h.sum())
+    tier3 = float(h[need].sum())
+    full = tier3 if cut is None else float(
+        (h * (U1_GRID - cut).double() / U1_GRID)[need].sum())
+    return dict(tier2=1 - tier3 / total, tier3=tier3 / total,
+                full=full / total, tier3_elements=tier3, elements=total)
+
+
 def time_bitplane_mac_noisy(torch, dev):
     """One decode step's bitplane_mac_noisy work (the shapes of
     time_bitplane_mac), mismatch only at the calibrated sigma (the served
-    path) and mismatch + comparator offset at the stress sigmas.  The plain
-    version is timed on one layer's six projections and scaled by 12."""
+    path) and mismatch + comparator offset at the stress sigmas, each on
+    uniform operands (the rows of earlier PRs, unchanged) and on dense
+    ones (``_dense``: every value 255, every count 8: no count is free).
+    The plain version is timed on one layer's six projections of the
+    uniform operands and scaled by 12.  Each row carries its tier shares
+    (``noisy_tiers``) and two floors: ``bound_ms``, the stream's own (the
+    bytes against one Philox4x32-10 for every element a draw can change, at
+    the integer issue rate) and ``sfu_bound_ms``, a hardware Box-Muller's
+    (log, sqrt and cos per normal and sqrt(k) on the special-function
+    units), which the bit-exact stream cannot reach."""
     from repro_torch.core.constants import MC_SIGMA_VK
     from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac_noisy,
                                                       bitplane_mac_noisy_torch)
@@ -1354,6 +1540,8 @@ def time_bitplane_mac_noisy(torch, dev):
           for _ in range(layers)]
     a32 = {k: v.to(torch.int32) for k, v in a.items()}
     w32 = [w.to(torch.int32) for w in ws[0]]
+    dense_a = {k: torch.full_like(v, 255) for k, v in a.items()}
+    dense_ws = [[torch.full_like(w, 255) for w in lw] for lw in ws]
 
     def step(fn, act, weights, **kw):
         for lw in weights:
@@ -1364,33 +1552,47 @@ def time_bitplane_mac_noisy(torch, dev):
     out = {}
     elems = layers * sum(bits * bits * m * (k // rows) * n for k, n in shapes)
     nbytes = layers * sum(m * k + k * n + 4 * m * n for k, n in shapes)
-    for tag, kw, normals, iters in (
-            ("", dict(mismatch_sigma=MC_SIGMA_VK), 1, 3),
-            ("_both", STRESS, 1 + rows, 2)):
-        ms = cuda_ms(torch, lambda: step(bitplane_mac_noisy, a, ws, **kw),
-                     iters=iters, warmup=1)
-        g_ms = graph_ms(torch, lambda: step(bitplane_mac_noisy, a, ws, **kw),
-                        iters=iters)
-        plain = 12 * cuda_ms(torch, lambda: step(
-            bitplane_mac_noisy_torch, a32, [w32], **kw), iters=1, warmup=1)
+    calibrated = dict(mismatch_sigma=MC_SIGMA_VK)
+    for tag, kw, normals, iters, act, weights in (
+            ("", calibrated, 1, 3, a, ws),
+            ("_both", STRESS, 1 + rows, 2, a, ws),
+            ("_dense", calibrated, 1, 3, dense_a, dense_ws),
+            ("_dense_both", STRESS, 1 + rows, 2, dense_a, dense_ws)):
+        ms = cuda_ms(torch, lambda: step(bitplane_mac_noisy, act, weights,
+                                         **kw), iters=iters, warmup=1)
+        g_ms = graph_ms(torch, lambda: step(bitplane_mac_noisy, act, weights,
+                                            **kw), iters=iters)
+        if act is a:
+            out[f"plain_ms{tag}"] = 12 * cuda_ms(torch, lambda: step(
+                bitplane_mac_noisy_torch, a32, [w32], **kw), iters=1,
+                warmup=1)
+        tiers = noisy_tiers(torch, dev, act, weights, rows, kw)
+        # one Philox4x32-10 per element a draw can change
+        philox_ops = PHILOX_INT_OPS * (elems if tiers is None
+                                       else tiers["tier3_elements"])
+        b_ms, by = bound(nbytes, philox_ops, INT_OPS_PER_S)
         # log, sqrt, cos per normal, and sqrt(k) for the mismatch
         sfu_ops = elems * (3 * normals + 1)
-        b_ms, by = bound(nbytes, sfu_ops, SFU_OPS_PER_S)
+        sfu_ms, _ = bound(nbytes, sfu_ops, SFU_OPS_PER_S)
         out.update({f"ms{tag}": ms, f"graph_ms{tag}": g_ms,
-                    f"plain_ms{tag}": plain,
                     f"bound_ms{tag}": b_ms, f"bound_by{tag}": by,
-                    f"sfu_ops{tag}": sfu_ops})
+                    f"philox_ops{tag}": philox_ops,
+                    f"sfu_bound_ms{tag}": sfu_ms, f"sfu_ops{tag}": sfu_ops,
+                    f"tiers{tag}": tiers})
     out.update(library_ms=None, elements=elems, bytes=nbytes,
                shape="one decode step: 12 layers x {4x (768,768), "
                      "(768,3072), (3072,768)} at M=4, 8x8 bits, rows 8, "
                      "uint8 operands; ms / plain_ms / bound_ms: mismatch "
-                     "only at the calibrated sigma 0.05; *_both: mismatch "
-                     "0.3 + comparator offset 0.03; plain version timed on "
+                     "only at the calibrated sigma 0.05, uniform operands; "
+                     "*_both: mismatch 0.3 + comparator offset 0.03; "
+                     "*_dense*: every operand 255; plain version timed on "
                      "one layer's six projections x 12; bound: the larger "
-                     "of the bytes at 3.35 TB/s and the special-function "
-                     "ops (log, sqrt, cos per normal + sqrt(k)) at 16 per "
-                     "SM per clock; library: none computes the noisy "
-                     "pyramid")
+                     "of the bytes at 3.35 TB/s and one Philox4x32-10 (40 "
+                     "integer ops) per tier-3 element at 64 integer ops per "
+                     "SM per clock; sfu_bound: a hardware Box-Muller (log, "
+                     "sqrt, cos per normal + sqrt(k)) at 16 per SM per "
+                     "clock, a floor the bit-exact stream cannot reach; "
+                     "library: none computes the noisy pyramid")
     return out
 
 
@@ -1469,6 +1671,15 @@ def main() -> int:
         log(build.build_all([n for n in sys.argv[2:] if n in build.KERNELS]))
         out = {n: TIMERS[n](torch, dev) for n in sys.argv[2:]}
         print(json.dumps({"timed": out, "kind": kind}))
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--serve-noisy"]:
+        from repro_torch.kernels import build
+
+        log(build.build_all(["bitplane_mac_noisy", "flash_attn",
+                             "paged_attn"]))
+        print(json.dumps({"serve_noisy": serve_noisy(torch, dev),
+                          "kind": kind}))
         print(smi)
         return 0
     if sys.argv[1:] == ["--int8-witness"]:
@@ -1565,10 +1776,21 @@ def main() -> int:
             f"launches per decode step, {k['launches_per_prefill']} per "
             f"prefill, {k['launches']} in the {k['path']} run")
     t = timed["bitplane_mac_noisy"]
-    log(f"[7] bitplane_mac_noisy, mismatch + comparator offset: "
-        f"{t['ms_both']:.4f} ms, {t['graph_ms_both']:.4f} ms from a graph (bound {t['bound_ms_both']:.4f} ms by "
-        f"{t['bound_by_both']}; plain {t['plain_ms_both']:.4f} ms); "
-        f"noise-free bitplane_mac {t['noise_free_bitplane_mac_ms']:.4f} ms")
+    for tag, what in (("", "calibrated mismatch"),
+                      ("_both", "mismatch + comparator offset"),
+                      ("_dense", "calibrated mismatch, dense operands"),
+                      ("_dense_both", "mismatch + offset, dense operands")):
+        tiers = t[f"tiers{tag}"]
+        plain = t.get(f"plain_ms{tag}")
+        log(f"[7] bitplane_mac_noisy, {what}: {t[f'ms{tag}']:.4f} ms, "
+            f"{t[f'graph_ms{tag}']:.4f} ms from a graph (stream floor "
+            f"{t[f'bound_ms{tag}']:.4f} ms by {t[f'bound_by{tag}']}; "
+            f"hardware Box-Muller floor {t[f'sfu_bound_ms{tag}']:.4f} ms"
+            + ("" if plain is None else f"; plain {plain:.4f} ms") +
+            f"); tiers 2 / 3 / full {tiers['tier2']:.4f} / "
+            f"{tiers['tier3']:.4f} / {tiers['full']:.6f}")
+    log(f"[7] noise-free bitplane_mac {t['noise_free_bitplane_mac_ms']:.4f} "
+        "ms")
     log(f"[8] build {build_s:.2f} s; served {json.dumps(served)}; macro "
         f"{json.dumps(macro)}")
     print(json.dumps({"kernels": kernels}))

@@ -25,12 +25,16 @@ constexpr double U_LIN = 0.216845;
 constexpr double V0_LEAK = 1.758;
 constexpr double VD_SAT = 0.865014;
 
-struct Smem {
-  uint32_t a[MAX_PLANES][BM][GK];   //  8 KB
-  uint32_t w[MAX_PLANES][GK][BN];   // 32 KB; reused for the warp sums
+// A block's staged operands, G K-groups of them; w is reused for the warp
+// sums.
+template <int G>
+struct SmemG {
+  uint32_t a[MAX_PLANES][BM][G];
+  uint32_t w[MAX_PLANES][G][BN];
+  static_assert(WARPS * BM * BN <= MAX_PLANES * G * BN, "warp sums fit in w");
 };
+using Smem = SmemG<GK>;  // 8 KB + 32 KB
 static_assert(BM * BN == THREADS, "one output per thread in the final sum");
-static_assert(WARPS * BM * BN <= MAX_PLANES * GK * BN, "warp sums fit in w");
 
 __device__ __forceinline__ float f32(double x) { return static_cast<float>(x); }
 
@@ -124,7 +128,8 @@ __device__ __forceinline__ void stage(Smem& s, const uint8_t* __restrict__ a,
 // Sum the 8 warps' row accumulators (lane = column) and store one output
 // per thread: plainly, or by integer atomicAdd into a zeroed output when the
 // K-groups are split across blocks (exact in any order).
-__device__ __forceinline__ void store_tile(Smem& s, const int (&acc)[BM],
+template <int G>
+__device__ __forceinline__ void store_tile(SmemG<G>& s, const int (&acc)[BM],
                                            int32_t* __restrict__ out, int N,
                                            int m0, int n0, int m_rows,
                                            bool accumulate) {
@@ -153,14 +158,15 @@ __device__ __forceinline__ void store_tile(Smem& s, const int (&acc)[BM],
 
 struct Plan {
   dim3 grid;
-  int per_split;    // K-groups per block, a multiple of WARPS
+  int per_split;    // K-groups per block, a multiple of the granule
   bool accumulate;  // atomicAdd into a zeroed output
   int groups;
 };
 
 // Split the ceil(K/rows) K-groups across blocks until the grid has about
-// `target_blocks` blocks; each split takes a multiple of WARPS groups.
-inline Plan plan(int M, int N, int K, int rows, int target_blocks) {
+// `target_blocks` blocks; each split takes a multiple of `granule` groups.
+inline Plan plan(int M, int N, int K, int rows, int target_blocks,
+                 int granule = WARPS) {
   Plan p;
   p.groups = (K + rows - 1) / rows;
   const int tiles_n = (N + BN - 1) / BN;
@@ -168,11 +174,11 @@ inline Plan plan(int M, int N, int K, int rows, int target_blocks) {
   const int tiles = tiles_n * tiles_m;
   int splits = (target_blocks + tiles - 1) / tiles;
   splits = splits < 1 ? 1 : splits;
-  const int most = (p.groups + WARPS - 1) / WARPS;
+  const int most = (p.groups + granule - 1) / granule;
   splits = splits > most ? most : splits;
   splits = splits < 1 ? 1 : splits;
   int per = (p.groups + splits - 1) / splits;
-  per = ((per + WARPS - 1) / WARPS) * WARPS;
+  per = ((per + granule - 1) / granule) * granule;
   p.per_split = per;
   splits = p.groups == 0 ? 1 : (p.groups + per - 1) / per;
   p.accumulate = splits > 1 || p.groups == 0;
@@ -185,7 +191,7 @@ inline Plan plan(int M, int N, int K, int rows, int target_blocks) {
 // launch.
 inline int prepare(void* out, int M, int N, int K, int bits_a, int bits_w,
                    int rows, int target_blocks, cudaStream_t s, Plan* p,
-                   bool* skip) {
+                   bool* skip, int granule = WARPS) {
   *skip = true;
   if (bits_a < 1 || bits_a > MAX_PLANES || bits_w < 1 ||
       bits_w > MAX_PLANES || rows < 1 || rows > MAX_ROWS || M < 0 || N < 0 ||
@@ -193,7 +199,7 @@ inline int prepare(void* out, int M, int N, int K, int bits_a, int bits_w,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0 || N == 0) return 0;
-  *p = plan(M, N, K, rows, target_blocks);
+  *p = plan(M, N, K, rows, target_blocks, granule);
   if (p->accumulate) {
     cudaError_t err = cudaMemsetAsync(
         out, 0, sizeof(int32_t) * static_cast<size_t>(M) * N, s);

@@ -42,8 +42,8 @@ from repro_torch.core.bitserial import count_at_or_above, decoded_pyramid
 from repro_torch.core.decoder import thresholds
 from repro_torch.core.rbl import rbl_voltage_physics
 from repro_torch.kernels import build
-from repro_torch.kernels.common import (decode_counts_noisy, element_normals,
-                                        seed_words)
+from repro_torch.kernels.common import (U1_GRID, decode_counts_noisy,
+                                        element_normals, radius, seed_words)
 
 MAX_ROWS = 32  # the kernel packs one K-group of one plane into a 32-bit word
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p,
@@ -51,6 +51,18 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p,
 _NOISY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
     [ctypes.c_uint32] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p,
                                                     ctypes.c_int]
+_FNS = {}
+
+
+def _entry(name: str, argtypes):
+    """The C entry point ``<name>_launch`` of ``csrc/<name>.cu``, its argument
+    types set once, at the library's first load."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(build.load(name), f"{name}_launch")
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _FNS[name] = fn
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,9 +160,7 @@ def bitplane_mac(u_a: torch.Tensor, u_w: torch.Tensor,
     a, w, t, out, batch = _operands("bitplane_mac", u_a, u_w, thr, bits_a,
                                     bits_w, rows)
     (m, k), n = a.shape, w.shape[1]
-    lib = build.load("bitplane_mac")
-    fn = lib.bitplane_mac_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _entry("bitplane_mac", _ARGTYPES)
     stream, dev = build.stream_and_device(a)
     build.check_launch("bitplane_mac", fn(
         a.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(), m, n, k,
@@ -238,9 +248,7 @@ def bitplane_mac_noisy(u_a: torch.Tensor, u_w: torch.Tensor, seed: int,
                                     bits_a, bits_w, rows)
     (m, k), n = a.shape, w.shape[1]
     k0, k1 = seed_words(seed)
-    lib = build.load("bitplane_mac_noisy")
-    fn = lib.bitplane_mac_noisy_launch
-    fn.argtypes, fn.restype = _NOISY_ARGTYPES, ctypes.c_int
+    fn = _entry("bitplane_mac_noisy", _NOISY_ARGTYPES)
     stream, dev = build.stream_and_device(a)
     build.check_launch("bitplane_mac_noisy", fn(
         a.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(), m, n, k,
@@ -251,3 +259,78 @@ def bitplane_mac_noisy(u_a: torch.Tensor, u_w: torch.Tensor, seed: int,
 
 
 bitplane_mac_noisy.launches = 0
+
+
+# ---------------------------------------------------------- the skip tables
+SKIP_PAD = 2.0 ** -20  # volts: the band test's margin on V (csrc PAD)
+
+
+def _band_ends(k: torch.Tensor, rz: torch.Tensor, ms: float):
+    """The float32 ends (lo, hi) of the counts ``k``'s mismatch band for
+    draws ``|z| <= rz``: ``k' = k + (ms * sqrt(k)) * z`` rounds monotonically
+    in z, so every k' lies in [lo, hi]."""
+    if not ms > 0:
+        return k, k
+    d = (ms * torch.sqrt(k)) * rz
+    return k - d, k + d
+
+
+def _band_free(k, rz, thr, tlo, thi, rows, ms, pad):
+    """Where the decode of count ``k`` is the same for every mismatch draw
+    ``|z| <= rz`` and every comparator offset in [tlo - thr, thi - thr]:
+    V is monotone non-increasing in k', so over the band it lies in
+    [V(hi), V(lo)], and each comparator must fire (``tlo >= V(lo) + pad``)
+    or stay quiet (``thi < V(hi) - pad``) over all of it.  A NaN threshold
+    never fires."""
+    lo, hi = _band_ends(k, rz, ms)
+    vlo = rbl_voltage_physics(lo, rows=rows) + pad
+    vhi = rbl_voltage_physics(hi, rows=rows) - pad
+    ok = (tlo >= vlo[:, None]) | (thi < vhi[:, None]) | torch.isnan(thr)
+    return ok.all(-1)
+
+
+def noisy_skip_tables(thr: torch.Tensor, rows: int, mismatch_sigma=None,
+                      comparator_offset_sigma=None, *, pad: float = SKIP_PAD):
+    """Twin of ``csrc/bitplane_mac_noisy.cu``'s prologue, for the tests: the
+    per-count tables that decide where a draw can change a decode.
+
+    Returns ``(dec0, need, cut)`` over the counts k = 0..rows (CPU tensors):
+
+    * ``dec0`` int32: the noise-free decode ``#{i : V(k) <= thr[i]}``;
+    * ``need`` bool: some mismatch draw or comparator offset with ``|z| <=
+      Z_MAX = radius(U1_GRID - 1)`` can move the decode off ``dec0[k]``
+      (without a sigma, none); every other count keeps ``dec0[k]``;
+    * ``cut`` int64, with mismatch alone (else None): an element whose u1
+      grid index is below ``cut[k]`` keeps ``dec0[k]`` whatever its u2
+      (``U1_GRID`` where ``need`` is False).  The kernel finds the same first
+      index by a 32-way search; a binary search finds it here.
+
+    The sigmas are rounded to float32, as the kernel receives them; a sigma
+    <= 0 draws nothing.
+    """
+    thr = thr.detach().to("cpu", torch.float32)
+    ms = float(torch.tensor(float(mismatch_sigma or 0.0), dtype=torch.float32))
+    cs = float(torch.tensor(float(comparator_offset_sigma or 0.0),
+                            dtype=torch.float32))
+    k = torch.arange(rows + 1).to(torch.float32)
+    zmax = radius(U1_GRID - 1)
+    reach = cs * zmax if cs > 0 else torch.zeros((), dtype=torch.float32)
+    tlo, thi = thr - reach, thr + reach
+
+    def free(rz):
+        return _band_free(k, rz, thr, tlo, thi, rows, ms, pad)
+
+    v = rbl_voltage_physics(k, rows=rows)
+    dec0 = (v[:, None] <= thr).sum(-1).to(torch.int32)
+    need = ~free(zmax.expand(rows + 1)) & (ms > 0 or cs > 0)
+    if not (ms > 0 and not cs > 0):
+        return dec0, need, None
+    lo = torch.zeros(rows + 1, dtype=torch.int64)
+    hi = torch.full((rows + 1,), U1_GRID - 1, dtype=torch.int64)
+    while bool((lo < hi).any()):  # the first index whose band is not free
+        active = lo < hi
+        mid = (lo + hi) // 2
+        good = free(radius(mid))
+        lo, hi = (torch.where(active & good, mid + 1, lo),
+                  torch.where(active & ~good, mid, hi))
+    return dec0, need, torch.where(need, lo, torch.tensor(U1_GRID))

@@ -42,6 +42,7 @@ MASK64 = (1 << 64) - 1
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 INV_2_24 = 2.0 ** -24
+U1_GRID = 1 << 24  # a uniform takes the top 24 bits of a word
 
 
 # ------------------------------------------------------------------ seeds
@@ -155,6 +156,17 @@ def cos_2pi_f32(u: torch.Tensor) -> torch.Tensor:
     qi = q.to(torch.int32)
     return torch.where(qi == 0, cos_r, torch.where(
         qi == 1, -sin_r, torch.where(qi == 2, -cos_r, sin_r)))
+
+
+def radius(index: torch.Tensor) -> torch.Tensor:
+    """Box-Muller's radius ``sqrt(-2 log(1 - u1))`` at the grid index
+    ``index`` of ``u1`` (``u1 = index * 2^-24``, ``index`` in [0, 2^24)), with
+    :func:`box_muller`'s float32 operations.  It is monotone on the grid, so
+    ``radius(U1_GRID - 1)`` (5.7681074) bounds every normal of the stream
+    (``|cos| <= 1``)."""
+    u1 = torch.as_tensor(index, dtype=torch.int64).to(torch.float32) \
+        * INV_2_24
+    return torch.sqrt(log_f32(1.0 - u1) * -2.0)
 
 
 def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:

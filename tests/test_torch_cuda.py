@@ -9,7 +9,10 @@ same card tensors: ``imc_mac``, ``imc_mac_dequant``, ``bitplane_mac``,
 ``bitplane_mac_noisy`` and ``rbl_decode_mac`` bit for bit (including detuned
 comparator references and 16-row groups; ``bitplane_mac``'s served-case
 kernel, rows 8 at 8x8 bits, also under random references and on all-255
-operands; the noisy kernel and its plain version draw one Philox stream),
+operands; the noisy kernel and its plain version draw one Philox stream, and
+the noisy kernel's skip is also held on operands and thresholds chosen
+against it: dense and zero operands, thresholds a hair inside and outside a
+count's band, mismatch 1.0, rows 16 and 3),
 ``paged_attn`` at the
 bounds of ``tests/test_paged_attn.py`` (f32 5e-6, bf16 1.6e-2 = one output
 ulp, int8 1e-2), ``flash_attn`` at those of ``tests/test_flash_attn.py``
@@ -32,6 +35,7 @@ from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
                                                   bitplane_mac_noisy_torch,
                                                   bitplane_mac_torch,
                                                   physics_thresholds)
+from repro_torch.kernels.common import U1_GRID, radius
 from repro_torch.kernels.flash_attn.ops import (flash_attention,
                                                 flash_attention_torch)
 from repro_torch.kernels.imc_mac.ops import (imc_mac, imc_mac_dequant,
@@ -312,6 +316,80 @@ def test_bitplane_mac_noisy_seeds_sigma0_and_detuned(hopper):
         ua % 4, uw % 4, 4, detuned, bits_a=2, bits_w=2, mismatch_sigma=0.05))
     with pytest.raises(ValueError, match="one CUDA device"):
         bitplane_mac_noisy(ua, uw.cpu(), 0, **stress)
+
+
+def _hair(rows, k, reach_v, f, dev):
+    """Physics thresholds with the two nearest count k's voltage moved to
+    V(k) -+ f x ``reach_v`` volts: a hair inside (f < 1) or outside (f > 1)
+    the reach of a draw."""
+    thr = physics_thresholds(rows, "cpu").clone()
+    v = rbl_voltage_physics(torch.tensor(float(k)), rows=rows)
+    thr[k - 1], thr[k] = v + f * reach_v, v - f * reach_v
+    return thr.to(dev)
+
+
+def _mismatch_hair(rows, k, ms, f, dev):
+    """Thresholds at V(k -+ f x reach), reach = ms sqrt(k) Z_MAX counts:
+    the edges of count k's mismatch band."""
+    reach = ms * k ** 0.5 * float(radius(U1_GRID - 1))
+    thr = physics_thresholds(rows, "cpu").clone()
+    thr[k - 1], thr[k] = rbl_voltage_physics(
+        torch.tensor([k - f * reach, k + f * reach]), rows=rows)
+    return thr.to(dev)
+
+
+CAL = dict(mismatch_sigma=0.05)
+
+
+@pytest.mark.parametrize("case,m,k,n,rows,noise,fill,hair", [
+    ("dense", 4, 768, 768, 8, CAL, 255, None),
+    ("dense", 4, 768, 768, 8, NOISE["both"], 255, None),
+    ("dense", 4, 768, 768, 8, dict(mismatch_sigma=0.3), 255, None),
+    ("dense", 4, 768, 256, 16, CAL, 255, None),
+    ("dense", 5, 300, 200, 3, NOISE["both"], 255, None),
+    ("zero", 4, 768, 768, 8, CAL, 0, None),
+    ("zero", 4, 768, 768, 8, NOISE["both"], 0, None),
+    ("mismatch 1.0", 4, 768, 768, 8, dict(mismatch_sigma=1.0), None, None),
+    ("mismatch 1.0 + offset", 9, 768, 256, 8,
+     dict(mismatch_sigma=1.0, comparator_offset_sigma=0.03), None, None),
+    ("rows 16", 16, 768, 256, 16, CAL, None, None),
+    ("rows 16", 4, 768, 256, 16, NOISE["both"], None, None),
+    ("rows 3", 4, 300, 200, 3, CAL, None, None),
+    ("rows 3", 7, 300, 200, 3, NOISE["both"], None, None),
+    ("hair inside count 3", 4, 768, 768, 8, CAL, None, ("m", 3, 0.999)),
+    ("hair outside count 3", 4, 768, 768, 8, CAL, None, ("m", 3, 1.001)),
+    ("hair inside count 6", 4, 768, 768, 8, CAL, None, ("m", 6, 0.999)),
+    ("hair outside count 6", 4, 768, 768, 8, CAL, None, ("m", 6, 1.001)),
+    ("offset hair inside count 3", 4, 768, 768, 8, NOISE["comparator"],
+     None, ("c", 3, 0.999)),
+    ("offset hair outside count 3", 4, 768, 768, 8, NOISE["comparator"],
+     None, ("c", 3, 1.001))])
+def test_bitplane_mac_noisy_skip_adversarial(hopper, case, m, k, n, rows,
+                                             noise, fill, hair):
+    """Operands and thresholds chosen against the kernel's skip: no element
+    free (dense), all free (zero), thresholds a hair inside and outside a
+    count's band, mismatch 1.0, rows 16 and 3."""
+    g = torch.Generator(device=hopper).manual_seed(m + k + n + rows)
+    if fill is None:
+        ua = torch.randint(0, 256, (m, k), generator=g, device=hopper,
+                           dtype=torch.int32)
+        uw = torch.randint(0, 256, (k, n), generator=g, device=hopper,
+                           dtype=torch.int32)
+    else:
+        ua = torch.full((m, k), fill, device=hopper, dtype=torch.int32)
+        uw = torch.full((k, n), fill, device=hopper, dtype=torch.int32)
+    thr = None
+    if hair is not None:
+        kind, count, f = hair
+        thr = _mismatch_hair(rows, count, 0.05, f, hopper) if kind == "m" \
+            else _hair(rows, count, 0.03 * float(radius(U1_GRID - 1)), f,
+                       hopper)
+    kw = dict(rows=rows, **noise)
+    before = bitplane_mac_noisy.launches
+    out = bitplane_mac_noisy(ua, uw, 11, thr, **kw)
+    torch.cuda.synchronize()
+    assert bitplane_mac_noisy.launches == before + 1
+    assert torch.equal(out, bitplane_mac_noisy_torch(ua, uw, 11, thr, **kw))
 
 
 def test_noisy_sim_fabric_on_the_card(hopper):
