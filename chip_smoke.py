@@ -11,10 +11,19 @@ result:
    one nvcc per source (six), all started together.
 2. ``imc_mac`` against its plain version on the card, bit for bit: the
    demonstrator's shapes M in {4, 16, 64} x (K, N) in {(768, 768),
-   (768, 3072), (3072, 768)}, a ragged shape, and the deep-K int32 case.
+   (768, 3072), (3072, 768)}, a ragged shape, and the deep-K int32 case;
+   then the split-K kernel's cases (M <= 16; M > 16 takes the tiled
+   kernel, and which counter rose is asserted): M in {1, 3, 4, 5, 9, 16,
+   17}, K in {0, 4, 100, 1030, 3072}, N in {1, 31, 129, 768, 3072}, N not a
+   multiple of 8 or 4, weights as a view at byte offsets 1 and 4 (the
+   narrower loads), operands at -128 and +-127; one launch of each kernel
+   captured in a CUDA graph and replayed twice (the memset of the split
+   kernel's output is a node of the graph); and the C ``imc_mac_plan``
+   equal to ``ops.imc_mac_plan`` at every shape.
    b. ``imc_mac_dequant`` (the same GEMM with the float32 dequant in its
       flush) against its plain version, bit for bit: the same demonstrator
-      shapes, ragged 130x140x150 and deep K 8x2048x8 at +-127.
+      shapes, ragged 130x140x150, deep K 8x2048x8 at +-127, and the same
+      split-K cases, graph replays and plans.
 3. ``paged_attn`` against its plain version on the card: f32, bf16 and int8
    pools, window 0 and 16, rep 1 (the demonstrator) and rep 8 (qwen2.5-3b)
    on the split kernel, hd 24 on the staged kernel (which kernel ran is
@@ -60,10 +69,12 @@ result:
    six requests of 7/16/33/12/5/40 prompt tokens and 16 new tokens each;
    every kernel's launch counter is zeroed just before a path and read just
    after:
-   a. ``exact`` fabric: ``imc_mac`` and ``paged_attn`` must launch.  The
-      first request's prefill logits on the card are held against the same
-      weights run through the plain path on the CPU (bound: 2e-2 of the
-      largest |logit|).
+   a. ``exact`` fabric: ``imc_mac`` and ``paged_attn`` must launch;
+      ``imc_mac``'s split-K kernel 72 times per decode step and its tiled
+      kernel never there (the bucket-32/64 prefills take the tiled one).
+      The first request's prefill logits on the card are held against the
+      same weights run through the plain path on the CPU (bound: 2e-2 of
+      the largest |logit|).
    b. the paper's ``sim`` fabric with flash prefill: ``bitplane_mac``,
       ``flash_attn`` and ``paged_attn`` must launch, ``imc_mac`` never;
       the tensor-core ``flash_attn`` kernel 12 times per bucketed prefill
@@ -92,7 +103,8 @@ result:
       printed); ``Fabric.matmul`` at 64x768x3072 launches ``imc_mac``
       (``exact``) or ``bitplane_mac`` (``sim``) once and nothing else;
       ``imc_mac_dequant`` on its quantized operands equals
-      ``Fabric(exact).matmul`` bit for bit; the threshold re-tuning study
+      ``Fabric(exact).matmul`` bit for bit, there (tiled kernel) and on four
+      of its rows (split-K kernel); the threshold re-tuning study
       of §IV-C through ``rbl_decode_mac`` on the sign planes of that
       projection (share of wrong outputs per threshold shift); the STE
       gradients of ``Fabric.linear`` equal the CPU's within 1e-5 relative;
@@ -113,6 +125,8 @@ result:
    kernels are timed on one decode step's 72 projections at M = 4
    (``rbl_decode_mac`` as one plane pair of each); their library calls are
    ``torch._int_mm`` (plus the two scale multiplies for the dequant).
+   ``imc_mac`` adds a row for one bucket-64 prefill's 72 projections at
+   M = 64, on the tiled kernel, beside ``torch._int_mm``.
    ``ms`` times the wrappers' launches as a caller makes them (a host-bound
    loop measures the host); ``graph_ms`` times the same launches replayed
    from one CUDA graph, the device's own time, and ``library_graph_ms`` does
@@ -259,8 +273,84 @@ def phase_imc_mac(torch, dev):
     qw = torch.full((2048, 8), -127, dtype=torch.int8, device=dev)
     if not bool((imc_mac(qa, qw) == -127 * 127 * 2048).all()):
         raise AssertionError("imc_mac int32 accumulation case failed")
-    log(f"[2] imc_mac bit-exact on {len(cases) + 1} shapes")
+    n_split = split_cases(torch, dev, "imc_mac", imc_mac, imc_mac_torch,
+                          lambda qa, qw, sw: (qa, qw))
+    log(f"[2] imc_mac bit-exact on {len(cases) + 1} shapes, then on "
+        f"{n_split} split-K cases, plans and graph replays")
     return 0.0
+
+
+# the split-K kernel's cases: (m, k, n, byte offset of the weights, fill of
+# a and b or None); every M in {1, 3, 4, 5, 9, 16, 17}, K in {0, 4, 100,
+# 1030, 3072} and N in {1, 31, 129, 768, 3072} appears
+SPLIT_CASES = ((1, 4, 1, 0, None), (3, 100, 31, 0, None),
+               (4, 1030, 129, 0, None), (5, 3072, 768, 0, None),
+               (9, 0, 3072, 0, None), (16, 1030, 3072, 0, None),
+               (17, 100, 129, 0, None), (16, 3072, 768, 0, None),
+               (4, 768, 12, 0, None), (9, 4, 31, 0, None),
+               (1, 3072, 1, 0, None), (4, 0, 768, 0, None),
+               (4, 768, 768, 1, None), (4, 768, 768, 4, None),
+               (9, 1030, 768, 4, None), (16, 768, 3072, 1, None),
+               (4, 768, 768, 0, (-128, -128)), (16, 1030, 129, 0, (-128, 127)),
+               (5, 3072, 31, 0, (127, -127)), (17, 768, 768, 0, (-128, -128)))
+
+
+def split_cases(torch, dev, name, wrapper, plain, args):
+    """Phase 2/2b's split-K checks for ``wrapper`` against ``plain``
+    (``args`` makes their arguments from the operands and scale_w):
+    bit-exact on SPLIT_CASES with the counter of the kernel the plan names,
+    C plan == Python plan, and one launch of each kernel captured in a CUDA
+    graph, replayed twice, still bit-exact."""
+    from repro_torch.kernels.imc_mac.ops import compiled_plan, imc_mac_plan
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    def draw(m, k, n, off, fill):
+        qa = torch.randint(-128, 128, (m, k), generator=g, device=dev,
+                           dtype=torch.int8)
+        flat = torch.randint(-128, 128, (k * n + off,), generator=g,
+                             device=dev, dtype=torch.int8)
+        qw = flat[off:].view(k, n)  # data_ptr() offset by ``off`` bytes
+        if fill is not None:
+            qa.fill_(fill[0])
+            qw.fill_(fill[1])
+        sw = torch.rand((n,), generator=g, device=dev) * 0.099 + 0.001
+        return qa, qw, sw
+
+    for m, k, n, off, fill in SPLIT_CASES:
+        plan = imc_mac_plan(m, n, k)
+        if compiled_plan(m, n, k) != plan:
+            raise AssertionError(f"imc_mac_plan{(m, n, k)}: C "
+                                 f"{compiled_plan(m, n, k)} != Python {plan}")
+        qa, qw, sw = draw(m, k, n, off, fill)
+        before = (wrapper.split_launches, wrapper.tiled_launches)
+        out = wrapper(*args(qa, qw, sw))
+        torch.cuda.synchronize()
+        rose = (wrapper.split_launches - before[0],
+                wrapper.tiled_launches - before[1])
+        if rose != ((1, 0) if m <= 16 else (0, 1)) or bool(plan.rows) != \
+                (m <= 16):
+            raise AssertionError(f"{name} at {(m, k, n)}: split/tiled "
+                                 f"launches rose by {rose}, plan {plan}")
+        if not torch.equal(out, plain(*args(qa, qw, sw))):
+            raise AssertionError(f"{name} differs from its plain version at "
+                                 f"{(m, k, n)}, offset {off}, fill {fill}")
+    for m, k, n in ((4, 768, 768), (16, 3072, 768), (64, 768, 768)):
+        ins = args(*draw(m, k, n, 0, None))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            wrapper(*ins)  # warm up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = wrapper(*ins)
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, plain(*ins)):
+            raise AssertionError(f"{name} at {(m, k, n)} differs from its "
+                                 "plain version after two graph replays")
+    return len(SPLIT_CASES) + 3
 
 
 def phase_imc_mac_dequant(torch, dev):
@@ -290,7 +380,12 @@ def phase_imc_mac_dequant(torch, dev):
         if not torch.equal(out, plain):
             raise AssertionError(f"imc_mac_dequant differs from its plain "
                                  f"version at {(m, k, n)}")
-    log(f"[2b] imc_mac_dequant bit-exact on {len(cases)} shapes")
+    sa = torch.tensor(0.0123, device=dev)
+    n_split = split_cases(torch, dev, "imc_mac_dequant", imc_mac_dequant,
+                          imc_mac_dequant_torch,
+                          lambda qa, qw, sw: (qa, qw, sa, sw))
+    log(f"[2b] imc_mac_dequant bit-exact on {len(cases)} shapes, then on "
+        f"{n_split} split-K cases, plans and graph replays")
     return worst
 
 
@@ -788,8 +883,12 @@ def kernel_wrappers():
             "rbl_decode_mac": rbl_decode_mac}
 
 
-# the attention wrappers also count each of their two kernels
-VARIANTS = {"flash_attn_tc": ("flash_attn", "tc_launches"),
+# the imc_mac and attention wrappers also count each of their two kernels
+VARIANTS = {"imc_mac_split": ("imc_mac", "split_launches"),
+            "imc_mac_tiled": ("imc_mac", "tiled_launches"),
+            "imc_mac_dequant_split": ("imc_mac_dequant", "split_launches"),
+            "imc_mac_dequant_tiled": ("imc_mac_dequant", "tiled_launches"),
+            "flash_attn_tc": ("flash_attn", "tc_launches"),
             "flash_attn_simt": ("flash_attn", "simt_launches"),
             "paged_attn_split": ("paged_attn", "split_launches"),
             "paged_attn_staged": ("paged_attn", "staged_launches")}
@@ -947,6 +1046,13 @@ def phase_server(torch, dev):
                              must=("imc_mac", "paged_attn"),
                              never=("bitplane_mac", "flash_attn",
                                     "bitplane_mac_noisy", "paged_attn_staged"))
+    # decode's 72 projections (4 slots) take the split-K kernel only
+    step = exact["per_decode_step"]
+    if step["imc_mac_split"] != 6 * cfg.n_layers or step["imc_mac_tiled"]:
+        raise AssertionError(f"exact: {step['imc_mac_split']} split-K and "
+                             f"{step['imc_mac_tiled']} tiled imc_mac launches "
+                             f"per decode step; expected {6 * cfg.n_layers} "
+                             "and 0")
     # its first prefill: card vs the plain path on the CPU
     with torch.inference_mode():
         padded = torch.zeros((1, 16), dtype=torch.int32)
@@ -1163,7 +1269,8 @@ def phase_macro(torch, dev):
         before = read_counts()
         ys[mode] = Fabric(FabricSpec(mode=mode), dev).matmul(x, w)
         torch.cuda.synchronize()
-        delta = {k: v - before[k] for k, v in read_counts().items()}
+        delta = {k: v - before[k] for k, v in read_counts().items()
+                 if k not in VARIANTS}
         if delta[kernel] != 1 or sum(delta.values()) != 1:
             raise AssertionError(f"Fabric({mode}).matmul launched {delta}; "
                                  f"expected {kernel} once and nothing else")
@@ -1178,6 +1285,14 @@ def phase_macro(torch, dev):
     if not torch.equal(y_dq, ys["exact"]):
         raise AssertionError("imc_mac_dequant differs from Fabric(exact)."
                              "matmul at 64x768x3072")
+    # and on four rows (decode's shape, the split-K kernel), with the scale
+    # of those rows
+    q4 = quantize(x[:4], 8, axis=None)
+    if not torch.equal(imc_mac_dequant(q4.q, qw.q, q4.scale, qw.scale),
+                       Fabric(FabricSpec(mode="exact"), dev).matmul(x[:4],
+                                                                    w)):
+        raise AssertionError("imc_mac_dequant differs from Fabric(exact)."
+                             "matmul at 4x768x3072")
     # the threshold re-tuning study (paper §IV-C) on the sign planes of
     # that projection: every reference moved up by delta volts
     ua = (qx.q.to(torch.int32) + 128) >> 7
@@ -1222,7 +1337,8 @@ def phase_macro(torch, dev):
                     xs, ws):
                 raise AssertionError("Fabric.cost differs card vs CPU")
     launches = read_counts()
-    for name in ("imc_mac_dequant", "rbl_decode_mac"):
+    for name in ("imc_mac_dequant", "rbl_decode_mac", "imc_mac_dequant_split",
+                 "imc_mac_dequant_tiled"):
         if launches[name] <= 0:
             raise AssertionError(f"the macro path launched {name} no time")
     wall = time.perf_counter() - t0
@@ -1276,11 +1392,30 @@ def time_imc_mac(torch, dev):
     nbytes = layers * sum(m * k + k * n + 4 * m * n for k, n in shapes)
     ops = layers * sum(2 * m * k * n for k, n in shapes)
     b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
+
+    # one bucket-64 prefill's projections: M = 64, the tiled kernel
+    mp = 64
+    ap = {k: torch.randint(-127, 128, (mp, k), generator=g, device=dev,
+                           dtype=torch.int8) for k in (768, 3072)}
+    pre = dict(ms=cuda_ms(torch, lambda: step(imc_mac, ap), iters=20),
+               graph_ms=graph_ms(torch, lambda: step(imc_mac, ap)),
+               plain_ms=cuda_ms(torch, lambda: step(imc_mac_torch, ap),
+                                iters=5),
+               library_ms=cuda_ms(torch, lambda: step(torch._int_mm, ap),
+                                  iters=20),
+               library_graph_ms=graph_ms(torch,
+                                         lambda: step(torch._int_mm, ap)))
+    pre["bound_ms"], pre["bound_by"] = bound(
+        layers * sum(mp * k + k * n + 4 * mp * n for k, n in shapes),
+        layers * sum(2 * mp * k * n for k, n in shapes), INT8_OPS_PER_S)
+    pre["shape"] = ("one bucket-64 prefill: 12 layers x {4x (768,768), "
+                    "(768,3072), (3072,768)} at M=64 (the tiled kernel); "
+                    "library: torch._int_mm")
     return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
                 library_graph_ms=lib_g, bound_ms=b_ms, bound_by=by,
                 shape="one decode step: 12 layers x {4x (768,768), "
                       "(768,3072), (3072,768)} at M=4; library: "
-                      "torch._int_mm with M padded to 32")
+                      "torch._int_mm with M padded to 32", prefill=pre)
 
 
 def time_imc_mac_dequant(torch, dev):
@@ -1712,6 +1847,8 @@ def main() -> int:
              path="exact", launches=exact["launches"]["imc_mac"],
              launches_per_decode_step=exact["per_decode_step"]["imc_mac"],
              launches_per_prefill=exact["per_prefill"]["imc_mac"],
+             launches_split=exact["launches"]["imc_mac_split"],
+             launches_tiled=exact["launches"]["imc_mac_tiled"],
              max_abs_err=mac_err),
         dict(name="paged_attn", replaces=f"{tpu}/paged_attn/paged_attn.py:131",
              path="exact", launches=exact["launches"]["paged_attn"],
@@ -1748,6 +1885,8 @@ def main() -> int:
              launches_per_decode_step=exact["per_decode_step"][
                  "imc_mac_dequant"],
              launches_per_prefill=exact["per_prefill"]["imc_mac_dequant"],
+             launches_split=macro["launches"]["imc_mac_dequant_split"],
+             launches_tiled=macro["launches"]["imc_mac_dequant_tiled"],
              max_abs_err=dq_err),
         dict(name="rbl_decode_mac",
              replaces=f"{tpu}/rbl_decode/rbl_decode.py:67",
@@ -1775,6 +1914,12 @@ def main() -> int:
             f"{lib}); {k['launches_per_decode_step']} "
             f"launches per decode step, {k['launches_per_prefill']} per "
             f"prefill, {k['launches']} in the {k['path']} run")
+    t = timed["imc_mac"]["prefill"]
+    log(f"[7] imc_mac, one bucket-64 prefill (M = 64, tiled kernel): "
+        f"{t['ms']:.4f} ms, {t['graph_ms']:.4f} ms from a graph (bound "
+        f"{t['bound_ms']:.4f} ms by {t['bound_by']}; plain {t['plain_ms']:.4f}"
+        f" ms; torch._int_mm {t['library_ms']:.4f} ms, "
+        f"{t['library_graph_ms']:.4f} ms from a graph)")
     t = timed["bitplane_mac_noisy"]
     for tag, what in (("", "calibrated mismatch"),
                       ("_both", "mismatch + comparator offset"),

@@ -9,19 +9,93 @@ a wrong dtype, device or shape); a CPU tensor takes the plain version
 (:func:`imc_mac_torch`, :func:`imc_mac_dequant_torch`).  No fallback hides a
 kernel.  ``imc_mac.launches`` and ``imc_mac_dequant.launches`` count kernel
 launches and nothing else.
+
+Each entry has two kernels, chosen by one rule (:func:`imc_mac_plan`, the
+twin of the C ``imc_mac_plan``): M <= ``SPLIT_MAX_M`` (16: decode with up to
+16 slots, the bucket-16 prefill) takes the split-K kernel, written for
+decode's few rows; M > 16 (the bucket-32/64 prefills) the tiled kernel.
+Each wrapper counts them apart, as ``split_launches`` and
+``tiled_launches``; ``launches`` is their total.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
+SPLIT_MAX_M = 16
+_TILE = 32           # the tiled kernel's output tile, both ways
+_SPLIT_WARPS = 4     # the split kernel's block: 4 warps on one column tile
+_SPLIT_BN = 256      # its columns, 8 per lane
+_SPLIT_GMAX = 4      # quads (4 K-rows) a lane prefetches, at most
+_SPLIT_TARGET = 264  # blocks a launch aims at: two per SM of an H100
+
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p,
                                                           ctypes.c_int]
-_DEQUANT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
-    [ctypes.c_void_p, ctypes.c_int]
+_DEQUANT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + \
+    [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
+_PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_FNS = {}
+
+
+class Plan(NamedTuple):
+    """A launch: ``rows`` a split-K block keeps (4 or 16; 0 for the tiled
+    kernel), its grid, the splits of K and the K-rows per split."""
+    rows: int
+    grid_x: int
+    grid_y: int
+    grid_z: int
+    splits: int
+    k_per_split: int
+
+
+@functools.lru_cache(maxsize=None)
+def imc_mac_plan(m: int, n: int, k: int) -> Plan:
+    """The launch of an ``m x k x n`` product, as ``csrc/imc_mac.cu``'s
+    ``imc_mac_plan`` computes it (``chip_smoke.py`` phase 2 holds the two
+    together).  The split kernel's K-slice is a whole number of quads for
+    each of its 4 warps, at most 4 quads a warp, and a launch aims at ~264
+    blocks; K = 0 is one split that adds nothing."""
+    if m > SPLIT_MAX_M:
+        return Plan(0, -(-n // _TILE), -(-m // _TILE), 1, 1, k)
+    tiles = -(-n // _SPLIT_BN)
+    quads = -(-k // 4)
+    g = -(-quads * tiles // (_SPLIT_WARPS * _SPLIT_TARGET))
+    g = min(max(g, 1), _SPLIT_GMAX)
+    kps = 4 * _SPLIT_WARPS * g
+    splits = -(-k // kps) if k > 0 else 1
+    return Plan(4 if m <= 4 else 16, tiles, splits, 1, splits, kps)
+
+
+def compiled_plan(m: int, n: int, k: int) -> Plan:
+    """The C ``imc_mac_plan`` of the built library (needs ``nvcc``)."""
+    out = (ctypes.c_int * 6)()
+    _entry("imc_mac_plan", _PLAN_ARGTYPES)(m, n, k, ctypes.addressof(out))
+    return Plan(*out)
+
+
+def _entry(name: str, argtypes):
+    """The C function ``name`` of ``csrc/imc_mac.cu``, its argument types
+    set once, at the library's first load."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(build.load("imc_mac"), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def _count(wrapper, plan: Plan) -> None:
+    wrapper.launches += 1
+    if plan.rows:
+        wrapper.split_launches += 1
+    else:
+        wrapper.tiled_launches += 1
 
 
 def _flatten(qa: torch.Tensor, qw: torch.Tensor):
@@ -29,7 +103,7 @@ def _flatten(qa: torch.Tensor, qw: torch.Tensor):
         raise ValueError(f"imc_mac: shapes {tuple(qa.shape)} x "
                          f"{tuple(qw.shape)} do not contract")
     batch = tuple(qa.shape[:-1])
-    return batch, qa.reshape(-1, qa.shape[-1])
+    return batch, qa.reshape(math.prod(batch), qa.shape[-1])  # K may be 0
 
 
 def imc_mac_torch(qa: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
@@ -67,17 +141,17 @@ def imc_mac(qa: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
     m, k = a2.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=torch.int32, device=a2.device)
-    lib = build.load("imc_mac")
-    fn = lib.imc_mac_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    if m == 0 or n == 0:
+        return out.reshape(*batch, n)
+    plan = imc_mac_plan(m, n, k)
     stream, dev = build.stream_and_device(a2)
-    build.check_launch("imc_mac", fn(a2.data_ptr(), b.data_ptr(),
-                                     out.data_ptr(), m, n, k, stream, dev))
-    imc_mac.launches += 1
+    build.check_launch("imc_mac", _entry("imc_mac_launch", _ARGTYPES)(
+        a2.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream, dev))
+    _count(imc_mac, plan)
     return out.reshape(*batch, n)
 
 
-imc_mac.launches = 0
+imc_mac.launches = imc_mac.split_launches = imc_mac.tiled_launches = 0
 
 
 # ------------------------------------------------------------- dequant
@@ -126,15 +200,24 @@ def imc_mac_dequant(qa: torch.Tensor, qw: torch.Tensor, scale_a,
     sw = scale_w.reshape(-1).contiguous()
     m, k = a2.shape
     out = torch.empty((m, n), dtype=torch.float32, device=a2.device)
-    lib = build.load("imc_mac")
-    fn = lib.imc_mac_dequant_launch
-    fn.argtypes, fn.restype = _DEQUANT_ARGTYPES, ctypes.c_int
+    if m == 0 or n == 0:
+        return out.reshape(*batch, n)
+    plan = imc_mac_plan(m, n, k)
+    # split K: the blocks' sums and one arrival counter per column tile,
+    # zeroed by the launcher on the launch's stream
+    scratch_ints = m * n + plan.grid_x if plan.rows and plan.splits > 1 \
+        else 0
+    scratch = torch.empty((scratch_ints,), dtype=torch.int32,
+                          device=a2.device)
     stream, dev = build.stream_and_device(a2)
-    build.check_launch("imc_mac_dequant", fn(
+    build.check_launch("imc_mac_dequant", _entry(
+        "imc_mac_dequant_launch", _DEQUANT_ARGTYPES)(
         a2.data_ptr(), b.data_ptr(), sa.data_ptr(), sw.data_ptr(),
-        out.data_ptr(), m, n, k, stream, dev))
-    imc_mac_dequant.launches += 1
+        out.data_ptr(), scratch.data_ptr() if scratch_ints else None,
+        scratch_ints, m, n, k, stream, dev))
+    _count(imc_mac_dequant, plan)
     return out.reshape(*batch, n)
 
 
-imc_mac_dequant.launches = 0
+imc_mac_dequant.launches = imc_mac_dequant.split_launches = \
+    imc_mac_dequant.tiled_launches = 0

@@ -18,7 +18,10 @@ bounds of ``tests/test_paged_attn.py`` (f32 5e-6, bf16 1.6e-2 = one output
 ulp, int8 1e-2), ``flash_attn`` at those of ``tests/test_flash_attn.py``
 (f32 3e-6, bf16 2e-2); for these two, each case asserts which kernel ran
 (the split or the staged paged kernel, the tensor-core or the CUDA-core flash
-kernel).  Every launch bumps the wrapper's counter exactly
+kernel; for ``imc_mac`` and ``imc_mac_dequant``, the split-K kernel at
+M <= 16 or the tiled one above, also on N not a multiple of 8, weights at a
+byte offset, K = 0 and -128 operands, and after two replays of a CUDA graph
+that captured one launch).  Every launch bumps the wrapper's counter exactly
 once; wrong dtypes and devices raise.  The ``Fabric`` facade's word logic,
 adder and matmul on the card equal the CPU's.
 """
@@ -75,6 +78,76 @@ def test_imc_mac_bit_exact(hopper, m, k, n):
     torch.cuda.synchronize()
     assert imc_mac.launches == before + 1
     assert torch.equal(out, imc_mac_torch(qa, qw))
+
+
+# (m, k, n, byte offset of the weights, fill of a and b or None)
+SPLIT_CASES = [(1, 4, 1, 0, None), (3, 100, 31, 0, None),
+               (4, 1030, 129, 0, None), (5, 3072, 768, 0, None),
+               (9, 0, 3072, 0, None), (16, 1030, 3072, 0, None),
+               (17, 1030, 129, 0, None), (16, 768, 768, 0, None),
+               (4, 768, 12, 0, None), (4, 0, 768, 0, None),
+               (4, 768, 768, 1, None), (4, 768, 768, 4, None),
+               (16, 768, 3072, 1, None), (17, 768, 768, 4, None),
+               (4, 768, 768, 0, (-128, -128)), (9, 1030, 129, 0, (-128, 127)),
+               (17, 768, 31, 0, (-128, -128))]
+
+
+def _split_operands(dev, m, k, n, off, fill):
+    g = torch.Generator(device=dev).manual_seed(m * k + n + off)
+    qa = torch.randint(-128, 128, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    flat = torch.randint(-128, 128, (k * n + off,), generator=g, device=dev,
+                         dtype=torch.int8)
+    qw = flat[off:].view(k, n)
+    if fill is not None:
+        qa.fill_(fill[0])
+        qw.fill_(fill[1])
+    sw = torch.rand((n,), generator=g, device=dev) * 0.099 + 0.001
+    return qa, qw, torch.tensor(0.0123, device=dev), sw
+
+
+def _entry(entry, qa, qw, sa, sw):
+    """(wrapper, plain version, their arguments) of one imc_mac entry."""
+    if entry == "imc_mac":
+        return imc_mac, imc_mac_torch, (qa, qw)
+    return imc_mac_dequant, imc_mac_dequant_torch, (qa, qw, sa, sw)
+
+
+@pytest.mark.parametrize("entry", ["imc_mac", "imc_mac_dequant"])
+@pytest.mark.parametrize("m,k,n,off,fill", SPLIT_CASES)
+def test_imc_mac_split_and_tiled_kernels(hopper, entry, m, k, n, off, fill):
+    qa, qw, sa, sw = _split_operands(hopper, m, k, n, off, fill)
+    wrapper, plain, args = _entry(entry, qa, qw, sa, sw)
+    before = (wrapper.launches, wrapper.split_launches,
+              wrapper.tiled_launches)
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    rose = (wrapper.launches - before[0], wrapper.split_launches - before[1],
+            wrapper.tiled_launches - before[2])
+    assert rose == ((1, 1, 0) if m <= 16 else (1, 0, 1))
+    assert torch.equal(out, plain(*args))
+
+
+@pytest.mark.parametrize("entry", ["imc_mac", "imc_mac_dequant"])
+@pytest.mark.parametrize("m,k,n", [(4, 768, 768), (16, 3072, 768),
+                                   (64, 768, 3072)])
+def test_imc_mac_graph_replays_stay_exact(hopper, entry, m, k, n):
+    """The split kernel's memset is a node of the graph: a replay must not
+    add onto the last one's sums."""
+    qa, qw, sa, sw = _split_operands(hopper, m, k, n, 0, None)
+    wrapper, plain, args = _entry(entry, qa, qw, sa, sw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        wrapper(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = wrapper(*args)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain(*args))
 
 
 def test_imc_mac_int32_case_and_operand_errors(hopper):
