@@ -12,18 +12,23 @@ result:
 2. ``imc_mac`` against its plain version on the card, bit for bit: the
    demonstrator's shapes M in {4, 16, 64} x (K, N) in {(768, 768),
    (768, 3072), (3072, 768)}, a ragged shape, and the deep-K int32 case;
-   then the split-K kernel's cases (M <= 16; M > 16 takes the tiled
+   then the split-K kernel's cases (M <= 16; M > 16 takes the tensor-core
    kernel, and which counter rose is asserted): M in {1, 3, 4, 5, 9, 16,
    17}, K in {0, 4, 100, 1030, 3072}, N in {1, 31, 129, 768, 3072}, N not a
    multiple of 8 or 4, weights as a view at byte offsets 1 and 4 (the
    narrower loads), operands at -128 and +-127; one launch of each kernel
    captured in a CUDA graph and replayed twice (the memset of the split
-   kernel's output is a node of the graph); and the C ``imc_mac_plan``
-   equal to ``ops.imc_mac_plan`` at every shape.
+   kernel's output is a node of the graph), also at (32, 768, 3072) and
+   (64, 3072, 768); then the tensor-core kernel's cases (M > 16: M in {17,
+   31, 32, 33, 48, 64, 65, 130, 512}, K in {0, 4, 140, 1030}, N in {12, 31,
+   129, 150}, byte offsets 1 and 4, the same fills, and the prefill
+   shapes); the C ``imc_mac_plan`` equal to ``ops.imc_mac_plan`` at every
+   shape; and the SASS of ``imc_mac_mma_kernel`` holds ``IMMA`` and no
+   ``IDP`` (dp4a), read with ``cuobjdump``.
    b. ``imc_mac_dequant`` (the same GEMM with the float32 dequant in its
       flush) against its plain version, bit for bit: the same demonstrator
       shapes, ragged 130x140x150, deep K 8x2048x8 at +-127, and the same
-      split-K cases, graph replays and plans.
+      split-K and tensor-core cases, graph replays and plans.
 3. ``paged_attn`` against its plain version on the card: f32, bf16 and int8
    pools, window 0 and 16, rep 1 (the demonstrator) and rep 8 (qwen2.5-3b)
    on the split kernel, hd 24 on the staged kernel (which kernel ran is
@@ -70,8 +75,9 @@ result:
    every kernel's launch counter is zeroed just before a path and read just
    after:
    a. ``exact`` fabric: ``imc_mac`` and ``paged_attn`` must launch;
-      ``imc_mac``'s split-K kernel 72 times per decode step and its tiled
-      kernel never there (the bucket-32/64 prefills take the tiled one).
+      ``imc_mac``'s split-K kernel 72 times per decode step and its M > 16
+      tensor-core kernel never there; a bucket-32 and a bucket-64 prefill
+      each launch the tensor-core kernel 72 times and the split-K one never.
       The first request's prefill logits on the card are held against the
       same weights run through the plain path on the CPU (bound: 2e-2 of
       the largest |logit|).
@@ -101,10 +107,10 @@ result:
       bitwise operators and to (a+b) mod 256 with its carry); under
       mismatch sigma 0.5 one seed replays and two differ (flip rate
       printed); ``Fabric.matmul`` at 64x768x3072 launches ``imc_mac``
-      (``exact``) or ``bitplane_mac`` (``sim``) once and nothing else;
-      ``imc_mac_dequant`` on its quantized operands equals
-      ``Fabric(exact).matmul`` bit for bit, there (tiled kernel) and on four
-      of its rows (split-K kernel); the threshold re-tuning study
+      (``exact``, its tensor-core kernel) or ``bitplane_mac`` (``sim``) once
+      and nothing else; ``imc_mac_dequant`` on its quantized operands equals
+      ``Fabric(exact).matmul`` bit for bit, there (tensor-core kernel) and on
+      four of its rows (split-K kernel); the threshold re-tuning study
       of §IV-C through ``rbl_decode_mac`` on the sign planes of that
       projection (share of wrong outputs per threshold shift); the STE
       gradients of ``Fabric.linear`` equal the CPU's within 1e-5 relative;
@@ -125,8 +131,12 @@ result:
    kernels are timed on one decode step's 72 projections at M = 4
    (``rbl_decode_mac`` as one plane pair of each); their library calls are
    ``torch._int_mm`` (plus the two scale multiplies for the dequant).
-   ``imc_mac`` adds a row for one bucket-64 prefill's 72 projections at
-   M = 64, on the tiled kernel, beside ``torch._int_mm``.
+   ``imc_mac`` adds rows for one bucket-64 and one bucket-32 prefill's 72
+   projections (M = 64 and 32, on the tensor-core kernel) beside
+   ``torch._int_mm``, and ``imc_mac_dequant`` one for a bucket-64 prefill;
+   the bucket-64 ``imc_mac`` row is also timed over one layer's weights
+   alone (7.1 MB, resident in L2), the kernels without device-memory
+   traffic.
    ``ms`` times the wrappers' launches as a caller makes them (a host-bound
    loop measures the host); ``graph_ms`` times the same launches replayed
    from one CUDA graph, the device's own time, and ``library_graph_ms`` does
@@ -162,6 +172,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -275,8 +286,10 @@ def phase_imc_mac(torch, dev):
         raise AssertionError("imc_mac int32 accumulation case failed")
     n_split = split_cases(torch, dev, "imc_mac", imc_mac, imc_mac_torch,
                           lambda qa, qw, sw: (qa, qw))
+    sass = mma_sass()
     log(f"[2] imc_mac bit-exact on {len(cases) + 1} shapes, then on "
-        f"{n_split} split-K cases, plans and graph replays")
+        f"{n_split} split-K and tensor-core cases, plans and graph replays; "
+        f"SASS of the M > 16 kernel: {sass}")
     return 0.0
 
 
@@ -293,14 +306,26 @@ SPLIT_CASES = ((1, 4, 1, 0, None), (3, 100, 31, 0, None),
                (9, 1030, 768, 4, None), (16, 768, 3072, 1, None),
                (4, 768, 768, 0, (-128, -128)), (16, 1030, 129, 0, (-128, 127)),
                (5, 3072, 31, 0, (127, -127)), (17, 768, 768, 0, (-128, -128)))
+# the tensor-core kernel's cases (M > 16), drawn from their own generator:
+# every M in {17, 31, 32, 33, 48, 64, 65, 130, 512}, K in {0, 4, 140, 1030}
+# and N in {12, 31, 129, 150} appears, and the prefill shapes
+MMA_CASES = ((17, 140, 12, 0, None), (31, 1030, 31, 0, None),
+             (32, 4, 129, 0, None), (33, 0, 150, 0, None),
+             (48, 1030, 129, 1, None), (64, 140, 150, 4, None),
+             (65, 4, 31, 1, None), (130, 140, 129, 0, None),
+             (512, 1030, 150, 0, None), (64, 768, 768, 1, None),
+             (32, 768, 3072, 4, None), (17, 3072, 768, 0, None),
+             (32, 768, 768, 0, None), (32, 3072, 768, 0, None),
+             (65, 768, 3072, 0, None), (33, 1030, 12, 4, (-128, -128)),
+             (64, 3072, 31, 0, (127, -127)), (130, 1030, 150, 1, (-128, 127)))
 
 
 def split_cases(torch, dev, name, wrapper, plain, args):
-    """Phase 2/2b's split-K checks for ``wrapper`` against ``plain``
-    (``args`` makes their arguments from the operands and scale_w):
-    bit-exact on SPLIT_CASES with the counter of the kernel the plan names,
-    C plan == Python plan, and one launch of each kernel captured in a CUDA
-    graph, replayed twice, still bit-exact."""
+    """Phase 2/2b's split-K and tensor-core checks for ``wrapper`` against
+    ``plain`` (``args`` makes their arguments from the operands and
+    scale_w): bit-exact on SPLIT_CASES and MMA_CASES with the counter of the
+    kernel the plan names, C plan == Python plan, and one launch of each
+    kernel captured in a CUDA graph, replayed twice, still bit-exact."""
     from repro_torch.kernels.imc_mac.ops import compiled_plan, imc_mac_plan
 
     g = torch.Generator(device=dev).manual_seed(31)
@@ -316,7 +341,7 @@ def split_cases(torch, dev, name, wrapper, plain, args):
         sw = torch.rand((n,), generator=g, device=dev) * 0.099 + 0.001
         return qa, qw, sw
 
-    for m, k, n, off, fill in SPLIT_CASES:
+    def check(m, k, n, off, fill):
         plan = imc_mac_plan(m, n, k)
         if compiled_plan(m, n, k) != plan:
             raise AssertionError(f"imc_mac_plan{(m, n, k)}: C "
@@ -334,7 +359,11 @@ def split_cases(torch, dev, name, wrapper, plain, args):
         if not torch.equal(out, plain(*args(qa, qw, sw))):
             raise AssertionError(f"{name} differs from its plain version at "
                                  f"{(m, k, n)}, offset {off}, fill {fill}")
-    for m, k, n in ((4, 768, 768), (16, 3072, 768), (64, 768, 768)):
+
+    for case in SPLIT_CASES:
+        check(*case)
+    for m, k, n in ((4, 768, 768), (16, 3072, 768), (64, 768, 768),
+                    (32, 768, 3072), (64, 3072, 768)):
         ins = args(*draw(m, k, n, 0, None))
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -350,7 +379,40 @@ def split_cases(torch, dev, name, wrapper, plain, args):
         if not torch.equal(out, plain(*ins)):
             raise AssertionError(f"{name} at {(m, k, n)} differs from its "
                                  "plain version after two graph replays")
-    return len(SPLIT_CASES) + 3
+    g = torch.Generator(device=dev).manual_seed(41)
+    for case in MMA_CASES:
+        check(*case)
+    return len(SPLIT_CASES) + 5 + len(MMA_CASES)
+
+
+def mma_sass():
+    """The SASS of ``imc_mac_mma_kernel`` (both instances), read with
+    ``cuobjdump --dump-sass``: its instructions and its ``IMMA`` and ``IDP``
+    (dp4a) among them.  It must run on the tensor cores and hold no dp4a."""
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "--dump-sass",
+                           str(build.library_path("imc_mac"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    found, func = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            func = head.group(1) if "imc_mac_mma_kernel" in line else None
+            if func:
+                found[func] = {"instructions": 0, "IMMA": 0, "IDP": 0}
+        elif func and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            found[func]["instructions"] += 1
+            for op in ("IMMA", "IDP"):
+                found[func][op] += bool(re.search(rf"\b{op}\b", line))
+    if len(found) != 2 or not all(c["IMMA"] > 0 and c["IDP"] == 0
+                                  for c in found.values()):
+        raise AssertionError(f"imc_mac_mma_kernel's SASS: {found}; expected "
+                             "two instances with IMMA and no IDP")
+    return {("dequant" if "ILb1E" in f else "int32"): c
+            for f, c in found.items()}
 
 
 def phase_imc_mac_dequant(torch, dev):
@@ -385,7 +447,7 @@ def phase_imc_mac_dequant(torch, dev):
                           imc_mac_dequant_torch,
                           lambda qa, qw, sw: (qa, qw, sa, sw))
     log(f"[2b] imc_mac_dequant bit-exact on {len(cases)} shapes, then on "
-        f"{n_split} split-K cases, plans and graph replays")
+        f"{n_split} split-K and tensor-core cases, plans and graph replays")
     return worst
 
 
@@ -910,13 +972,14 @@ def read_counts():
     return counts
 
 
-def first_prefill(torch, dev, params, cfg, prompt, noise_seed=None):
+def first_prefill(torch, dev, params, cfg, prompt, noise_seed=None,
+                  bucket=16):
     """The first request's bucketed prefill logits (f32, on the CPU)."""
     import numpy as np
 
     from repro_torch.models.model import prefill
 
-    padded = np.zeros((1, 16), np.int32)
+    padded = np.zeros((1, bucket), np.int32)
     padded[0, :len(prompt)] = prompt
     with torch.inference_mode():
         logits, _ = prefill(params, {"tokens": torch.from_numpy(padded).to(
@@ -1050,9 +1113,22 @@ def phase_server(torch, dev):
     step = exact["per_decode_step"]
     if step["imc_mac_split"] != 6 * cfg.n_layers or step["imc_mac_tiled"]:
         raise AssertionError(f"exact: {step['imc_mac_split']} split-K and "
-                             f"{step['imc_mac_tiled']} tiled imc_mac launches "
-                             f"per decode step; expected {6 * cfg.n_layers} "
-                             "and 0")
+                             f"{step['imc_mac_tiled']} tensor-core imc_mac "
+                             f"launches per decode step; expected "
+                             f"{6 * cfg.n_layers} and 0")
+    # a bucket-32 and a bucket-64 prefill take the tensor-core kernel only
+    for bucket, prompt in ((32, prompts[5][:20]), (64, prompts[2])):
+        zero_counts()
+        first_prefill(torch, dev, params, cfg, prompt, bucket=bucket)
+        counts = read_counts()
+        if counts["imc_mac_tiled"] != 6 * cfg.n_layers or \
+                counts["imc_mac_split"]:
+            raise AssertionError(
+                f"exact: a bucket-{bucket} prefill launched "
+                f"{counts['imc_mac_tiled']} tensor-core and "
+                f"{counts['imc_mac_split']} split-K imc_mac kernels; "
+                f"expected {6 * cfg.n_layers} and 0")
+        exact[f"per_prefill_{bucket}"] = counts
     # its first prefill: card vs the plain path on the CPU
     with torch.inference_mode():
         padded = torch.zeros((1, 16), dtype=torch.int32)
@@ -1274,6 +1350,10 @@ def phase_macro(torch, dev):
         if delta[kernel] != 1 or sum(delta.values()) != 1:
             raise AssertionError(f"Fabric({mode}).matmul launched {delta}; "
                                  f"expected {kernel} once and nothing else")
+        if mode == "exact" and \
+                read_counts()["imc_mac_tiled"] != before["imc_mac_tiled"] + 1:
+            raise AssertionError("Fabric(exact).matmul at 64x768x3072 did "
+                                 "not take the tensor-core imc_mac kernel")
     if not torch.equal(ys["exact"], ys["sim"]):
         raise AssertionError("noise-free sim matmul differs from exact")
     if not torch.equal(ys["exact"].cpu(), Fabric(FabricSpec(), cpu).matmul(
@@ -1281,7 +1361,11 @@ def phase_macro(torch, dev):
         raise AssertionError("exact matmul on the card differs from the CPU")
     # the fused-dequant GEMM computes the exact fabric's whole flush
     qx, qw = quantize(x, 8, axis=None), quantize(w, 8, axis=0)
+    before = read_counts()["imc_mac_dequant_tiled"]
     y_dq = imc_mac_dequant(qx.q, qw.q, qx.scale, qw.scale)
+    if read_counts()["imc_mac_dequant_tiled"] != before + 1:
+        raise AssertionError("imc_mac_dequant at 64x768x3072 did not take "
+                             "the tensor-core kernel")
     if not torch.equal(y_dq, ys["exact"]):
         raise AssertionError("imc_mac_dequant differs from Fabric(exact)."
                              "matmul at 64x768x3072")
@@ -1393,29 +1477,45 @@ def time_imc_mac(torch, dev):
     ops = layers * sum(2 * m * k * n for k, n in shapes)
     b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
 
-    # one bucket-64 prefill's projections: M = 64, the tiled kernel
-    mp = 64
-    ap = {k: torch.randint(-127, 128, (mp, k), generator=g, device=dev,
-                           dtype=torch.int8) for k in (768, 3072)}
-    pre = dict(ms=cuda_ms(torch, lambda: step(imc_mac, ap), iters=20),
-               graph_ms=graph_ms(torch, lambda: step(imc_mac, ap)),
-               plain_ms=cuda_ms(torch, lambda: step(imc_mac_torch, ap),
-                                iters=5),
-               library_ms=cuda_ms(torch, lambda: step(torch._int_mm, ap),
-                                  iters=20),
-               library_graph_ms=graph_ms(torch,
-                                         lambda: step(torch._int_mm, ap)))
-    pre["bound_ms"], pre["bound_by"] = bound(
-        layers * sum(mp * k + k * n + 4 * mp * n for k, n in shapes),
-        layers * sum(2 * mp * k * n for k, n in shapes), INT8_OPS_PER_S)
-    pre["shape"] = ("one bucket-64 prefill: 12 layers x {4x (768,768), "
-                    "(768,3072), (3072,768)} at M=64 (the tiled kernel); "
-                    "library: torch._int_mm")
+    # one bucket-64 and one bucket-32 prefill's projections: M = 64 and 32,
+    # the tensor-core kernel
+    rows, acts = {}, {}
+    for key, mp in (("prefill", 64), ("prefill32", 32)):
+        ap = acts[key] = {k: torch.randint(-127, 128, (mp, k), generator=g,
+                                           device=dev, dtype=torch.int8)
+                          for k in (768, 3072)}
+        rows[key] = prefill_row(
+            torch, lambda fn, act=ap: step(fn, act), imc_mac, imc_mac_torch,
+            torch._int_mm,
+            layers * sum(mp * k + k * n + 4 * mp * n for k, n in shapes),
+            layers * sum(2 * mp * k * n for k, n in shapes),
+            f"one bucket-{mp} prefill: 12 layers x {{4x (768,768), "
+            f"(768,3072), (3072,768)}} at M={mp} (the tensor-core kernel); "
+            "library: torch._int_mm")
+    # the bucket-64 launches over layer 0's weights alone (7.1 MB, resident
+    # in L2): the kernel's time without device-memory traffic
+    ap = acts["prefill"]
+    rows["prefill"]["l2_graph_ms"] = graph_ms(
+        torch, lambda: [imc_mac(ap[w.shape[0]], w) for _ in ws for w in ws[0]])
     return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
                 library_graph_ms=lib_g, bound_ms=b_ms, bound_by=by,
                 shape="one decode step: 12 layers x {4x (768,768), "
                       "(768,3072), (3072,768)} at M=4; library: "
-                      "torch._int_mm with M padded to 32", prefill=pre)
+                      "torch._int_mm with M padded to 32", **rows)
+
+
+def prefill_row(torch, run, fn, plain, library, nbytes, ops, shape):
+    """A prefill row of phase 7: ``run(f)`` makes the prefill's launches of
+    ``f``; eager and graph times of the kernel and the library, the plain
+    version's time, the bound from ``nbytes`` and ``ops`` (int8)."""
+    row = dict(ms=cuda_ms(torch, lambda: run(fn), iters=20),
+               graph_ms=graph_ms(torch, lambda: run(fn)),
+               plain_ms=cuda_ms(torch, lambda: run(plain), iters=5),
+               library_ms=cuda_ms(torch, lambda: run(library), iters=20),
+               library_graph_ms=graph_ms(torch, lambda: run(library)),
+               shape=shape)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, INT8_OPS_PER_S)
+    return row
 
 
 def time_imc_mac_dequant(torch, dev):
@@ -1454,12 +1554,25 @@ def time_imc_mac_dequant(torch, dev):
                           for k, n in shapes)
     ops = layers * sum(2 * m * k * n for k, n in shapes)
     b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
+    # one bucket-64 prefill's projections: M = 64, the tensor-core kernel
+    mp = 64
+    ap = {k: torch.randint(-127, 128, (mp, k), generator=g, device=dev,
+                           dtype=torch.int8) for k in (768, 3072)}
+    pre = prefill_row(
+        torch, lambda fn: step(fn, ap), imc_mac_dequant,
+        imc_mac_dequant_torch, library,
+        layers * sum(mp * k + k * n + 4 + 4 * n + 4 * mp * n
+                     for k, n in shapes),
+        layers * sum(2 * mp * k * n for k, n in shapes),
+        "one bucket-64 prefill: 12 layers x {4x (768,768), (768,3072), "
+        "(3072,768)} at M=64, f32 out (the tensor-core kernel); library: "
+        "three calls, torch._int_mm then * scale_a * scale_w")
     return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
                 library_graph_ms=lib_g, bound_ms=b_ms, bound_by=by,
                 shape="one decode step: 12 layers x {4x (768,768), "
                       "(768,3072), (3072,768)} at M=4, f32 out; library: "
                       "three calls, torch._int_mm (M padded to 32) then "
-                      "* scale_a * scale_w")
+                      "* scale_a * scale_w", prefill=pre)
 
 
 def time_rbl_decode_mac(torch, dev):
@@ -1914,12 +2027,16 @@ def main() -> int:
             f"{lib}); {k['launches_per_decode_step']} "
             f"launches per decode step, {k['launches_per_prefill']} per "
             f"prefill, {k['launches']} in the {k['path']} run")
-    t = timed["imc_mac"]["prefill"]
-    log(f"[7] imc_mac, one bucket-64 prefill (M = 64, tiled kernel): "
-        f"{t['ms']:.4f} ms, {t['graph_ms']:.4f} ms from a graph (bound "
-        f"{t['bound_ms']:.4f} ms by {t['bound_by']}; plain {t['plain_ms']:.4f}"
-        f" ms; torch._int_mm {t['library_ms']:.4f} ms, "
-        f"{t['library_graph_ms']:.4f} ms from a graph)")
+    for name, key in (("imc_mac", "prefill"), ("imc_mac", "prefill32"),
+                      ("imc_mac_dequant", "prefill")):
+        t = timed[name][key]
+        log(f"[7] {name}, {t['shape']}: {t['ms']:.4f} ms, "
+            f"{t['graph_ms']:.4f} ms from a graph (bound {t['bound_ms']:.4f} "
+            f"ms by {t['bound_by']}; plain {t['plain_ms']:.4f} ms; library "
+            f"{t['library_ms']:.4f} ms, {t['library_graph_ms']:.4f} ms from "
+            "a graph)" + ("" if "l2_graph_ms" not in t else
+                          f"; over one layer's weights, resident in L2, "
+                          f"{t['l2_graph_ms']:.4f} ms from a graph"))
     t = timed["bitplane_mac_noisy"]
     for tag, what in (("", "calibrated mismatch"),
                       ("_both", "mismatch + comparator offset"),

@@ -24,9 +24,10 @@
 //
 //   * M <= 16 (decode with up to 16 slots, the bucket-16 prefill):
 //     imc_mac_splitk_kernel<RM, DEQUANT>, written for these shapes.  The
-//     tiled kernel below took 1.26 us per serial K step at decode (1.6348 ms
-//     for one decode step's 72 launches, 1,296 serial 64-deep steps, from a
-//     CUDA graph on an H100 80GB HBM3 at 700 W): one round trip each, with
+//     first port's tiled kernel took 1.26 us per serial K step at decode
+//     (1.6348 ms for one decode step's 72 launches, 1,296 serial 64-deep
+//     steps, from a CUDA graph on an H100 80GB HBM3 at 700 W): one round
+//     trip each, with
 //     2 KB of weights in flight per block and 24 blocks for a 768-wide
 //     projection.  This kernel puts a launch's whole weight matrix in flight
 //     at once:
@@ -61,16 +62,45 @@
 //     version gives.
 //
 //   * M > 16 (the bucket-32/64 prefills, the macro path's 64x768x3072):
-//     imc_mac_kernel, the first port's tiled kernel: one 128-thread block per
-//     32x32 output tile, looping over K in 64-deep steps; each step stages
-//     A as int32 words of 4 consecutive k and B transposed into words of 4
-//     consecutive k per column in shared memory, then each thread runs
-//     __dp4a on a 2x4 register tile.  It has no split of K: its epilogue
-//     sees the whole sum.  Its time on the prefill shapes is the baseline
-//     for a tensor-core (int8 mma.sync or wgmma) kernel.
+//     imc_mac_mma_kernel<DEQUANT>, on the int8 tensor cores.  At M = 64 the
+//     work is 128 int8 operations per weight byte, still far below the
+//     ridge, so the weight bytes (85 MB per prefill) set the floor, and a
+//     768x768 launch holds only 590 KB of them: the whole launch has to be
+//     in flight at once, as at decode.  dp4a at M = 64 would take ~3x the
+//     bytes bound; mma.sync.m16n8k32.s8 keeps the arithmetic far below it.
+//       - a block keeps a 64 x 32 output tile (16 rows per warp, four 16x8
+//         fragments each) and one K-slice of it; the blocks that share a
+//         tile form one thread-block cluster of `splits` blocks (1, 2, 4 or
+//         8, the portable size), gridDim.y, so that a launch has about 132
+//         to 264 blocks where K allows;
+//       - each lane issues the weight loads of its share of the slice
+//         (16-byte loads of 4 K-rows x 16 columns; 4-byte or byte loads, in
+//         the same kernel, when N or the pointer is not aligned for them)
+//         before anything else, then A's tile goes to shared memory by
+//         16-byte cp.async (by words when K or the pointer do not allow
+//         it), then the lane turns each 4x4 byte block into per-column words
+//         of 4 consecutive k (eight prmt) and stores B transposed, K-
+//         contiguous per column: B^T[n][k], the layout of the .col B
+//         fragment.  Rows of 4 mod 8 words and an XOR of 16 words on the
+//         second 16 columns keep both the stores and the fragment reads free
+//         of bank conflicts.  One barrier, then the mma; a slice deeper than
+//         384 K-rows loops (no prefill shape does);
+//       - tiles past M, N or K read as zeros, masked while loading; the
+//         rows of a warp whose 16 rows all lie past M are neither staged
+//         nor multiplied;
+//       - the cluster's blocks write their int32 partial tiles to their own
+//         shared memory, meet at cluster.sync(), and each rank then sums its
+//         share of the tile's elements over every rank's partial through
+//         distributed shared memory (map_shared_rank), starting at its own
+//         rank, and stores it once: the int32 sum, or the float32 dequant
+//         of the whole sum.  No global scratch, no memset, no atomics:
+//         nothing for a graph replay to reset.  A second cluster.sync()
+//         keeps every partial alive until the cluster has read it.
+//     K = 0 gives a slice with no K-steps: zeros, as the plain version gives.
 //
 // Ragged edges are masked while loading (zeros beyond M, N or K), never
 // padded in device memory.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,114 +122,6 @@ __device__ __forceinline__ uint32_t load_word(const int8_t* __restrict__ row,
   return w;
 }
 
-// ------------------------------------------------ the tiled kernel (M > 16)
-constexpr int BM = 32;
-constexpr int BN = 32;
-constexpr int BK = 64;
-constexpr int KQ = BK / 4;  // int32 words of 4 k-values per tile row
-constexpr int THREADS = 128;
-
-// The two epilogues: store the int32 sum, or dequantize it to float32.
-struct StoreInt {
-  int32_t* __restrict__ c;
-  __device__ __forceinline__ void operator()(size_t i, int, int acc) const {
-    c[i] = acc;
-  }
-};
-
-struct Dequant {
-  float* __restrict__ c;
-  const float* __restrict__ scale_a;
-  const float* __restrict__ scale_w;
-  __device__ __forceinline__ void operator()(size_t i, int n, int acc) const {
-    c[i] = __fmul_rn(__fmul_rn(__int2float_rn(acc), *scale_a), scale_w[n]);
-  }
-};
-
-template <typename Epilogue>
-__global__ void __launch_bounds__(THREADS)
-imc_mac_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-               Epilogue epilogue, int M, int N, int K) {
-  __shared__ uint32_t as[BM][KQ + 1];  // +1 word: rows 2 apart hit distinct banks
-  __shared__ uint32_t bs[KQ][BN];
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int tx = tid % 8;   // output columns tx + 8*j, j < 4
-  const int ty = tid / 8;   // output rows 2*ty + i, i < 2
-  const bool a_vec = (K % 4 == 0) && ((reinterpret_cast<uintptr_t>(a) & 3) == 0);
-  const bool b_vec = (N % 4 == 0) && ((reinterpret_cast<uintptr_t>(b) & 3) == 0);
-
-  int acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // A tile: BM rows x KQ words, 4 words per thread.
-#pragma unroll
-    for (int r = 0; r < (BM * KQ) / THREADS; ++r) {
-      const int w = tid + r * THREADS;
-      const int row = w / KQ;
-      const int kq = w % KQ;
-      const int gm = m0 + row;
-      uint32_t word = 0;
-      if (gm < M) {
-        word = load_word(a + static_cast<size_t>(gm) * K, k0 + 4 * kq, K, a_vec);
-      }
-      as[row][kq] = word;
-    }
-    // B tile: a 4(k) x 4(n) byte block per thread, transposed so that each
-    // column's word holds 4 consecutive k.
-    {
-      const int kq = tid / (BN / 4);
-      const int nq = tid % (BN / 4);
-      const int gn = n0 + 4 * nq;
-      uint32_t rows[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int gk = k0 + 4 * kq + i;
-        rows[i] = (gk < K && gn < N)
-                      ? load_word(b + static_cast<size_t>(gk) * N, gn, N, b_vec)
-                      : 0u;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t col = 0;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) col |= ((rows[i] >> (8 * j)) & 0xffu) << (8 * i);
-        bs[kq][4 * nq + j] = col;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kq = 0; kq < KQ; ++kq) {
-      const int a0 = static_cast<int>(as[2 * ty][kq]);
-      const int a1 = static_cast<int>(as[2 * ty + 1][kq]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int bw = static_cast<int>(bs[kq][tx + 8 * j]);
-        acc[0][j] = __dp4a(a0, bw, acc[0][j]);
-        acc[1][j] = __dp4a(a1, bw, acc[1][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int gm = m0 + 2 * ty + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 8 * j;
-      if (gn < N) epilogue(static_cast<size_t>(gm) * N + gn, gn, acc[i][j]);
-    }
-  }
-}
-
 // -------------------------------------------- the split-K kernel (M <= 16)
 constexpr int SPLIT_MAX_M = 16;
 constexpr int SK_WARPS = 4;
@@ -210,16 +132,44 @@ constexpr int SK_GMAX = 4;               // quads (4 K-rows) a lane prefetches, 
 constexpr int SK_TARGET = 264;           // blocks a launch aims at: two per SM
 constexpr int SK_SKEW = SK_BN + SK_BN / 32;  // a row of the shared sums
 
+// ------------------------------------ the tensor-core kernel's plan (M > 16)
+constexpr int TC_BM = 64;             // output rows a block keeps: 16 a warp
+constexpr int TC_BN = 32;             // output columns: four 8-column fragments
+constexpr int TC_WARPS = 4;
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_KC = 384;            // K-rows staged at once (3 x 128)
+constexpr int TC_SW = TC_KC / 4 + 4;  // words per staged row: 4 mod 8
+constexpr int TC_RED = TC_BN + 8;     // ints per partial-tile row: 8 mod 32
+constexpr int TC_PAIRS =              // (quad, 16 columns) pairs per lane
+    (2 * (TC_KC / 4) + TC_THREADS - 1) / TC_THREADS;
+constexpr int TC_MAX_SPLITS = 8;      // the portable cluster size
+constexpr int TC_TARGET = 264;        // blocks a launch aims at, at most
+
 struct Plan {
-  int rows;    // output rows a block keeps (4 or 16); 0: the tiled kernel
+  int rows;    // output rows a split-K block keeps (4 or 16); 0: the M > 16
+               // tensor-core kernel
   int gx, gy, gz;
-  int splits;  // blocks that share one output tile (gridDim.y)
-  int kps;     // K-rows per split (a multiple of 4 * SK_WARPS)
+  int splits;  // blocks that share one output tile (gridDim.y; for M > 16
+               // the cluster size)
+  int kps;     // K-rows per split (a multiple of 4 * SK_WARPS; of 32 for
+               // M > 16)
 };
 
 Plan make_plan(int M, int N, int K) {
   if (M > SPLIT_MAX_M) {
-    return {0, (N + BN - 1) / BN, (M + BM - 1) / BM, 1, 1, K};
+    // 64 x 32 tiles; double the splits (a power of two, at most 8) while the
+    // launch stays within TC_TARGET blocks and K has a 32-deep step for each
+    // split (a last split may still find its slice past K: it adds zeros)
+    const int gx = (N + TC_BN - 1) / TC_BN;
+    const int gz = (M + TC_BM - 1) / TC_BM;
+    const long long tiles = static_cast<long long>(gx) * gz;
+    const int steps = (K + 31) / 32;
+    int splits = 1;
+    while (splits < TC_MAX_SPLITS && tiles * splits * 2 <= TC_TARGET &&
+           steps >= 2 * splits) {
+      splits *= 2;
+    }
+    return {0, gx, splits, gz, splits, 32 * ((steps + splits - 1) / splits)};
   }
   const int tiles = (N + SK_BN - 1) / SK_BN;
   const long long quads = (static_cast<long long>(K) + 3) / 4;
@@ -383,6 +333,239 @@ imc_mac_splitk_kernel(const int8_t* __restrict__ a,
   }
 }
 
+// ------------------------------------------ the tensor-core kernel (M > 16)
+// Sixteen bytes row[col..col+15] packed little-endian, zeros past len; width
+// is the widest load that N and the pointer allow (16, 4 or 1 bytes).
+__device__ __forceinline__ uint4 load16(const int8_t* __restrict__ row,
+                                        int col, int len, int width) {
+  if (width == 16) {
+    return col < len ? __ldg(reinterpret_cast<const uint4*>(row + col))
+                     : make_uint4(0u, 0u, 0u, 0u);
+  }
+  const bool vec = width == 4;
+  return make_uint4(load_word(row, col, len, vec),
+                    load_word(row, col + 4, len, vec),
+                    load_word(row, col + 8, len, vec),
+                    load_word(row, col + 12, len, vec));
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// d += a (16x32, row) x b (32x8, col), signed int8 in, int32 out.  Fragments
+// (PTX ISA, m16n8k32 .s8; g = lane/4, t = lane%4): a0 row g, k 4t..4t+3; a1
+// row g+8; a2 row g, k 16+4t..; a3 row g+8, k 16+4t..; b0 column g, k
+// 4t..4t+3; b1 column g, k 16+4t..; d0,d1 row g, columns 2t, 2t+1; d2,d3
+// row g+8.
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared, zero-filled when `valid` is false.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+struct TcTiles {
+  uint32_t a[TC_BM][TC_SW];  // A's rows: word w holds k = 4w..4w+3
+  uint32_t b[TC_BN][TC_SW];  // B^T: column n, word w ^ (16 * (n / 16 % 2))
+};
+
+union TcSmem {
+  TcTiles in;
+  int red[TC_BM][TC_RED];    // the block's int32 partial tile
+};
+
+// grid (ceil(N/32), splits, ceil(M/64)), clusters of (1, splits, 1); c: the
+// int32 output (imc_mac) or out: the float32 one (dequant).  a16: A may be
+// staged by 16-byte cp.async; width: B's load width; vec_out: 16-byte stores.
+template <bool DEQUANT>
+__global__ void __launch_bounds__(TC_THREADS)
+imc_mac_mma_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+                   int32_t* __restrict__ c, float* __restrict__ out,
+                   const float* __restrict__ scale_a,
+                   const float* __restrict__ scale_w, int M, int N, int K,
+                   int kps, int a16, int width, int vec_out) {
+  __shared__ __align__(16) TcSmem sm;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n0 = blockIdx.x * TC_BN;
+  const int m0 = blockIdx.z * TC_BM;
+  const int splits = gridDim.y;
+  const int k_begin = blockIdx.y * kps;
+  const int k_end = min(K, k_begin + kps);
+  const int live = min(TC_BM, M - m0);     // rows of the tile below M
+  const int live16 = (live + 15) & ~15;    // rows the live warps read
+  const bool warp_live = 16 * warp < live;
+  const bool a4 = (K % 4 == 0) && ((reinterpret_cast<uintptr_t>(a) & 3) == 0);
+
+  int acc[4][4];
+#pragma unroll
+  for (int f = 0; f < 4; ++f)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[f][i] = 0;
+
+  for (int kc0 = k_begin; kc0 < k_end; kc0 += TC_KC) {
+    const int steps = (min(TC_KC, k_end - kc0) + 31) / 32;  // 32-deep K-steps
+    const int pairs = 2 * 8 * steps;  // (quad q, 16 columns c) as p = 2q + c
+
+    // 1. every weight load of the lane's pairs, before anything else
+    uint4 w[TC_PAIRS][4];
+#pragma unroll
+    for (int j = 0; j < TC_PAIRS; ++j) {
+      const int p = tid + j * TC_THREADS;
+      const int q = p >> 1;
+      const int col = n0 + 16 * (p & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = kc0 + 4 * q + i;
+        w[j][i] = (p < pairs && k < K)
+                      ? load16(b + static_cast<size_t>(k) * N, col, N, width)
+                      : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+
+    // 2. A's tile (rows below live16; k past K and rows past M as zeros)
+    const int a_words = 8 * steps;  // per row
+    if (a16) {
+      const int units = live16 * (a_words / 4);
+      for (int u = tid; u < units; u += TC_THREADS) {
+        const int r = u / (a_words / 4);
+        const int v = u % (a_words / 4);
+        const int k = kc0 + 16 * v;
+        const bool valid = m0 + r < M && k < K;
+        cp_async16(&sm.in.a[r][4 * v],
+                   valid ? a + static_cast<size_t>(m0 + r) * K + k : a, valid);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    } else {
+      const int units = live16 * a_words;
+      for (int u = tid; u < units; u += TC_THREADS) {
+        const int r = u / a_words;
+        const int v = u % a_words;
+        sm.in.a[r][v] = m0 + r < M
+                            ? load_word(a + static_cast<size_t>(m0 + r) * K,
+                                        kc0 + 4 * v, K, a4)
+                            : 0u;
+      }
+    }
+
+    // 3. B transposed into K-contiguous columns
+#pragma unroll
+    for (int j = 0; j < TC_PAIRS; ++j) {
+      const int p = tid + j * TC_THREADS;
+      if (p < pairs) {
+        const int q = p >> 1;
+        const int c16 = 16 * (p & 1);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          uint32_t cw[4];
+          byte_transpose(word(w[j][0], x), word(w[j][1], x), word(w[j][2], x),
+                         word(w[j][3], x), cw);
+#pragma unroll
+          for (int y = 0; y < 4; ++y) sm.in.b[c16 + 4 * x + y][q ^ c16] = cw[y];
+        }
+      }
+    }
+    if (a16) asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();
+
+    // 4. the products: each live warp its 16 rows x 32 columns
+    if (warp_live) {
+      const uint32_t* ar0 = sm.in.a[16 * warp + g];
+      const uint32_t* ar1 = sm.in.a[16 * warp + g + 8];
+      for (int s = 0; s < steps; ++s) {
+        const uint32_t af[4] = {ar0[8 * s + t], ar1[8 * s + t],
+                                ar0[8 * s + 4 + t], ar1[8 * s + 4 + t]};
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const uint32_t* br = sm.in.b[8 * f + g];
+          const int sw = 16 * (f >> 1);
+          mma_s8(acc[f], af, br[(8 * s + t) ^ sw], br[(8 * s + 4 + t) ^ sw]);
+        }
+      }
+    }
+    __syncthreads();  // the tiles are free for the next chunk or the partial
+  }
+
+  // 5. the partial tile in this block's shared memory
+  if (warp_live) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      *reinterpret_cast<int2*>(&sm.red[16 * warp + g][8 * f + 2 * t]) =
+          make_int2(acc[f][0], acc[f][1]);
+      *reinterpret_cast<int2*>(&sm.red[16 * warp + g + 8][8 * f + 2 * t]) =
+          make_int2(acc[f][2], acc[f][3]);
+    }
+  }
+  cluster.sync();
+
+  // 6. each rank sums its share of the tile over the cluster, then flushes
+  const int rank = static_cast<int>(cluster.block_rank());
+  const float sa = DEQUANT ? __ldg(scale_a) : 0.f;
+  for (int i = rank * TC_THREADS + tid; i < live * (TC_BN / 4);
+       i += splits * TC_THREADS) {
+    const int r = i / (TC_BN / 4);
+    const int c4 = 4 * (i % (TC_BN / 4));
+    int4 v[TC_MAX_SPLITS];  // every rank's partial in flight at once
+#pragma unroll
+    for (int j = 0; j < TC_MAX_SPLITS; ++j) {
+      if (j < splits) {
+        const int src = rank + j < splits ? rank + j : rank + j - splits;
+        v[j] = *cluster.map_shared_rank(
+            reinterpret_cast<int4*>(&sm.red[r][c4]), src);
+      }
+    }
+    int4 s = v[0];
+#pragma unroll
+    for (int j = 1; j < TC_MAX_SPLITS; ++j) {
+      if (j < splits) {
+        s.x += v[j].x;
+        s.y += v[j].y;
+        s.z += v[j].z;
+        s.w += v[j].w;
+      }
+    }
+    const int n = n0 + c4;
+    if (n >= N) continue;
+    const size_t o = static_cast<size_t>(m0 + r) * N + n;
+    const int sv[4] = {s.x, s.y, s.z, s.w};
+    if (DEQUANT) {
+      float f[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        f[e] = n + e < N ? dequant(sv[e], sa, __ldg(scale_w + n + e)) : 0.f;
+      }
+      if (vec_out) {
+        *reinterpret_cast<float4*>(out + o) =
+            make_float4(f[0], f[1], f[2], f[3]);
+      } else {
+        for (int e = 0; e < 4 && n + e < N; ++e) out[o + e] = f[e];
+      }
+    } else if (vec_out) {
+      *reinterpret_cast<int4*>(c + o) = s;
+    } else {
+      for (int e = 0; e < 4 && n + e < N; ++e) c[o + e] = sv[e];
+    }
+  }
+  cluster.sync();  // every partial stays alive until the cluster has read it
+}
+
 int b_width(const void* b, int N) {
   const uintptr_t p = reinterpret_cast<uintptr_t>(b);
   if (N % 8 == 0 && p % 8 == 0) return 8;
@@ -408,21 +591,44 @@ int launch_split(const Plan& p, const void* a, const void* b, int32_t* sums,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Epilogue>
-int launch_tiled(const Plan& p, const void* a, const void* b, Epilogue epilogue,
-                 int M, int N, int K, cudaStream_t stream) {
-  const dim3 grid(p.gx, p.gy, p.gz);
-  imc_mac_kernel<Epilogue><<<grid, THREADS, 0, stream>>>(
-      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), epilogue,
-      M, N, K);
+template <bool DEQUANT>
+int launch_mma(const Plan& p, const void* a, const void* b, int32_t* c,
+               float* out, const float* scale_a, const float* scale_w, int M,
+               int N, int K, cudaStream_t stream) {
+  if (p.gz > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = p.splits;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.gx, p.gy, p.gz);
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
+  const uintptr_t pc = DEQUANT ? reinterpret_cast<uintptr_t>(out)
+                               : reinterpret_cast<uintptr_t>(c);
+  const uintptr_t pb = reinterpret_cast<uintptr_t>(b);
+  const int a16 = K % 16 == 0 && pa % 16 == 0;
+  const int width = N % 16 == 0 && pb % 16 == 0 ? 16
+                    : N % 4 == 0 && pb % 4 == 0 ? 4 : 1;
+  const int vec_out = N % 4 == 0 && pc % 16 == 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, imc_mac_mma_kernel<DEQUANT>, static_cast<const int8_t*>(a),
+      static_cast<const int8_t*>(b), c, out, scale_a, scale_w, M, N, K, p.kps,
+      a16, width, vec_out);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // The launch plan for an M x K x N product: out[0] the rows a split-K block
-// keeps (4 or 16; 0 means the tiled kernel), out[1..3] the grid, out[4] the
-// splits of K, out[5] the K-rows per split.  Returns 0.
+// keeps (4 or 16; 0 means the M > 16 tensor-core kernel), out[1..3] the grid,
+// out[4] the splits of K (for M > 16 the cluster size), out[5] the K-rows per
+// split.  Returns 0.
 extern "C" int imc_mac_plan(int M, int N, int K, int* out) {
   const Plan p = make_plan(M, N, K);
   const int v[6] = {p.rows, p.gx, p.gy, p.gz, p.splits, p.kps};
@@ -440,7 +646,10 @@ extern "C" int imc_mac_launch(const void* a, const void* b, void* c, int M,
   const auto s = static_cast<cudaStream_t>(stream);
   const Plan p = make_plan(M, N, K);
   auto* c32 = static_cast<int32_t*>(c);
-  if (p.rows == 0) return launch_tiled(p, a, b, StoreInt{c32}, M, N, K, s);
+  if (p.rows == 0) {
+    return launch_mma<false>(p, a, b, c32, nullptr, nullptr, nullptr, M, N, K,
+                             s);
+  }
   if (p.splits > 1) {
     err = cudaMemsetAsync(c, 0, sizeof(int32_t) * M * N, s);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -451,7 +660,8 @@ extern "C" int imc_mac_launch(const void* a, const void* b, void* c, int M,
 
 // As imc_mac_launch, plus scale_a: float32[1] and scale_w: float32[N] in
 // device memory; c: float32[M,N].  scratch: int32, at least M*N + plan
-// grid x values when the plan splits K (zeroed here), else unused.
+// grid x values when a split-K plan (M <= 16) splits K (zeroed here), else
+// unused.
 extern "C" int imc_mac_dequant_launch(const void* a, const void* b,
                                       const void* scale_a, const void* scale_w,
                                       void* c, void* scratch,
@@ -465,7 +675,9 @@ extern "C" int imc_mac_dequant_launch(const void* a, const void* b,
   const auto* sa = static_cast<const float*>(scale_a);
   const auto* sw = static_cast<const float*>(scale_w);
   auto* out = static_cast<float*>(c);
-  if (p.rows == 0) return launch_tiled(p, a, b, Dequant{out, sa, sw}, M, N, K, s);
+  if (p.rows == 0) {
+    return launch_mma<true>(p, a, b, nullptr, out, sa, sw, M, N, K, s);
+  }
   if (p.splits == 1) {
     return launch_split<true>(p, a, b, nullptr, out, sa, sw, nullptr, M, N, K,
                               s);

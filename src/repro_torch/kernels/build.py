@@ -71,6 +71,11 @@ def _target(name: str) -> Tuple[Path, Path]:
     return src, build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library is (or will be) built."""
+    return _target(name)[1]
+
+
 def _start(name: str):
     """Start nvcc for ``name`` unless its library exists; returns
     (library path, Popen or None, temp output path or None)."""

@@ -13,9 +13,10 @@ launches and nothing else.
 Each entry has two kernels, chosen by one rule (:func:`imc_mac_plan`, the
 twin of the C ``imc_mac_plan``): M <= ``SPLIT_MAX_M`` (16: decode with up to
 16 slots, the bucket-16 prefill) takes the split-K kernel, written for
-decode's few rows; M > 16 (the bucket-32/64 prefills) the tiled kernel.
-Each wrapper counts them apart, as ``split_launches`` and
-``tiled_launches``; ``launches`` is their total.
+decode's few rows; M > 16 (the bucket-32/64 prefills) the tensor-core kernel
+(int8 ``mma.sync``, K split over a thread-block cluster).  Each wrapper
+counts them apart, as ``split_launches`` and ``tiled_launches`` (the M > 16
+kernel); ``launches`` is their total.
 """
 from __future__ import annotations
 
@@ -29,7 +30,10 @@ import torch
 from repro_torch.kernels import build
 
 SPLIT_MAX_M = 16
-_TILE = 32           # the tiled kernel's output tile, both ways
+_MMA_BM = 64         # the M > 16 kernel's output tile: 64 rows ...
+_MMA_BN = 32         # ... by 32 columns
+_MMA_MAX_SPLITS = 8  # its cluster size, at most (the portable size)
+_MMA_TARGET = 264    # blocks a launch aims at, at most
 _SPLIT_WARPS = 4     # the split kernel's block: 4 warps on one column tile
 _SPLIT_BN = 256      # its columns, 8 per lane
 _SPLIT_GMAX = 4      # quads (4 K-rows) a lane prefetches, at most
@@ -44,8 +48,9 @@ _FNS = {}
 
 
 class Plan(NamedTuple):
-    """A launch: ``rows`` a split-K block keeps (4 or 16; 0 for the tiled
-    kernel), its grid, the splits of K and the K-rows per split."""
+    """A launch: ``rows`` a split-K block keeps (4 or 16; 0 for the M > 16
+    tensor-core kernel), its grid, the splits of K (for M > 16 the cluster
+    size, ``grid_y``) and the K-rows per split."""
     rows: int
     grid_x: int
     grid_y: int
@@ -60,9 +65,18 @@ def imc_mac_plan(m: int, n: int, k: int) -> Plan:
     ``imc_mac_plan`` computes it (``chip_smoke.py`` phase 2 holds the two
     together).  The split kernel's K-slice is a whole number of quads for
     each of its 4 warps, at most 4 quads a warp, and a launch aims at ~264
-    blocks; K = 0 is one split that adds nothing."""
+    blocks; K = 0 is one split that adds nothing.  Above M = 16: 64 x 32
+    output tiles (``grid_x`` over N, ``grid_z`` over M) and the splits
+    doubled, up to 8, while the launch stays within ~264 blocks and K has a
+    32-deep step for each split; each split takes a whole number of steps."""
     if m > SPLIT_MAX_M:
-        return Plan(0, -(-n // _TILE), -(-m // _TILE), 1, 1, k)
+        gx, gz = -(-n // _MMA_BN), -(-m // _MMA_BM)
+        steps = -(-k // 32)
+        splits = 1
+        while (splits < _MMA_MAX_SPLITS and gx * gz * splits * 2 <= _MMA_TARGET
+               and steps >= 2 * splits):
+            splits *= 2
+        return Plan(0, gx, splits, gz, splits, 32 * -(-steps // splits))
     tiles = -(-n // _SPLIT_BN)
     quads = -(-k // 4)
     g = -(-quads * tiles // (_SPLIT_WARPS * _SPLIT_TARGET))

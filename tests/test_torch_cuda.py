@@ -19,11 +19,11 @@ ulp, int8 1e-2), ``flash_attn`` at those of ``tests/test_flash_attn.py``
 (f32 3e-6, bf16 2e-2); for these two, each case asserts which kernel ran
 (the split or the staged paged kernel, the tensor-core or the CUDA-core flash
 kernel; for ``imc_mac`` and ``imc_mac_dequant``, the split-K kernel at
-M <= 16 or the tiled one above, also on N not a multiple of 8, weights at a
-byte offset, K = 0 and -128 operands, and after two replays of a CUDA graph
-that captured one launch).  Every launch bumps the wrapper's counter exactly
-once; wrong dtypes and devices raise.  The ``Fabric`` facade's word logic,
-adder and matmul on the card equal the CPU's.
+M <= 16 or the tensor-core one above, also on N not a multiple of 8,
+weights at a byte offset, K = 0 and -128 operands, and after two replays of
+a CUDA graph that captured one launch).  Every launch bumps the wrapper's
+counter exactly once; wrong dtypes and devices raise.  The ``Fabric``
+facade's word logic, adder and matmul on the card equal the CPU's.
 """
 import numpy as np
 import pytest
@@ -128,12 +128,43 @@ def test_imc_mac_split_and_tiled_kernels(hopper, entry, m, k, n, off, fill):
     assert torch.equal(out, plain(*args))
 
 
+# the tensor-core kernel (M > 16): every M in {17, 31, 32, 33, 48, 64, 65,
+# 130, 512}, K in {0, 4, 140, 1030} and N in {12, 31, 129, 150} appears
+MMA_CASES = [(17, 140, 12, 0, None), (31, 1030, 31, 0, None),
+             (32, 4, 129, 0, None), (33, 0, 150, 0, None),
+             (48, 1030, 129, 1, None), (64, 140, 150, 4, None),
+             (65, 4, 31, 1, None), (130, 140, 129, 0, None),
+             (512, 1030, 150, 0, None), (64, 768, 768, 1, None),
+             (32, 768, 3072, 4, None), (33, 1030, 12, 4, (-128, -128)),
+             (64, 140, 31, 0, (127, -127)), (130, 1030, 150, 1, (-128, 127)),
+             (48, 4, 129, 4, (-128, 127)), (65, 140, 12, 0, (127, -127))]
+
+
+@pytest.mark.parametrize("entry", ["imc_mac", "imc_mac_dequant"])
+@pytest.mark.parametrize("m,k,n,off,fill", MMA_CASES)
+def test_imc_mac_tensor_core_kernel(hopper, entry, m, k, n, off, fill):
+    qa, qw, sa, sw = _split_operands(hopper, m, k, n, off, fill)
+    wrapper, plain, args = _entry(entry, qa, qw, sa, sw)
+    before = (wrapper.launches, wrapper.split_launches,
+              wrapper.tiled_launches)
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    rose = (wrapper.launches - before[0], wrapper.split_launches - before[1],
+            wrapper.tiled_launches - before[2])
+    assert rose == (1, 0, 1)
+    assert torch.equal(out, plain(*args))
+    if fill is not None and entry == "imc_mac":
+        assert bool((out == fill[0] * fill[1] * k).all())
+
+
 @pytest.mark.parametrize("entry", ["imc_mac", "imc_mac_dequant"])
 @pytest.mark.parametrize("m,k,n", [(4, 768, 768), (16, 3072, 768),
-                                   (64, 768, 3072)])
+                                   (64, 768, 3072), (32, 768, 3072),
+                                   (64, 3072, 768)])
 def test_imc_mac_graph_replays_stay_exact(hopper, entry, m, k, n):
     """The split kernel's memset is a node of the graph: a replay must not
-    add onto the last one's sums."""
+    add onto the last one's sums; the tensor-core kernel keeps no state
+    between launches."""
     qa, qw, sa, sw = _split_operands(hopper, m, k, n, 0, None)
     wrapper, plain, args = _entry(entry, qa, qw, sa, sw)
     side = torch.cuda.Stream()

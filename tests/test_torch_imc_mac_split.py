@@ -8,7 +8,7 @@ checks, step for step, what it computes:
   * the plan (``ops.imc_mac_plan``, the twin of the C ``imc_mac_plan``):
     K-slices of whole quads (4 K-rows) for each of the block's 4 warps, at
     most 4 quads a warp, that cover every K-row exactly once, also at ragged
-    K; one split at K = 0; the tiled kernel above M = 16;
+    K; one split at K = 0; the tensor-core kernel above M = 16;
   * each lane's 8-byte loads of 4 K-rows split into two 4 x 4 byte blocks,
     turned by eight ``prmt`` (``__byte_perm``) into per-column words of 4
     consecutive k, and one signed ``dp4a`` per row and column with the row's
@@ -180,8 +180,8 @@ def test_plan_covers_every_k_row_once(m, k, n):
 def test_plan_dispatch_rule_and_decode_grids():
     assert SPLIT_MAX_M == 16
     assert imc_mac_plan(17, 768, 768).rows == 0
-    assert imc_mac_plan(64, 3072, 768)[:5] == (0, 96, 2, 1, 1)
-    # decode (M = 4): well over the tiled kernel's 24 blocks, one wave
+    assert imc_mac_plan(64, 3072, 768)[:5] == (0, 96, 2, 1, 2)
+    # decode (M = 4): 144-192 blocks, one wave
     for k, n, blocks in ((768, 768, 144), (768, 3072, 192),
                          (3072, 768, 192)):
         plan = imc_mac_plan(4, n, k)
