@@ -62,8 +62,16 @@ result:
    c. ``rbl_decode_mac`` (one {0,1} plane pair, decode against live
       thresholds) against its plain version, bit for bit, under calibrated
       and detuned thresholds: one plane pair of each demonstrator projection
-      at M in {4, 64}, ragged 50x70x30, rows 16 at 24x160x8 and 64x768x768.
-      Calibrated, it equals the integer product; detuned, it differs.
+      at M in {4, 64}, ragged 50x70x30, rows 16 at 24x160x8 and 64x768x768;
+      then its edge cases, each call one launch, under calibrated, detuned
+      and random thresholds: rows in {2, 3, 7, 8, 9, 16, 31, 32}, M in {1,
+      4, 5, 16, 17, 64, 200}, N in {1, 31, 129, 3072}, K in {3, 8, 100,
+      1030, 3072}, operands as views at byte offsets 1 and 4 holding bytes
+      0-255 (the plain version gets ``x & 1``).  Calibrated, it equals the
+      integer product; detuned, it differs.  The C ``rbl_decode_mac_plan``
+      equals ``ops.rbl_decode_mac_plan`` at every edge case; one launch
+      captured in a CUDA graph and replayed twice stays bit-exact; its SASS
+      holds ``PRMT`` and no ``POPC`` (``cuobjdump``).
 5. ``flash_attn`` against its plain version on the card: f32 and bf16,
    window 0 and 16, rep 1 and 8 at hd 64 and 128, rep 2 at hd 32 and 24,
    S in {1, 15, 16, 17, 40, 64, 100}; bf16 at hd 32-128 must take the
@@ -131,6 +139,9 @@ result:
    kernels are timed on one decode step's 72 projections at M = 4
    (``rbl_decode_mac`` as one plane pair of each); their library calls are
    ``torch._int_mm`` (plus the two scale multiplies for the dequant).
+   ``rbl_decode_mac`` adds its users' row: phase 6d's threshold sweep, five
+   calls on the sign planes of one quantized 64x768x3072 projection, beside
+   ``torch._int_mm`` at M = 64.
    ``imc_mac`` adds rows for one bucket-64 and one bucket-32 prefill's 72
    projections (M = 64 and 32, on the tensor-core kernel) beside
    ``torch._int_mm``, and ``imc_mac_dequant`` one for a bucket-64 prefill;
@@ -158,6 +169,15 @@ in turns on one card (copy this script into the other tree's root).
 serves phase 6c's requests once (calibrated noise, ``noise_seed`` 7) and
 prints their token streams, SLOs and launches per decode step: copied into
 another tree, it holds the two trees' noisy streams against each other.
+
+    python3 chip_smoke.py --rbl-phases
+
+times ``rbl_decode_mac`` beside variants of its source that return early
+(after the staging, after the counting, before the cluster's meeting), at
+the decode step, the threshold sweep and the decode step over L2-resident
+weights, in turns, and prints one JSON line and the nvidia-smi line: where
+the kernel's time goes, phase by phase (the variants' results are wrong on
+purpose).
 
     python3 chip_smoke.py --int8-witness
 
@@ -193,6 +213,7 @@ LOGIT_RTOL = 2e-2
 PROMPTS = (7, 16, 33, 12, 5, 40)
 MACRO_KERNELS = ("imc_mac_dequant", "rbl_decode_mac")  # no served path
 MACRO_PAIRS = 1 << 22  # uint8 operand pairs of the word-logic checks
+SWEEP_SHIFTS = (0.0, 0.01, 0.05, 0.1, 0.2)  # volts: 6d's threshold study
 MAX_NEW = 16
 # bitplane_mac's served-case kernel: every M in {1, 3, 4, 5, 9, 64}, K in
 # {8, 100, 1030, 3072} and N in {1, 31, 129, 768} appears
@@ -385,34 +406,64 @@ def split_cases(torch, dev, name, wrapper, plain, args):
     return len(SPLIT_CASES) + 5 + len(MMA_CASES)
 
 
-def mma_sass():
-    """The SASS of ``imc_mac_mma_kernel`` (both instances), read with
-    ``cuobjdump --dump-sass``: its instructions and its ``IMMA`` and ``IDP``
-    (dp4a) among them.  It must run on the tensor cores and hold no dp4a."""
+def sass_counts(name, kernel, ops):
+    """Instructions of every instance of ``kernel`` in ``csrc/<name>.cu``'s
+    library, and how many of them are each of ``ops``, read with
+    ``cuobjdump --dump-sass``."""
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     text = subprocess.run([tool, "--dump-sass",
-                           str(build.library_path("imc_mac"))],
+                           str(build.library_path(name))],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     found, func = {}, None
     for line in text.splitlines():
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
-            func = head.group(1) if "imc_mac_mma_kernel" in line else None
+            func = head.group(1) if kernel in line else None
             if func:
-                found[func] = {"instructions": 0, "IMMA": 0, "IDP": 0}
+                found[func] = dict.fromkeys(("instructions",) + ops, 0)
         elif func and re.search(r"/\*[0-9a-f]{4,}\*/", line):
             found[func]["instructions"] += 1
-            for op in ("IMMA", "IDP"):
+            for op in ops:
                 found[func][op] += bool(re.search(rf"\b{op}\b", line))
+    return found
+
+
+def mma_sass():
+    """The SASS of ``imc_mac_mma_kernel`` (both instances): its instructions
+    and its ``IMMA`` and ``IDP`` (dp4a) among them.  It must run on the
+    tensor cores and hold no dp4a."""
+    found = sass_counts("imc_mac", "imc_mac_mma_kernel", ("IMMA", "IDP"))
     if len(found) != 2 or not all(c["IMMA"] > 0 and c["IDP"] == 0
                                   for c in found.values()):
         raise AssertionError(f"imc_mac_mma_kernel's SASS: {found}; expected "
                              "two instances with IMMA and no IDP")
     return {("dequant" if "ILb1E" in f else "int32"): c
             for f, c in found.items()}
+
+
+def rbl_sass():
+    """The SASS of ``rbl_decode_mac_kernel``'s twelve instances (4 or 8 rows
+    a thread; rows 8 or given at run time; W copied 8, 4 or 1 bytes at a
+    time): their instructions and the ``PRMT``, ``IMAD``, ``IDP`` and
+    ``POPC`` among them.  The decode is from registers (``PRMT``) and the
+    counts are masked sums (``IMAD``): no ``POPC``.  Returns the counts of
+    the instances with 8-byte copies, the users' shapes."""
+    found = sass_counts("rbl_decode_mac", "rbl_decode_mac_kernel",
+                        ("PRMT", "IMAD", "IDP", "POPC"))
+    if len(found) != 12 or not all(c["PRMT"] > 0 and c["POPC"] == 0
+                                  for c in found.values()):
+        raise AssertionError(f"rbl_decode_mac_kernel's SASS: {found}; "
+                             "expected twelve instances with PRMT and no "
+                             "POPC")
+    out = {}
+    for f, c in found.items():
+        rm, rows, width = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", f).groups()
+        if width == "8":
+            out[f"rm{rm}_rows{'any' if rows == '0' else rows}"] = c
+    return out
 
 
 def phase_imc_mac_dequant(torch, dev):
@@ -849,9 +900,42 @@ def noisy_adversarial_cases(torch, dev):
     return cases
 
 
+# rbl_decode_mac's edge cases: (m, k, n, rows, byte offsets of a and w);
+# every rows in {2, 3, 7, 8, 9, 16, 31, 32}, M in {1, 4, 5, 16, 17, 64,
+# 200}, N in {1, 31, 129, 3072} and K in {3, 8, 100, 1030, 3072} appears,
+# and operand views at byte offsets 1 and 4
+RBL_EDGE_CASES = ((1, 3, 1, 2, (0, 0)), (4, 8, 31, 3, (1, 4)),
+                  (5, 100, 129, 7, (4, 1)), (16, 1030, 3072, 8, (0, 0)),
+                  (17, 3072, 1, 9, (1, 1)), (64, 3, 31, 16, (4, 4)),
+                  (200, 8, 129, 31, (0, 1)), (1, 100, 3072, 32, (1, 0)),
+                  (4, 1030, 1, 2, (0, 4)), (5, 3072, 31, 3, (4, 0)),
+                  (16, 3, 129, 7, (0, 0)), (17, 8, 3072, 8, (1, 4)),
+                  (64, 100, 1, 9, (0, 0)), (200, 1030, 31, 16, (1, 1)),
+                  (1, 3072, 129, 31, (4, 1)), (4, 3, 3072, 32, (0, 0)),
+                  (64, 768, 3072, 8, (1, 4)), (4, 3072, 768, 32, (4, 1)))
+
+
+def rbl_thresholds(torch, dev, rows, g):
+    """Calibrated, detuned (``[1.9, thr[:-1]]``: every count reads one level
+    high, a zero count decodes to 1) and random (descending between V(rows)
+    and V(0)) comparator references."""
+    from repro_torch.core.rbl import rbl_voltage_physics
+    from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
+
+    good = physics_thresholds(rows, dev)
+    detuned = torch.cat([torch.tensor([1.9], device=dev), good[:-1]])
+    v = rbl_voltage_physics(torch.tensor([0.0, float(rows)]), rows=rows)
+    lo, hi = float(v[1]), float(v[0])
+    rand = torch.rand((rows,), generator=g, device=dev) * (hi - lo) + lo
+    return {"calibrated": good, "detuned": detuned,
+            "random": torch.sort(rand, descending=True).values}
+
+
 def phase_rbl_decode_mac(torch, dev):
     from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
-    from repro_torch.kernels.rbl_decode.ops import (rbl_decode_mac,
+    from repro_torch.kernels.rbl_decode.ops import (compiled_plan,
+                                                    rbl_decode_mac,
+                                                    rbl_decode_mac_plan,
                                                     rbl_decode_mac_torch)
 
     g = torch.Generator(device=dev).manual_seed(22)
@@ -885,8 +969,66 @@ def phase_rbl_decode_mac(torch, dev):
         if torch.equal(bad, out):
             raise AssertionError("detuned thresholds did not change the "
                                  "decode: the kernel ignores thr")
+    # the edge cases: operands as views at byte offsets of larger buffers,
+    # every byte drawn from 0-255 (the kernel counts bit 0; the plain version
+    # gets x & 1); one launch per call; the C plan equal to the Python one
+    for m, k, n, rows, (oa, ow) in RBL_EDGE_CASES:
+        plan = rbl_decode_mac_plan(m, n, k, rows)
+        if compiled_plan(m, n, k, rows) != plan:
+            raise AssertionError(f"rbl_decode_mac_plan{(m, n, k, rows)}: C "
+                                 f"{compiled_plan(m, n, k, rows)} != Python "
+                                 f"{plan}")
+        fa, fw = (torch.randint(0, 256, (size + off,), generator=g,
+                                device=dev, dtype=torch.int32).to(torch.uint8)
+                  for size, off in ((m * k, oa), (k * n, ow)))
+        a, w = fa[oa:].view(m, k), fw[ow:].view(k, n)
+        bits = (a & 1, w & 1)
+        outs = {}
+        for name, thr in rbl_thresholds(torch, dev, rows, g).items():
+            before = rbl_decode_mac.launches
+            outs[name] = rbl_decode_mac(a, w, thr, rows=rows)
+            torch.cuda.synchronize()
+            if rbl_decode_mac.launches != before + 1:
+                raise AssertionError("rbl_decode_mac: one call, one launch")
+            plain = rbl_decode_mac_torch(*bits, thr, rows=rows)
+            worst = max(worst, (outs[name] - plain).abs().max().item())
+            if not torch.equal(outs[name], plain):
+                raise AssertionError(
+                    f"rbl_decode_mac differs from its plain version at "
+                    f"{(m, k, n, rows)}, offsets {(oa, ow)}, {name} thr")
+        exact = (bits[0].double() @ bits[1].double()).to(torch.int32)
+        if not torch.equal(outs["calibrated"], exact):
+            raise AssertionError(f"rbl_decode_mac calibrated is not the "
+                                 f"integer product at {(m, k, n, rows)}")
+        if torch.equal(outs["detuned"], exact):
+            raise AssertionError("detuned thresholds did not change the "
+                                 f"decode at {(m, k, n, rows)}")
+    # one launch captured in a CUDA graph and replayed twice: the cluster's
+    # meeting leaves nothing to reset
+    a = torch.randint(0, 2, (4, 3072), generator=g, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(0, 2, (3072, 768), generator=g, device=dev,
+                      dtype=torch.int8)
+    thr = rbl_thresholds(torch, dev, 8, g)["random"]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rbl_decode_mac(a, w, thr)  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rbl_decode_mac(a, w, thr)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, rbl_decode_mac_torch(a, w, thr)):
+        raise AssertionError("rbl_decode_mac differs from its plain version "
+                             "after two graph replays")
     log(f"[4c] rbl_decode_mac bit-exact on {len(cases)} cases, calibrated "
-        "and detuned; calibrated equals the integer product")
+        f"and detuned, and on {len(RBL_EDGE_CASES)} edge cases (rows 2-32, "
+        "views at byte offsets 1 and 4, bytes 0-255), calibrated, detuned "
+        "and random; calibrated equals the integer product; C plan == "
+        f"Python plan; a graph replayed twice; SASS {rbl_sass()}")
     return float(worst)
 
 
@@ -1385,7 +1527,7 @@ def phase_macro(torch, dev):
     exact_bits = (a7.double() @ w7.double()).to(torch.int32)
     good = physics_thresholds(8, dev)
     margins = {}
-    for delta_v in (0.0, 0.01, 0.05, 0.1, 0.2):
+    for delta_v in SWEEP_SHIFTS:
         out = rbl_decode_mac(a7, w7, good + delta_v)
         margins[delta_v] = float((out != exact_bits).float().mean())
     if margins[0.0] != 0.0 or margins[0.01] != 0.0:
@@ -1616,7 +1758,162 @@ def time_rbl_decode_mac(torch, dev):
                       "ops = 2*M*K*N binary MACs at the int8 rate; library: "
                       "torch._int_mm on the {0,1} operands (M padded to "
                       "32), the same values only under calibrated "
-                      "thresholds")
+                      "thresholds", sweep=rbl_sweep_row(torch, dev))
+
+
+def rbl_sweep_row(torch, dev):
+    """The threshold sweep of phase 6d as its users run it: the sign planes
+    of one quantized 64x768x3072 projection, rows 8, five calls with every
+    reference shifted by 0, 10, 50, 100 and 200 mV."""
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
+    from repro_torch.kernels.rbl_decode.ops import (rbl_decode_mac,
+                                                    rbl_decode_mac_torch)
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randn((64, 768), generator=g, device=dev)
+    w = torch.randn((768, 3072), generator=g, device=dev) * 0.05
+    qx, qw = quantize(x, 8, axis=None), quantize(w, 8, axis=0)
+    a7 = ((qx.q.to(torch.int32) + 128) >> 7).to(torch.int8)
+    w7 = ((qw.q.to(torch.int32) + 128) >> 7).to(torch.int8)
+    good = physics_thresholds(8, dev)
+    thrs = [good + dv for dv in SWEEP_SHIFTS]
+
+    def sweep(fn):
+        for thr in thrs:
+            fn(a7, w7, thr)
+
+    m, k = a7.shape
+    n = w7.shape[1]
+    calls = len(SWEEP_SHIFTS)
+    row = dict(ms=cuda_ms(torch, lambda: sweep(rbl_decode_mac), iters=20),
+               graph_ms=graph_ms(torch, lambda: sweep(rbl_decode_mac)),
+               plain_ms=cuda_ms(torch, lambda: sweep(rbl_decode_mac_torch),
+                                iters=3, warmup=1),
+               library_ms=cuda_ms(torch, lambda: sweep(
+                   lambda a, b, _: torch._int_mm(a, b)), iters=20),
+               library_graph_ms=graph_ms(torch, lambda: sweep(
+                   lambda a, b, _: torch._int_mm(a, b))),
+               shape="the threshold sweep of phase 6d: sign planes of one "
+                     "quantized 64x768x3072 projection, rows 8, five calls "
+                     "(thr + 0, 0.01, 0.05, 0.1, 0.2 V); library: "
+                     "torch._int_mm at M=64, the same values only under "
+                     "calibrated thresholds")
+    row["bound_ms"], row["bound_by"] = bound(
+        calls * (m * k + k * n + 4 * m * n + 4 * 8),
+        calls * 2 * m * k * n, INT8_OPS_PER_S)
+    return row
+
+
+# rbl_decode_mac's timing-only variants: (text to find, text put before it);
+# each returns early, its results wrong on purpose
+RBL_EXITS = {
+    "after_staging": ("    if (c0 == g_begin) {\n#pragma unroll\n"
+                      "      for (int i = 0; i < TABLE_WORDS; ++i)",
+                      "    if (M > 0) return;\n"),
+    "after_counting": ("  // 5. the block's partial tile",
+                       "  if (M > 0) {  // every sum kept alive\n"
+                       "    int s = 0;\n"
+                       "    for (int m = 0; m < RM; ++m)\n"
+                       "      for (int j = 0; j < COLS; ++j) s ^= "
+                       "ctr.acc[m][j];\n"
+                       "    if (s == 0x7fffffff) out[0] = 1;\n"
+                       "    return;\n  }\n"),
+    "before_meeting": ("  cluster.sync();\n\n  // 6.",
+                       "  if (M > 0) return;\n"),
+}
+
+
+def rbl_phases(torch, dev):
+    """Where ``rbl_decode_mac``'s time goes: the full source and variants
+    that return after the staging, after the counting and before the
+    cluster's meeting, one nvcc each into the build directory, called
+    through ctypes and timed from a graph in turns (in order, then
+    reversed) at one decode step (72 launches, M = 4, 12 weight sets), the
+    threshold sweep (five 64x768x3072 calls) and the decode step over one
+    layer's weights (resident in L2); ``imc_mac`` at the same decode step
+    from device memory and from L2, and 72 one-element launches, beside
+    them.  Returns ms from a graph, [decode step, sweep, L2 decode step]
+    per variant and turn."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
+    from repro_torch.kernels.imc_mac.ops import imc_mac
+    from repro_torch.kernels.rbl_decode.ops import (_ARGTYPES,
+                                                    physics_voltages)
+
+    src = (build.CSRC / "rbl_decode_mac.cu").read_text()
+    sources = {"full": src}
+    for name, (anchor, early) in RBL_EXITS.items():
+        if src.count(anchor) != 1:
+            raise AssertionError(f"rbl_phases {name}: anchor not found once")
+        sources[name] = src.replace(anchor, early + anchor)
+    out_dir = build.build_dir() / "rbl_phases"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        (out_dir / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
+             str(out_dir / f"lib{name}.so"), str(out_dir / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"rbl_phases {name}: nvcc failed\n{text}")
+        fn = ctypes.CDLL(str(out_dir / f"lib{name}.so")).rbl_decode_mac_launch
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        fns[name] = fn
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    shapes = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
+
+    def bits(*shape):
+        return torch.randint(0, 2, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    a4 = {k: bits(4, k) for k in (768, 3072)}
+    ws = [[bits(*s) for s in shapes] for _ in range(12)]
+    a64, w64 = bits(64, 768), bits(768, 3072)
+    thr = physics_thresholds(8, dev)
+    volt = physics_voltages(8, dev)
+    sweep_thr = [thr + dv for dv in SWEEP_SHIFTS]
+    outs = {}
+
+    def call(fn, a, w, t):
+        (m, k), n = a.shape, w.shape[1]
+        out = outs.setdefault((m, n), torch.empty(
+            (m, n), dtype=torch.int32, device=dev))
+        stream, idx = build.stream_and_device(a)
+        build.check_launch("rbl_phases", fn(
+            a.data_ptr(), w.data_ptr(), t.data_ptr(), volt.data_ptr(),
+            out.data_ptr(), m, n, k, 8, stream, idx))
+
+    def step(fn, sets):
+        for lw in sets:
+            for w in lw:
+                call(fn, a4[w.shape[0]], w, thr)
+
+    res = {}
+    for name in list(fns) + list(reversed(list(fns))):
+        fn = fns[name]
+        res.setdefault(name, []).append([
+            graph_ms(torch, lambda: step(fn, ws)),
+            graph_ms(torch, lambda: [call(fn, a64, w64, t)
+                                     for t in sweep_thr]),
+            graph_ms(torch, lambda: step(fn, [ws[0]] * 12))])
+    q4 = {k: torch.randint(-127, 128, (4, k), generator=g, device=dev,
+                           dtype=torch.int8) for k in (768, 3072)}
+    qws = [[torch.randint(-127, 128, s, generator=g, device=dev,
+                          dtype=torch.int8) for s in shapes]
+           for _ in range(12)]
+    res["imc_mac"] = [graph_ms(torch, lambda sets=sets: [
+        imc_mac(q4[w.shape[0]], w) for lw in sets for w in lw])
+        for sets in (qws, [qws[0]] * 12)]
+    res["72_one_element_launches"] = floor_graph_ms(torch, dev, 72)
+    return res
 
 
 def time_paged_attn(torch, dev):
@@ -1930,6 +2227,14 @@ def main() -> int:
                           "kind": kind}))
         print(smi)
         return 0
+    if sys.argv[1:] == ["--rbl-phases"]:
+        from repro_torch.kernels import build
+
+        log(build.build_all(["imc_mac"]))
+        print(json.dumps({"rbl_phases": rbl_phases(torch, dev),
+                          "kind": kind}))
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--int8-witness"]:
         from repro_torch.kernels import build
 
@@ -2028,7 +2333,8 @@ def main() -> int:
             f"launches per decode step, {k['launches_per_prefill']} per "
             f"prefill, {k['launches']} in the {k['path']} run")
     for name, key in (("imc_mac", "prefill"), ("imc_mac", "prefill32"),
-                      ("imc_mac_dequant", "prefill")):
+                      ("imc_mac_dequant", "prefill"),
+                      ("rbl_decode_mac", "sweep")):
         t = timed[name][key]
         log(f"[7] {name}, {t['shape']}: {t['ms']:.4f} ms, "
             f"{t['graph_ms']:.4f} ms from a graph (bound {t['bound_ms']:.4f} "

@@ -1,4 +1,4 @@
-// Shared by bitplane_mac.cu, bitplane_mac_noisy.cu and rbl_decode_mac.cu:
+// Shared by bitplane_mac.cu and bitplane_mac_noisy.cu:
 // the tile geometry, the operand staging (uint8 values -> one 32-bit word of
 // `rows` bits per plane, row or column, and K-group in shared memory), the
 // float32 physics RBL voltage with core/rbl.py::exp_f32's arithmetic, the

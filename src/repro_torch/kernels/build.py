@@ -5,7 +5,7 @@ Each ``csrc/<name>.cu`` compiles on its own, for Hopper only
 (``-gencode arch=compute_90a,code=sm_90a``), into
 ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout (override
 with ``REPRO_TORCH_BUILD_DIR``).  The hash covers the source, every header
-under ``csrc/`` (``bitplane_common.cuh`` is shared by three sources) and the
+under ``csrc/`` (``bitplane_common.cuh`` is shared by two sources) and the
 flags, so an edited source or header never loads a stale library.  A build
 happens at first use, never at import: the CPU tests import every module on
 machines without ``nvcc``.  :func:`build_all` starts one ``nvcc`` per source

@@ -22,22 +22,107 @@ kernel (or raises: on a build failure, a refused launch, a wrong dtype,
 device or shape, a ``thr`` that is not float32[rows]); a CPU tensor takes the
 plain version :func:`rbl_decode_mac_torch`.  ``rbl_decode_mac.launches``
 counts kernel launches and nothing else.
+
+The kernel's launch (rows a thread keeps, tile, K split over a thread-block
+cluster) follows one rule, :func:`rbl_decode_mac_plan`, the twin of the C
+``rbl_decode_mac_plan`` (``chip_smoke.py`` phase 4c holds the two equal).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import constants as C
 from repro_torch.core.bitserial import group_counts
+from repro_torch.core.rbl import rbl_voltage_physics
 from repro_torch.kernels import build
 from repro_torch.kernels.bitplane_mac.ops import (MAX_ROWS, decode_counts,
                                                   physics_thresholds)
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p,
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p,
                                                           ctypes.c_int]
+_PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BYTES = (torch.int8, torch.uint8)
+_COLS = 8          # columns a lane keeps: 8 bytes of a W row
+_MAX_SPLITS = 8    # the cluster size, at most (the portable size)
+_TARGET = 264      # blocks a launch aims at, at most
+_WAVE = 132        # SMs of an H100
+_SM_BYTES = 45056  # a block's shared bytes for a chunk of A's bits and W
+_FNS = {}
+
+
+class Plan(NamedTuple):
+    """A launch: the output rows a thread keeps (4 or 8), the warps along M
+    (1 or 4; the others split K), the lanes along N (8, 16 or 32; the others
+    split K), the grid (column tiles, K splits = the cluster size, row
+    tiles), the K-groups per split and per staging of A and W."""
+    rows_per_thread: int
+    warps_m: int
+    lanes_n: int
+    grid_x: int
+    grid_y: int
+    grid_z: int
+    groups_per_split: int
+    groups_per_chunk: int
+
+
+@functools.lru_cache(maxsize=None)
+def rbl_decode_mac_plan(m: int, n: int, k: int, rows: int) -> Plan:
+    """The launch of an ``m x k x n`` product of ``rows``-row groups, as
+    ``csrc/rbl_decode_mac.cu``'s ``rbl_decode_mac_plan`` computes it.  M <= 4
+    keeps 4 rows a thread and M 5-8 keeps 8, with the 4 warps on K; above 8
+    the warps take 8 rows each of a 32-row tile.  Tiles are 8 columns a lane:
+    256 columns, narrowed to 128 or 64 (M <= 8) until the tiles at 8 splits
+    fill the 132 SMs.  The splits double, up to 8, while the launch stays
+    within 264 blocks and each split has two groups; K = 0 is one split."""
+    groups = -(-k // rows) if k > 0 else 0
+    rm = 4 if m <= 4 else 8
+    wm = 1 if m <= 8 else 4
+    gz = -(-m // (rm * wm))
+    ln = 32
+    while wm == 1 and ln > 8 and \
+            -(-n // (_COLS * ln)) * gz * _MAX_SPLITS < _WAVE:
+        ln //= 2
+    gx = -(-n // (_COLS * ln))
+    splits = 1
+    while splits < _MAX_SPLITS and gx * gz * splits * 2 <= _TARGET and \
+            groups >= 2 * splits:
+        splits *= 2
+    return Plan(rm, wm, ln, gx, splits, gz, -(-groups // splits),
+                (_SM_BYTES - 16) // (rows * (4 * rm * wm + _COLS * ln)))
+
+
+@functools.lru_cache(maxsize=None)
+def physics_voltages(rows: int, device) -> torch.Tensor:
+    """float32[rows + 1]: the physics RBL voltage V(k) of every count k, as
+    the plain version computes it (``rbl_voltage_physics``, elementwise), on
+    ``device``; made once per (rows, device).  The kernel decodes each count
+    against the live ``thr`` with it."""
+    return rbl_voltage_physics(torch.arange(rows + 1, dtype=torch.float32,
+                                            device=device), rows=rows)
+
+
+def compiled_plan(m: int, n: int, k: int, rows: int) -> Plan:
+    """The C ``rbl_decode_mac_plan`` of the built library (needs ``nvcc``)."""
+    out = (ctypes.c_int * 8)()
+    build.check_launch("rbl_decode_mac_plan", _entry(
+        "rbl_decode_mac_plan", _PLAN_ARGTYPES)(m, n, k, rows,
+                                               ctypes.addressof(out)))
+    return Plan(*out)
+
+
+def _entry(name: str, argtypes):
+    """The C function ``name`` of ``csrc/rbl_decode_mac.cu``, its argument
+    types set once, at the library's first load."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(build.load("rbl_decode_mac"), name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _FNS[name] = fn
+    return fn
 
 
 def _check(a_bits, w_bits, thr, rows):
@@ -104,12 +189,13 @@ def rbl_decode_mac(a_bits: torch.Tensor, w_bits: torch.Tensor,
     t = thr.contiguous()
     m = a.shape[0]
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
-    lib = build.load("rbl_decode_mac")
-    fn = lib.rbl_decode_mac_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    if m == 0 or n == 0:
+        return out.reshape(batch + (n,))
     stream, dev = build.stream_and_device(a)
-    build.check_launch("rbl_decode_mac", fn(
-        a.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(), m, n, k,
+    build.check_launch("rbl_decode_mac", _entry(
+        "rbl_decode_mac_launch", _ARGTYPES)(
+        a.data_ptr(), w.data_ptr(), t.data_ptr(),
+        physics_voltages(rows, a.device).data_ptr(), out.data_ptr(), m, n, k,
         rows, stream, dev))
     rbl_decode_mac.launches += 1
     return out.reshape(batch + (n,))

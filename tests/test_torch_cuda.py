@@ -7,7 +7,10 @@ This file imports neither ``jax`` nor ``repro``: the machine with the card
 has no JAX.  Each kernel is held against its plain PyTorch version on the
 same card tensors: ``imc_mac``, ``imc_mac_dequant``, ``bitplane_mac``,
 ``bitplane_mac_noisy`` and ``rbl_decode_mac`` bit for bit (including detuned
-comparator references and 16-row groups; ``bitplane_mac``'s served-case
+comparator references and 16-row groups; ``rbl_decode_mac`` also at rows
+2-32, M up to 200, operands at byte offsets 1 and 4 holding bytes 0-255,
+random references, its C launch plan equal to the Python twin;
+``bitplane_mac``'s served-case
 kernel, rows 8 at 8x8 bits, also under random references and on all-255
 operands; the noisy kernel and its plain version draw one Philox stream, and
 the noisy kernel's skip is also held on operands and thresholds chosen
@@ -611,6 +614,52 @@ def test_rbl_decode_mac_bit_exact(hopper, m, k, n, rows):
     assert not torch.equal(bad, out)
 
 
+# every rows in {2, 3, 7, 8, 9, 16, 31, 32}, M in {1, 4, 5, 16, 17, 64, 200},
+# N in {1, 31, 129, 3072} and K in {3, 8, 100, 1030, 3072} appears, with
+# operands as views at byte offsets 1 and 4 of larger buffers
+@pytest.mark.parametrize("m,k,n,rows,offsets", [
+    (1, 3, 1, 2, (0, 0)), (4, 8, 31, 3, (1, 4)), (5, 100, 129, 7, (4, 1)),
+    (16, 1030, 3072, 8, (0, 0)), (17, 3072, 1, 9, (1, 1)),
+    (64, 3, 31, 16, (4, 4)), (200, 8, 129, 31, (0, 1)),
+    (1, 100, 3072, 32, (1, 0)), (4, 1030, 1, 2, (0, 4)),
+    (5, 3072, 31, 3, (4, 0)), (17, 8, 3072, 8, (1, 4)),
+    (200, 1030, 31, 16, (1, 1)), (4, 3072, 768, 32, (4, 1)),
+    (64, 768, 3072, 8, (1, 4))])
+def test_rbl_decode_mac_edges(hopper, m, k, n, rows, offsets):
+    """Bytes 0-255 (the kernel counts bit 0; the plain version gets x & 1),
+    calibrated, detuned and random references, one launch per call, and the
+    C launch plan equal to its Python twin."""
+    from repro_torch.kernels.rbl_decode.ops import (compiled_plan,
+                                                    rbl_decode_mac_plan)
+
+    assert compiled_plan(m, n, k, rows) == rbl_decode_mac_plan(m, n, k, rows)
+    g = torch.Generator(device=hopper).manual_seed(m * k + n + 7 * rows)
+    oa, ow = offsets
+    fa, fw = (torch.randint(0, 256, (size + off,), generator=g, device=hopper,
+                            dtype=torch.int32).to(torch.uint8)
+              for size, off in ((m * k, oa), (k * n, ow)))
+    a, w = fa[oa:].view(m, k), fw[ow:].view(k, n)
+    good = physics_thresholds(rows, hopper)
+    v0, vr = (float(v) for v in rbl_voltage_physics(
+        torch.tensor([0.0, float(rows)]), rows=rows))
+    rand = torch.rand((rows,), generator=g, device=hopper) * (v0 - vr) + vr
+    thrs = {"calibrated": good,
+            "detuned": torch.cat([torch.tensor([1.9], device=hopper),
+                                  good[:-1]]),
+            "random": torch.sort(rand, descending=True).values}
+    outs = {}
+    for name, thr in thrs.items():
+        before = rbl_decode_mac.launches
+        outs[name] = rbl_decode_mac(a, w, thr, rows=rows)
+        torch.cuda.synchronize()
+        assert rbl_decode_mac.launches == before + 1
+        assert torch.equal(outs[name],
+                           rbl_decode_mac_torch(a & 1, w & 1, thr, rows=rows))
+    exact = ((a & 1).double() @ (w & 1).double()).to(torch.int32)
+    assert torch.equal(outs["calibrated"], exact)
+    assert not torch.equal(outs["detuned"], exact)
+
+
 def test_rbl_decode_mac_operand_errors(hopper):
     a = torch.randint(0, 2, (2, 3, 40), device=hopper, dtype=torch.uint8)
     w = torch.randint(0, 2, (40, 6), device=hopper, dtype=torch.uint8)
@@ -628,6 +677,9 @@ def test_rbl_decode_mac_operand_errors(hopper):
         rbl_decode_mac(a, w, physics_thresholds(8, hopper).double())
     with pytest.raises(ValueError, match="rows"):
         rbl_decode_mac(a, w, rows=64)
+    before = rbl_decode_mac.launches
+    empty = rbl_decode_mac(a[:, :0], w)
+    assert empty.shape == (2, 0, 6) and rbl_decode_mac.launches == before
 
 
 @pytest.mark.parametrize("mode", ["exact", "sim"])
