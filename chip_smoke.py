@@ -53,7 +53,9 @@ result:
       4x8, rows 16, mismatch only, comparator only and both at the stress
       sigmas (0.3, 0.03), the calibrated sigma, a detuned ``thr``;
       ``NoiseSpec(0, 0)`` equal to ``bitplane_mac``; the same seed twice
-      identical; two seeds different.  Then cases chosen against the
+      identical, the second time as a seed-table row in device memory (a
+      seed is always read by the kernel from device memory: an integer is
+      copied there first); two seeds different.  Then cases chosen against the
       kernel's skip (it draws only where a draw can change the decode):
       dense operands (every count is ``rows``: nothing is free) and zero
       ones (everything is), thresholds a hair inside and outside a count's
@@ -79,9 +81,27 @@ result:
    bf16 2e-2.
 6. The served paths, each on full-width ``imc-paper-110m`` (random weights
    from a fixed seed), 4 slots, paged KV, block 16, buckets (16, 32, 64),
-   six requests of 7/16/33/12/5/40 prompt tokens and 16 new tokens each;
-   every kernel's launch counter is zeroed just before a path and read just
-   after:
+   six requests of 7/16/33/12/5/40 prompt tokens and 16 new tokens each,
+   through the ``Engine``.  Each path is served four times, in turns:
+   through ``Engine(graphs=False)`` (eager steps, the oracle), through an
+   ``Engine`` whose steps are CUDA graphs, through that one again and
+   through the eager one again; every kernel's launch counter is zeroed
+   just before each serve and read just after, and TTFT and TPOT p50/p95
+   and decode tokens/s are logged for each.  The four token streams must
+   be equal (noisy ones under one ``noise_seed`` too); the graph engine
+   captures one prefill and one admission graph per bucket used and one
+   decode graph (5), and none on its second serve, whose launches (counted
+   from replays: the engine adds each graph's captured launches to the
+   wrappers' counters on every replay) must equal the eager serve's.  A
+   ``fail_at=(1,)`` drill through the graph engine recovers once with no
+   capture and serves the streams of the run without a fault (noisy: of
+   the same drill through the eager engine).  One decode step and one
+   bucket-16 prefill are then replayed from the graph engine's graphs
+   under ``torch.profiler``, and their launches counted (the per-step gates
+   below): the port's kernels the device ran, counted by their names in
+   the trace, must equal what the captures recorded, so a kernel missing
+   from a graph or in it twice fails; the replayed prefill's logits must
+   equal the eager prefill's bit for bit:
    a. ``exact`` fabric: ``imc_mac`` and ``paged_attn`` must launch;
       ``imc_mac``'s split-K kernel 72 times per decode step and its M > 16
       tensor-core kernel never there; a bucket-32 and a bucket-64 prefill
@@ -103,8 +123,9 @@ result:
    c. ``sim`` with the paper-calibrated noise (``NoiseSpec.calibrated()``,
       device mismatch 0.05) and flash prefill: ``bitplane_mac_noisy``
       (72 launches per decode step), ``flash_attn`` and ``paged_attn`` must
-      launch, ``bitplane_mac`` and ``imc_mac`` never.  A second serve with
-      the same ``noise_seed`` must give identical token streams.  The first
+      launch, ``bitplane_mac`` and ``imc_mac`` never.  The graphs read
+      each step's noise seeds from a seed table in device memory, written
+      before each replay, so the four serves' streams are equal.  The first
       request's prefill logits at the stress sigmas under two seeds must
       differ from each other and from noise-free ``sim``; their relative L2
       distance from it is printed beside the calibrated one.
@@ -125,6 +146,15 @@ result:
       ``Fabric.cost`` equals the CPU's; ``python -m repro_torch.quickstart``
       exits 0.  ``imc_mac_dequant`` and ``rbl_decode_mac`` must launch here
       and on no served path.
+   e. ``qwen2.5-3b`` at full width (d_model 2048, GQA 16 heads over 2 KV
+      heads at hd 128, SwiGLU, QKV bias, tied embeddings), its depth cut to
+      ``QWEN_LAYERS`` (2 of 36), random weights from seed 0, served as
+      above in ``exact`` and in ``sim`` with flash prefill: the same turns,
+      captures and drill; 14 split-K ``imc_mac`` (or ``bitplane_mac``)
+      and 2 split ``paged_attn`` launches per decode step, 2 tensor-core
+      ``flash_attn`` launches per prefill; ``sim`` prefill logits equal to
+      ``exact``'s; card logits within 2e-2 of the largest |logit| of the
+      CPU's plain path (with flash attention for ``sim`` + flash).
 7. Each kernel timed at the main path's shapes (CUDA events), beside its
    bound on an H100 SXM (3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16; for
    ``bitplane_mac_noisy`` one Philox4x32-10 for every element a draw can
@@ -166,9 +196,20 @@ in turns on one card (copy this script into the other tree's root).
 
     python3 chip_smoke.py --serve-noisy
 
-serves phase 6c's requests once (calibrated noise, ``noise_seed`` 7) and
-prints their token streams, SLOs and launches per decode step: copied into
-another tree, it holds the two trees' noisy streams against each other.
+serves phase 6c's requests (calibrated noise, ``noise_seed`` 7; in turns,
+eager and from graphs) and prints their token streams, SLOs and launches
+per decode step: copied into another tree, it holds the two trees' noisy
+streams against each other.
+
+    python3 chip_smoke.py --eager-turns PARENT
+
+serves full-width imc-paper-110m (``exact``, ``sim``, noisy ``sim``)
+with ``repro_torch.launch.serve`` and profiles its decode step with
+``repro_torch.launch.profile`` in the checkout PARENT (its eager serving)
+and in this tree (``--eager`` and with graphs), in turns (parent, eager,
+graph, graph, eager, parent), and prints one JSON line of TTFT, TPOT,
+decode tokens/s, device busy ms and idle share per step, and the nvidia-smi
+line.
 
     python3 chip_smoke.py --rbl-phases
 
@@ -215,6 +256,7 @@ MACRO_KERNELS = ("imc_mac_dequant", "rbl_decode_mac")  # no served path
 MACRO_PAIRS = 1 << 22  # uint8 operand pairs of the word-logic checks
 SWEEP_SHIFTS = (0.0, 0.01, 0.05, 0.1, 0.2)  # volts: 6d's threshold study
 MAX_NEW = 16
+QWEN_LAYERS = 2  # 6e: qwen2.5-3b's depth cut from 36, its widths kept
 # bitplane_mac's served-case kernel: every M in {1, 3, 4, 5, 9, 64}, K in
 # {8, 100, 1030, 3072} and N in {1, 31, 129, 768} appears
 R8_SHAPES = ((1, 8, 1), (3, 100, 31), (4, 1030, 129), (5, 3072, 768),
@@ -737,6 +779,7 @@ def phase_bitplane_mac_noisy(torch, dev):
                                                       bitplane_mac_noisy,
                                                       bitplane_mac_noisy_torch,
                                                       physics_thresholds)
+    from repro_torch.kernels.common import seed_row
 
     noise = {"mismatch": dict(mismatch_sigma=0.3),
              "comparator": dict(comparator_offset_sigma=0.03),
@@ -761,7 +804,7 @@ def phase_bitplane_mac_noisy(torch, dev):
                            dtype=torch.int32)
         kw = dict(bits_a=ba, bits_w=bw, rows=rows, **noise[nz])
         out = bitplane_mac_noisy(ua, uw, 11, **kw)
-        again = bitplane_mac_noisy(ua, uw, 11, **kw)
+        again = bitplane_mac_noisy(ua, uw, seed_row(11, dev), **kw)
         torch.cuda.synchronize()
         plain = bitplane_mac_noisy_torch(ua, uw, 11, **kw)
         worst = max(worst, (out - plain).abs().max().item())
@@ -1071,47 +1114,37 @@ def phase_flash_attn(torch, dev):
     return max(worst.values()), worst
 
 
-def kernel_wrappers():
-    """name -> the wrapper whose ``launches`` counts that kernel."""
-    from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
-                                                      bitplane_mac_noisy)
-    from repro_torch.kernels.flash_attn.ops import flash_attention
-    from repro_torch.kernels.imc_mac.ops import imc_mac, imc_mac_dequant
-    from repro_torch.kernels.paged_attn.ops import paged_attention
-    from repro_torch.kernels.rbl_decode.ops import rbl_decode_mac
-
-    return {"imc_mac": imc_mac, "paged_attn": paged_attention,
-            "bitplane_mac": bitplane_mac, "flash_attn": flash_attention,
-            "bitplane_mac_noisy": bitplane_mac_noisy,
-            "imc_mac_dequant": imc_mac_dequant,
-            "rbl_decode_mac": rbl_decode_mac}
-
-
-# the imc_mac and attention wrappers also count each of their two kernels
-VARIANTS = {"imc_mac_split": ("imc_mac", "split_launches"),
-            "imc_mac_tiled": ("imc_mac", "tiled_launches"),
-            "imc_mac_dequant_split": ("imc_mac_dequant", "split_launches"),
-            "imc_mac_dequant_tiled": ("imc_mac_dequant", "tiled_launches"),
-            "flash_attn_tc": ("flash_attn", "tc_launches"),
-            "flash_attn_simt": ("flash_attn", "simt_launches"),
-            "paged_attn_split": ("paged_attn", "split_launches"),
-            "paged_attn_staged": ("paged_attn", "staged_launches")}
-
-
 def zero_counts():
-    wrappers = kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    for name, attr in VARIANTS.values():
-        setattr(wrappers[name], attr, 0)
+    from repro_torch.kernels import launches
+
+    launches.zero()
 
 
 def read_counts():
-    wrappers = kernel_wrappers()
-    counts = {name: fn.launches for name, fn in wrappers.items()}
-    counts.update({v: getattr(wrappers[name], attr)
-                   for v, (name, attr) in VARIANTS.items()})
-    return counts
+    """Every launch counter (``repro_torch.kernels.launches.KERNELS``, the
+    table the Engine counts replays by): each kernel's under its name, and
+    each of the imc_mac and attention wrappers' two kernels apart."""
+    from repro_torch.kernels import launches
+
+    return launches.read()
+
+
+def device_launches(torch, fn):
+    """``fn()`` under ``torch.profiler``, and the port's kernels it ran on
+    the device, counted by ``read_counts``'s keys from the names of the
+    kernels the profiler traced (a graph replay's kernels among them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import launches
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, launches.device_counts(
+        (e.key, e.count) for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA)
 
 
 def first_prefill(torch, dev, params, cfg, prompt, noise_seed=None,
@@ -1133,30 +1166,29 @@ def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def serve_path(torch, dev, cfg, params, prompts, tag, must, never=(),
-               noise_seed=0):
-    """Serve the six requests through ``Server``; every launch counter is
-    zeroed just before and read just after.  Each kernel in ``must`` has to
-    launch, each in ``never`` and in ``MACRO_KERNELS`` must not.  Also counts
-    one decode step's and one prefill's launches at the server's shapes."""
-    never = tuple(never) + MACRO_KERNELS
-    from repro_torch.kernels.common import mix_seed
+def serve_once(torch, dev, engine, cfg, params, prompts, tag, must,
+               never=(), fail_at=None):
+    """Serve the requests once through a ``Server`` on ``engine``; every
+    launch counter is zeroed just before and read just after.  Each kernel
+    in ``must`` has to launch, each in ``never`` and in ``MACRO_KERNELS``
+    must not."""
     from repro_torch.launch.serve import slo_summary
     from repro_torch.launch.server import Request, Server
-    from repro_torch.models.model import decode_step
     from repro_torch.telemetry import Registry
 
-    server = Server(cfg, params, slots=4, kv="paged", block_size=16,
-                    buckets=(16, 32, 64), registry=Registry(), device=dev,
-                    noise_seed=noise_seed)
+    never = tuple(never) + MACRO_KERNELS
+    server = Server(cfg, params, engine=engine, slots=4, kv="paged",
+                    block_size=16, buckets=(16, 32, 64), registry=Registry(),
+                    fail_at=fail_at)
+    captures, replays = engine.stats.captures, engine.stats.replays
     zero_counts()
     t0 = time.perf_counter()
     handles = [server.submit(Request(p, max_new_tokens=MAX_NEW))
                for p in prompts]
     server.drain()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-
     if not all(h.done and len(h.tokens) == MAX_NEW for h in handles):
         raise AssertionError(f"{tag}: not every request finished with its "
                              "tokens")
@@ -1169,31 +1201,134 @@ def serve_path(torch, dev, cfg, params, prompts, tag, must, never=(),
                                  f"{launches[name]} times, it must not")
     server.alloc.check()
     slos = slo_summary(server)
+    run = {"launches": launches, "slos": slos, "wall_s": wall,
+           "decode_ticks": server.decode_ticks,
+           "recoveries": server.recoveries,
+           "captures": engine.stats.captures - captures,
+           "replays": engine.stats.replays - replays,
+           "streams": [h.tokens for h in handles]}
+    t, p = slos["ttft_ms"], slos["tpot_ms"]
     log(f"[6] {tag}: served {len(handles)} requests in {wall:.2f} s, "
-        f"{server.decode_ticks} decode ticks; launches {launches}")
-    log(f"[6] {tag}: TTFT p50 {slos['ttft_ms']['p50']:.2f} ms, TPOT p50 "
-        f"{slos['tpot_ms']['p50']:.2f} ms, decode "
-        f"{slos['decode_tokens_per_s']:.1f} tok/s")
+        f"{server.decode_ticks} decode ticks, {run['captures']} "
+        f"{'captures' if engine.graphs else 'bindings'}, {run['replays']} "
+        f"{'replays' if engine.graphs else 'eager steps'}; TTFT p50/p95 {t['p50']:.2f}/"
+        f"{t['p95']:.2f} ms, TPOT p50/p95 {p['p50']:.2f}/{p['p95']:.2f} ms,"
+        f" decode {slos['decode_tokens_per_s']:.1f} tok/s; launches "
+        f"{launches}")
+    return server, run
 
-    with torch.inference_mode():
-        zero_counts()  # one decode step at the server's shapes (4 slots)
-        tok = torch.zeros((4, 1), dtype=torch.int32, device=dev)
-        table = torch.from_numpy(server.alloc.table()).to(dev)
-        decode_step(params, server.cache, tok, cfg, block_table=table,
-                    noise_seed=1)
-        torch.cuda.synchronize()
-        per_step = read_counts()
-    zero_counts()  # one bucket-16 prefill, with the server's first seed
+
+def serve_path(torch, dev, cfg, params, prompts, tag, must, never=(),
+               noise_seed=0):
+    """Serve the six requests four times, in turns: through an
+    ``Engine(graphs=False)`` (eager steps, the oracle), an ``Engine``
+    (CUDA graphs), the graph engine again and the eager one again.  The
+    four token streams must be equal; the graph engine captures one prefill
+    and one admission graph per bucket used and one decode graph, and none
+    on its second serve; its second serve (replays only) launches what the
+    eager serve launches.  Then a ``fail_at`` drill through the graph
+    engine: no capture, and the streams of the run without a fault (noisy:
+    of the same drill through the eager engine).  Last, one decode step and
+    one bucket-16 prefill replayed from the graph engine's graphs under
+    ``torch.profiler``: the port's kernels the device ran, counted by name,
+    must equal the launches the graphs' captures recorded (which every
+    replay adds to the counters), so a kernel missing from a graph or in it
+    twice fails here."""
+    import numpy as np
+
+    from repro_torch.kernels.common import mix_seed
+    from repro_torch.launch.engine import Engine
+    from repro_torch.telemetry import Registry
+
+    engines = {"eager": Engine(dev, noise_seed=noise_seed,
+                               registry=Registry(), graphs=False),
+               "graph": Engine(dev, noise_seed=noise_seed,
+                               registry=Registry())}
+    if engines["eager"].graphs or not engines["graph"].graphs:
+        raise AssertionError(f"{tag}: the engines' graphs are not as asked")
+    runs = {}
+    for name in ("eager", "graph", "graph2", "eager2"):
+        _, runs[name] = serve_once(torch, dev, engines[name.rstrip("2")],
+                                   cfg, params, prompts, f"{tag} {name}",
+                                   must, never)
+    streams = runs["eager"]["streams"]
+    for name, run in runs.items():
+        if run["streams"] != streams:
+            raise AssertionError(f"{tag}: the {name} serve's token streams "
+                                 "differ from the eager serve's")
+    buckets = {next(b for b in (16, 32, 64) if len(p) <= b) for p in prompts}
+    want = 2 * len(buckets) + 1
+    if runs["graph"]["captures"] != want or runs["graph2"]["captures"]:
+        raise AssertionError(
+            f"{tag}: {runs['graph']['captures']} and "
+            f"{runs['graph2']['captures']} captures in the two graph serves;"
+            f" expected {want} (prefill + admission per bucket of "
+            f"{sorted(buckets)}, one decode) and 0")
+    if runs["graph2"]["launches"] != runs["eager"]["launches"]:
+        raise AssertionError(f"{tag}: the replayed serve launched "
+                             f"{runs['graph2']['launches']}, the eager one "
+                             f"{runs['eager']['launches']}")
+    graph = engines["graph"]
+    server, drill = serve_once(torch, dev, graph, cfg, params, prompts,
+                               f"{tag} graph, fail_at=(1,)", must, never,
+                               fail_at=(1,))
+    if drill["recoveries"] != 1 or drill["captures"]:
+        raise AssertionError(f"{tag}: the drill recovered "
+                             f"{drill['recoveries']} times with "
+                             f"{drill['captures']} captures; expected 1, 0")
+    if cfg.imc_fabric is not None and cfg.imc_fabric.noisy:
+        _, edrill = serve_once(torch, dev, engines["eager"], cfg, params,
+                               prompts, f"{tag} eager, fail_at=(1,)", must,
+                               never, fail_at=(1,))
+        want_drill = edrill["streams"]
+    else:
+        want_drill = streams
+    if drill["streams"] != want_drill:
+        raise AssertionError(f"{tag}: the drill's streams differ")
+
+    captures = graph.stats.captures
+    zero_counts()  # one decode step replayed at the server's shapes
+    _, traced = device_launches(torch, lambda: graph.decode_step(cfg)(
+        (params, server.cache), {"token": np.zeros((4, 1), np.int32),
+                                 "block_table": server.alloc.table()},
+        graph.noise_seed(1 << 20)))
+    per_step = read_counts()
+    zero_counts()  # one bucket-16 prefill replayed, with the first seed
+    padded = np.zeros((1, 16), np.int32)
+    padded[0, :len(prompts[0])] = prompts[0]
+    replayed, traced_prefill = device_launches(
+        torch, lambda: graph.prefill_step(cfg, 0, 16)((params,), {
+            "tokens": padded, "length": np.int32(len(prompts[0]))},
+            graph.noise_seed(0, 0))[0].float().cpu())
+    per_prefill = read_counts()
+    for what, seen, counted in (("decode step", traced, per_step),
+                                ("prefill", traced_prefill, per_prefill)):
+        if seen != counted:
+            raise AssertionError(
+                f"{tag}: the replayed {what} launched {seen} on the device "
+                f"(the profiler's kernels), its capture recorded {counted}")
+    if graph.stats.captures != captures:
+        raise AssertionError(f"{tag}: counting a step captured a graph")
     first = first_prefill(torch, dev, params, cfg, prompts[0],
                           noise_seed=mix_seed(noise_seed, 0, 0))
-    per_prefill = read_counts()
-    if handles[0].tokens[0] != int(first[0].argmax()):
+    if not torch.equal(replayed, first):
+        raise AssertionError(f"{tag}: the replayed prefill's logits differ "
+                             "from the eager prefill's")
+    if streams[0][0] != int(first[0].argmax()):
         raise AssertionError(f"{tag}: the server's first token is not the "
                              "argmax of its prefill logits")
-    return {"launches": launches, "per_decode_step": per_step,
-            "per_prefill": per_prefill, "slos": slos, "wall_s": wall,
-            "decode_ticks": server.decode_ticks,
-            "streams": [h.tokens for h in handles]}, first
+    log(f"[6] {tag}: eager, graph, graph, eager and the drill serve equal "
+        f"streams; {want} captures, then none; one decode step replayed "
+        f"launches {per_step}")
+    return {"launches": runs["graph2"]["launches"],
+            "launches_eager": runs["eager"]["launches"],
+            "per_decode_step": per_step, "per_prefill": per_prefill,
+            "slos": {k: r["slos"] for k, r in runs.items()},
+            "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+            "captures": runs["graph"]["captures"],
+            "replays": runs["graph2"]["replays"],
+            "decode_ticks": runs["graph"]["decode_ticks"],
+            "drill_slos": drill["slos"], "streams": streams}, first
 
 
 def served_model(torch, dev):
@@ -1238,6 +1373,100 @@ def serve_noisy(torch, dev):
                                   "wall_s")}
 
 
+def log_turns(tag, res):
+    """The four serves' SLOs side by side: eager, graph, graph, eager."""
+    def fmt(v):
+        return "none" if v is None else f"{v:.2f}"
+
+    parts = []
+    for name, slo in res["slos"].items():
+        parts.append(f"{name} TTFT p50/p95 {fmt(slo['ttft_ms'].get('p50'))}/"
+                     f"{fmt(slo['ttft_ms'].get('p95'))} ms, TPOT p50/p95 "
+                     f"{fmt(slo['tpot_ms'].get('p50'))}/"
+                     f"{fmt(slo['tpot_ms'].get('p95'))} ms, "
+                     f"{fmt(slo['decode_tokens_per_s'])} tok/s")
+    log(f"[6] {tag} in turns: " + "; ".join(parts))
+
+
+def phase_qwen(torch, dev):
+    """6e: ``qwen2.5-3b`` at full width (d_model 2048, 16 heads over 2 KV
+    heads, hd 128, SwiGLU d_ff 11008, QKV bias, tied embeddings over a
+    151936 vocabulary), depth cut to ``QWEN_LAYERS`` layers, random weights
+    from seed 0, served through the Engine in ``exact`` and in ``sim`` with
+    flash prefill (``serve_path``'s turns, captures and drill); gated as
+    the demonstrator is: launches per step, ``sim`` prefill logits equal to
+    ``exact``'s, card logits within ``LOGIT_RTOL`` of the CPU's plain
+    path."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.fabric import FabricSpec
+    from repro_torch.models.model import init_params, prefill
+
+    base = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=QWEN_LAYERS)
+    exact_cfg = dataclasses.replace(base, fabric=FabricSpec(mode="exact"))
+    sim_cfg = dataclasses.replace(base, fabric=FabricSpec(mode="sim"),
+                                  use_flash_kernel=True)
+    params = init_params(exact_cfg, torch.Generator(device=dev).manual_seed(
+        0), dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, base.vocab_size, n).astype(np.int32)
+               for n in PROMPTS]
+    n, proj = base.n_layers, 7 * base.n_layers  # q k v o gate up down
+    exact, card = serve_path(torch, dev, exact_cfg, params, prompts,
+                             "qwen exact", must=("imc_mac", "paged_attn"),
+                             never=("bitplane_mac", "flash_attn",
+                                    "bitplane_mac_noisy",
+                                    "paged_attn_staged"))
+    log_turns("qwen exact", exact)
+    step = exact["per_decode_step"]
+    if step["imc_mac_split"] != proj or step["imc_mac_tiled"] or \
+            step["paged_attn_split"] != n:
+        raise AssertionError(f"qwen exact: {step} per decode step; expected "
+                             f"{proj} split-K imc_mac and {n} split "
+                             "paged_attn launches")
+    sim, sim_flash = serve_path(
+        torch, dev, sim_cfg, params, prompts, "qwen sim+flash",
+        must=("bitplane_mac", "flash_attn", "paged_attn"),
+        never=("imc_mac", "bitplane_mac_noisy", "flash_attn_simt",
+               "paged_attn_staged"))
+    log_turns("qwen sim+flash", sim)
+    if sim["per_decode_step"]["bitplane_mac"] != proj or \
+            sim["per_decode_step"]["paged_attn_split"] != n or \
+            sim["per_prefill"]["flash_attn_tc"] != n:
+        raise AssertionError(f"qwen sim+flash: {sim['per_decode_step']} per "
+                             f"decode step, {sim['per_prefill']} per prefill")
+    sim_dense = first_prefill(torch, dev, params, dataclasses.replace(
+        sim_cfg, use_flash_kernel=False), prompts[0])
+    if not torch.equal(sim_dense, card):
+        raise AssertionError("qwen: sim prefill logits differ from exact's "
+                             "on the card")
+    with torch.inference_mode():
+        padded = torch.zeros((1, 16), dtype=torch.int32)
+        padded[0, :PROMPTS[0]] = torch.from_numpy(prompts[0])
+        batch = {"tokens": padded, "length": PROMPTS[0]}
+        cpu_params = _to_cpu(params)
+        plain, _ = prefill(cpu_params, batch, exact_cfg)
+        plain_flash, _ = prefill(cpu_params, batch, dataclasses.replace(
+            exact_cfg, use_flash_kernel=True))
+    scale = plain.abs().max().item()
+    err = (card - plain).abs().max().item()
+    flash_err = (sim_flash - plain_flash).abs().max().item()
+    if not (err <= LOGIT_RTOL * scale and flash_err <= LOGIT_RTOL * scale):
+        raise AssertionError(f"qwen prefill logits card vs CPU: max err "
+                             f"{err} (exact), {flash_err} (sim+flash) > "
+                             f"{LOGIT_RTOL} x {scale}")
+    log(f"[6e] qwen2.5-3b ({n} of 36 layers, full width): sim prefill "
+        f"logits bit-identical to exact; card vs CPU plain path max err "
+        f"{err:.3g} (exact), {flash_err:.3g} (sim+flash), largest |logit| "
+        f"{scale:.3g}")
+    exact.update(logit_err=err, logit_scale=scale)
+    sim.update(logit_err=flash_err, logit_scale=scale)
+    return {"exact": exact, "sim_flash": sim}
+
+
 def phase_server(torch, dev):
     import dataclasses
 
@@ -1251,6 +1480,7 @@ def phase_server(torch, dev):
                              must=("imc_mac", "paged_attn"),
                              never=("bitplane_mac", "flash_attn",
                                     "bitplane_mac_noisy", "paged_attn_staged"))
+    log_turns("exact", exact)
     # decode's 72 projections (4 slots) take the split-K kernel only
     step = exact["per_decode_step"]
     if step["imc_mac_split"] != 6 * cfg.n_layers or step["imc_mac_tiled"]:
@@ -1296,6 +1526,7 @@ def phase_server(torch, dev):
         must=("bitplane_mac", "flash_attn", "paged_attn"),
         never=("imc_mac", "bitplane_mac_noisy", "flash_attn_simt",
                "paged_attn_staged"))
+    log_turns("sim+flash", sim)
     # the redesigned kernels carry the served path: 12 layers, 12 launches
     # of each per bucketed prefill and per decode step
     for per, new, old in (("per_prefill", "flash_attn_tc", "flash_attn_simt"),
@@ -1347,17 +1578,14 @@ def phase_server(torch, dev):
     noisy, noisy_first = serve_path(torch, dev, noisy_cfg, params, prompts,
                                     "sim+noise+flash", must, never,
                                     noise_seed=NOISE_SEED)
+    log_turns("sim+noise+flash", noisy)
     per_step = noisy["per_decode_step"]["bitplane_mac_noisy"]
     if per_step != 6 * cfg.n_layers:  # 72: 4 attention + 2 MLP projections
         raise AssertionError(f"sim+noise: {per_step} bitplane_mac_noisy "
                              f"launches per decode step, expected "
                              f"{6 * cfg.n_layers}")
-    replay, _ = serve_path(torch, dev, noisy_cfg, params, prompts,
-                           "sim+noise+flash (replay)", must, never,
-                           noise_seed=NOISE_SEED)
-    if replay["streams"] != noisy["streams"]:
-        raise AssertionError("sim+noise: the same noise_seed gave different "
-                             "token streams")
+    # serve_path served it four times under one noise_seed, eagerly and
+    # from graphs that read their seeds from device memory: equal streams
     stress_cfg = dataclasses.replace(sim_cfg, fabric=FabricSpec(
         mode="sim", noise=NoiseSpec(**STRESS)))
     s1, s2 = (first_prefill(torch, dev, params, stress_cfg, prompts[0],
@@ -1372,7 +1600,8 @@ def phase_server(torch, dev):
             raise AssertionError("sim+noise: prefill logits not finite")
     rel_cal = rel_l2(noisy_first, sim_flash)
     rel_stress = [rel_l2(s1, sim_flash), rel_l2(s2, sim_flash)]
-    log(f"[6] sim+noise+flash: the same noise_seed replays identical streams;"
+    log(f"[6] sim+noise+flash: one noise_seed gives one stream, eager and "
+        f"from graphs;"
         f" prefill logits vs noise-free sim+flash: relative L2 {rel_cal:.4g} "
         f"at the calibrated sigma, {rel_stress[0]:.4g} / {rel_stress[1]:.4g} "
         f"at the stress sigmas (seeds 1 / 2, which differ: relative L2 "
@@ -1380,8 +1609,7 @@ def phase_server(torch, dev):
         f"{'equal' if int(noisy_first.argmax()) == int(sim_flash.argmax()) else 'differs'}"
         " to noise-free at the calibrated sigma")
     noisy.update(rel_vs_clean_calibrated=rel_cal,
-                 rel_vs_clean_stress=rel_stress,
-                 replay_slos=replay["slos"])
+                 rel_vs_clean_stress=rel_stress)
     return {"exact": exact, "sim_flash": sim, "sim_noise": noisy}
 
 
@@ -1404,6 +1632,7 @@ def phase_macro(torch, dev):
                                   read_bit, thermometer_code, write_row)
     from repro_torch.core.logic import WORD_OPS
     from repro_torch.core.quant import quantize
+    from repro_torch.kernels import launches
     from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
     from repro_torch.kernels.imc_mac.ops import imc_mac_dequant
     from repro_torch.kernels.rbl_decode.ops import rbl_decode_mac
@@ -1488,7 +1717,7 @@ def phase_macro(torch, dev):
         ys[mode] = Fabric(FabricSpec(mode=mode), dev).matmul(x, w)
         torch.cuda.synchronize()
         delta = {k: v - before[k] for k, v in read_counts().items()
-                 if k not in VARIANTS}
+                 if k in launches.KERNELS}
         if delta[kernel] != 1 or sum(delta.values()) != 1:
             raise AssertionError(f"Fabric({mode}).matmul launched {delta}; "
                                  f"expected {kernel} once and nothing else")
@@ -2070,10 +2299,12 @@ def time_bitplane_mac_noisy(torch, dev):
     bytes against one Philox4x32-10 for every element a draw can change, at
     the integer issue rate) and ``sfu_bound_ms``, a hardware Box-Muller's
     (log, sqrt and cos per normal and sqrt(k) on the special-function
-    units), which the bit-exact stream cannot reach."""
+    units), which the bit-exact stream cannot reach.  The seed is a
+    seed-table row in device memory, as the served steps pass it."""
     from repro_torch.core.constants import MC_SIGMA_VK
     from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac_noisy,
                                                       bitplane_mac_noisy_torch)
+    from repro_torch.kernels.common import seed_row
 
     g = torch.Generator(device=dev).manual_seed(5)
     shapes = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
@@ -2088,10 +2319,12 @@ def time_bitplane_mac_noisy(torch, dev):
     dense_a = {k: torch.full_like(v, 255) for k, v in a.items()}
     dense_ws = [[torch.full_like(w, 255) for w in lw] for lw in ws]
 
+    seed = seed_row(5, dev)  # in device memory, as the served steps read it
+
     def step(fn, act, weights, **kw):
         for lw in weights:
             for w in lw:
-                fn(act[w.shape[0]], w, 5, bits_a=bits, bits_w=bits,
+                fn(act[w.shape[0]], w, seed, bits_a=bits, bits_w=bits,
                    rows=rows, **kw)
 
     out = {}
@@ -2181,6 +2414,64 @@ def time_flash_attn(torch, dev):
                       "floor: 12 one-element launches from a graph")
 
 
+TURN_PATHS = {"exact": (), "sim": ("--imc", "sim"),
+              "noisy": ("--imc", "sim", "--imc-noise-sigma", "0.05")}
+
+
+def eager_turns(parent: str) -> dict:
+    """``--eager-turns PARENT``: the parent tree's serving (eager; PARENT
+    is its checkout) against this tree's eager (``--eager``) and graph
+    serving, on one card in turns (parent, eager, graph, graph, eager,
+    parent) for each of ``TURN_PATHS``.  A turn runs
+    ``repro_torch.launch.serve`` (full-width imc-paper-110m, six requests of
+    32 tokens, 12 new; TTFT, TPOT and decode tokens/s; a graph serve's
+    captures fall in it) and then ``repro_torch.launch.profile`` (8 decode
+    ticks under the profiler after 3 warm-up ticks: device busy ms, idle
+    share, device ops and ``cudaLaunchKernel`` calls per step) in the
+    tree, each in a process of its own, after every kernel of the tree is
+    built."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": (os.path.abspath(parent), ()),
+             "eager": (here, ("--eager",)), "graph": (here, ())}
+
+    def run(root, args, timeout=600):
+        r = subprocess.run([sys.executable, *args], cwd=root, env={
+            **os.environ, "PYTHONPATH": os.path.join(root, "src")},
+            capture_output=True, text=True, timeout=timeout)
+        if r.returncode:
+            raise RuntimeError(f"{args} in {root} exited {r.returncode}: "
+                               f"{r.stderr[-2000:]}")
+        return r.stdout
+
+    for root in {t[0] for t in trees.values()}:
+        run(root, ["-c", "from repro_torch.kernels import build; "
+                         "build.build_all()"], timeout=900)
+    out = {}
+    for path, fab in TURN_PATHS.items():
+        for who in ("parent", "eager", "graph", "graph", "eager", "parent"):
+            root, extra = trees[who]
+            serve = json.loads(run(root, ["-m", "repro_torch.launch.serve",
+                                          *fab, *extra]).splitlines()[-1])
+            prof = json.loads(run(root, ["-m", "repro_torch.launch.profile",
+                                         *fab, *extra]).splitlines()[-1])
+            launch = [c["per_step"] for c in prof["top_runtime_calls"]
+                      if c["name"] == "cudaLaunchKernel"]
+            turn = {"ttft_p50_ms": serve["ttft_ms"]["p50"],
+                    "tpot_p50_ms": serve["tpot_ms"]["p50"],
+                    "tpot_p95_ms": serve["tpot_ms"]["p95"],
+                    "decode_tok_s": serve["decode_tokens_per_s"],
+                    "captures": serve.get("captures"),
+                    "profiled_step_ms": prof["step_ms"],
+                    "device_busy_ms_per_step":
+                        prof["device_busy_ms_per_step"],
+                    "device_idle_share": prof["device_idle_share"],
+                    "device_ops_per_step": prof["device_ops_per_step"],
+                    "cudaLaunchKernel_per_step": launch[0] if launch else 0}
+            log(f"[turns] {path} {who}: {json.dumps(turn)}")
+            out.setdefault(path, {}).setdefault(who, []).append(turn)
+    return out
+
+
 TIMERS = {"imc_mac": time_imc_mac, "paged_attn": time_paged_attn,
           "bitplane_mac": time_bitplane_mac, "flash_attn": time_flash_attn,
           "bitplane_mac_noisy": time_bitplane_mac_noisy,
@@ -2227,6 +2518,11 @@ def main() -> int:
                           "kind": kind}))
         print(smi)
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--eager-turns":
+        print(json.dumps({"eager_turns": eager_turns(sys.argv[2]),
+                          "kind": kind}))
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--rbl-phases"]:
         from repro_torch.kernels import build
 
@@ -2255,6 +2551,7 @@ def main() -> int:
     exact, sim = served["exact"], served["sim_flash"]
     noisy = served["sim_noise"]
     macro = phase_macro(torch, dev)
+    served["qwen"] = phase_qwen(torch, dev)
     timed = {name: fn(torch, dev) for name, fn in TIMERS.items()}
     timed["bitplane_mac_noisy"]["noise_free_bitplane_mac_ms"] = \
         timed["bitplane_mac"]["ms"]

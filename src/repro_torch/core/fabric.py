@@ -54,7 +54,7 @@ from repro_torch.core.logic import OPS, add_nbit, logic_from_count, logic_word
 from repro_torch.core.quant import (quantize, signed_product_correction,
                                     to_offset_binary)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.common import mix_seed
+from repro_torch.kernels.common import mix_seed, seed_int
 
 MODES = ("exact", "sim")
 BACKENDS = ("auto", "torch", "cuda")
@@ -157,7 +157,8 @@ class FabricSpec:
 # ---------------------------------------------------------------- registry
 # (mode, backend, noisy) -> engine(qa, qw, spec, seed) -> int32 accumulator
 # qa: int8[..., K] signed quantized activations; qw: int8[K, N] weights;
-# seed: the call's 64-bit noise seed (None for a noise-free spec).
+# seed: the call's noise seed, a 64-bit integer or a seed-table row (None
+# for a noise-free spec).
 _ENGINES: Dict[Tuple[str, str, bool], Callable] = {}
 
 
@@ -214,9 +215,12 @@ def _sim_torch(qa, qw, spec, seed):
 @register_engine("sim", "torch", True)
 def _sim_torch_noisy(qa, qw, spec, seed):
     u_a, u_w, corr = _sim_correction(qa, qw, spec)
+    # the per-pair torch.Generators take a host seed: a seed-table row is
+    # read back (this engine runs on the CPU only)
     uu = bitserial_matmul_unsigned(
         u_a, u_w, bits_a=spec.bits_a, bits_w=spec.bits_w, rows=spec.rows,
-        mode="sim", seed=seed, mismatch_sigma=spec.noise.mismatch_sigma,
+        mode="sim", seed=seed_int(seed),
+        mismatch_sigma=spec.noise.mismatch_sigma,
         comparator_offset_sigma=spec.noise.comparator_offset_sigma)
     return uu - corr
 
@@ -252,7 +256,10 @@ def fabric_matmul(x: torch.Tensor, w: torch.Tensor,
     Activations quantize per tensor (dynamic, in ``x``'s dtype) at
     ``bits_a``; weights per output channel at ``bits_w``.  The dequant runs
     in the reference's order, ``acc.f32 * scale_a * scale_w``, left to
-    right.  ``seed`` (a 64-bit integer) is required iff ``spec.noisy``.
+    right.  ``seed`` is required iff ``spec.noisy``: a 64-bit integer, or
+    a seed-table row (an int32 (2,) tensor of the seed's two uint32 words,
+    :func:`~repro_torch.kernels.common.seed_row`), which the noisy kernel
+    reads from device memory.
     """
     if spec.noisy and seed is None:
         raise ValueError(f"spec {spec.label} is noisy: pass seed=")

@@ -10,8 +10,9 @@
 // _make_noisy_kernel) in src/repro/kernels/bitplane_mac/bitplane_mac.py.
 // There each grid step seeds the TPU's hardware PRNG from the key words and
 // the step index; here every draw comes from Philox4x32-10, written below,
-// keyed by the two seed words (kernel arguments: no host copy, no sync) and
-// counted by (n, m, group, pair << 8 | d >> 1) alone, so the draws depend on
+// keyed by the call's two seed words, which the kernel reads from device
+// memory (a CUDA graph replays one launch, and the words written there
+// before each replay key that replay's stream), and counted by (n, m, group, pair << 8 | d >> 1) alone, so the draws depend on
 // the element, never on the tile, warp or split that computes it, and the
 // split-K partial sums still meet exactly by integer atomicAdd.  The plain
 // version (kernels/bitplane_mac/ops.py::bitplane_mac_noisy_torch) computes
@@ -117,15 +118,16 @@ __shared__ uint32_t cut_s[MAX_ROWS + 1];  // mismatch alone: keep dec0 below
 __shared__ int corr_s[BM][BN];
 __shared__ uint32_t queue_s[WARPS][32 * LANE_STRIDE];  // [lane][slot]
 
-// Philox4x32-10's round keys, computed once per launch on the host and
-// passed by value: in the kernel they are constant-bank operands of the
-// rounds' XORs.
+// Philox4x32-10's round keys, computed once per thread from the call's two
+// seed words (uint32, low then high), read from device memory.
 struct RoundKeys {
   uint32_t k0[10];
   uint32_t k1[10];
 };
 
-inline RoundKeys round_keys(uint32_t k0, uint32_t k1) {
+__device__ __forceinline__ RoundKeys round_keys(const uint32_t* __restrict__ seed) {
+  const uint32_t k0 = __ldg(seed);
+  const uint32_t k1 = __ldg(seed + 1);
   RoundKeys rk;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
@@ -468,8 +470,9 @@ bitplane_mac_noisy_kernel(const uint8_t* __restrict__ a, const uint8_t* __restri
                           const float* __restrict__ thr, int32_t* __restrict__ out,
                           int M, int N, int K, int PA, int PW, int rows,
                           int groups_per_split, bool accumulate,
-                          const RoundKeys rk, float ms, float cs) {
+                          const uint32_t* __restrict__ seed, float ms, float cs) {
   __shared__ SmemG<NGK> s;
+  const RoundKeys rk = round_keys(seed);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -576,12 +579,13 @@ bitplane_mac_noisy_kernel(const uint8_t* __restrict__ a, const uint8_t* __restri
 
 // a: uint8[M,K] row-major, w: uint8[K,N] row-major (offset-binary values; only
 // the low bits_a / bits_w bits are read), thr: float32[rows], out: int32[M,N];
-// key0/key1: the Philox key words; a sigma <= 0 draws nothing.  Returns a
-// cudaError_t value.
+// seed: device memory holding the two uint32 Philox key words (low, high),
+// read by the kernel; a sigma <= 0 draws nothing.  Returns a cudaError_t
+// value.
 extern "C" int bitplane_mac_noisy_launch(const void* a, const void* w, const void* thr,
                                          void* out, int M, int N, int K, int bits_a,
-                                         int bits_w, int rows, uint32_t key0,
-                                         uint32_t key1, float mismatch_sigma,
+                                         int bits_w, int rows, const void* seed,
+                                         float mismatch_sigma,
                                          float comparator_sigma, void* stream,
                                          int device) {
   cudaError_t err = cudaSetDevice(device);
@@ -606,6 +610,6 @@ extern "C" int bitplane_mac_noisy_launch(const void* a, const void* w, const voi
       static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w),
       static_cast<const float*>(thr), static_cast<int32_t*>(out), M, N, K,
       bits_a, bits_w, rows, p.per_split, p.accumulate,
-      round_keys(key0, key1), mismatch_sigma, comparator_sigma);
+      static_cast<const uint32_t*>(seed), mismatch_sigma, comparator_sigma);
   return static_cast<int>(cudaGetLastError());
 }

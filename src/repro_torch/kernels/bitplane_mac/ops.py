@@ -43,14 +43,15 @@ from repro_torch.core.decoder import thresholds
 from repro_torch.core.rbl import rbl_voltage_physics
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (U1_GRID, decode_counts_noisy,
-                                        element_normals, radius, seed_words)
+                                        element_normals, key_words, radius,
+                                        seed_row)
 
 MAX_ROWS = 32  # the kernel packs one K-group of one plane into a 32-bit word
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p,
                                                           ctypes.c_int]
 _NOISY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-    [ctypes.c_uint32] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p,
-                                                    ctypes.c_int]
+    [ctypes.c_void_p] + [ctypes.c_float] * 2 + [ctypes.c_void_p,
+                                                ctypes.c_int]
 _FNS = {}
 
 
@@ -206,7 +207,7 @@ def _noisy_decoder(key, thr, rows, bits_a, bits_w, m, mismatch_sigma,
     return decode
 
 
-def bitplane_mac_noisy_torch(u_a: torch.Tensor, u_w: torch.Tensor, seed: int,
+def bitplane_mac_noisy_torch(u_a: torch.Tensor, u_w: torch.Tensor, seed,
                              thr: torch.Tensor | None = None, *,
                              bits_a: int = 8, bits_w: int = 8,
                              rows: int = C.ROWS, mismatch_sigma=None,
@@ -214,18 +215,20 @@ def bitplane_mac_noisy_torch(u_a: torch.Tensor, u_w: torch.Tensor, seed: int,
     """Plain version of :func:`bitplane_mac_noisy`: the physics pyramid
     chunked over N, each element's normals drawn from the kernel's Philox
     stream with the kernel's counters, so it equals the kernel bit for bit.
-    The same code runs on the CPU and on the card."""
+    The same code runs on the CPU and on the card.  ``seed`` is a 64-bit
+    integer or a seed-table row (its key words are read on the row's
+    device, as the kernel reads them)."""
     if thr is None:
         thr = physics_thresholds(rows, u_a.device)
     thr = thr.to(device=u_a.device, dtype=torch.float32)
     m = u_a.reshape(-1, u_a.shape[-1]).shape[0]
-    decode = _noisy_decoder(seed_words(seed), thr, rows, bits_a, bits_w, m,
+    decode = _noisy_decoder(key_words(seed), thr, rows, bits_a, bits_w, m,
                             mismatch_sigma, comparator_offset_sigma)
     return decoded_pyramid(u_a, u_w, bits_a=bits_a, bits_w=bits_w, rows=rows,
                            decode=decode)
 
 
-def bitplane_mac_noisy(u_a: torch.Tensor, u_w: torch.Tensor, seed: int,
+def bitplane_mac_noisy(u_a: torch.Tensor, u_w: torch.Tensor, seed,
                        thr: torch.Tensor | None = None, *, bits_a: int = 8,
                        bits_w: int = 8, rows: int = C.ROWS,
                        mismatch_sigma: float | None = None,
@@ -234,10 +237,15 @@ def bitplane_mac_noisy(u_a: torch.Tensor, u_w: torch.Tensor, seed: int,
     """Fused full-pyramid bit-serial matmul with the NoiseSpec Monte-Carlo
     in the kernel.
 
-    Same operand contract as :func:`bitplane_mac`, plus ``seed`` (a 64-bit
-    integer; its two words key the Philox stream and ride in as kernel
-    arguments) and the sigmas (None or 0 draws nothing).  Same seed ->
-    identical outputs.  Returns int32[..., N].
+    Same operand contract as :func:`bitplane_mac`, plus ``seed`` and the
+    sigmas (None or 0 draws nothing).  ``seed``'s two words key the Philox
+    stream, and the kernel reads them from device memory: ``seed`` is a
+    seed-table row (an int32 (2,) tensor on the operands' device, the
+    uint32 words low then high, :func:`~repro_torch.kernels.common.seed_row`)
+    or a 64-bit integer, which the wrapper copies to the card first (a
+    CUDA graph captures a row's address, and the words written there before
+    each replay key that replay's stream).  Same seed -> identical outputs.
+    Returns int32[..., N].
     """
     if _on_cpu(u_a, u_w, thr):
         return bitplane_mac_noisy_torch(
@@ -247,12 +255,18 @@ def bitplane_mac_noisy(u_a: torch.Tensor, u_w: torch.Tensor, seed: int,
     a, w, t, out, batch = _operands("bitplane_mac_noisy", u_a, u_w, thr,
                                     bits_a, bits_w, rows)
     (m, k), n = a.shape, w.shape[1]
-    k0, k1 = seed_words(seed)
+    if not isinstance(seed, torch.Tensor):
+        seed = seed_row(seed, a.device)
+    if seed.dtype != torch.int32 or seed.shape != (2,) or \
+            seed.device != a.device or not seed.is_contiguous():
+        raise ValueError(f"bitplane_mac_noisy: a seed row is a contiguous "
+                         f"int32 (2,) tensor on {a.device}, got "
+                         f"{seed.dtype}{list(seed.shape)} on {seed.device}")
     fn = _entry("bitplane_mac_noisy", _NOISY_ARGTYPES)
     stream, dev = build.stream_and_device(a)
     build.check_launch("bitplane_mac_noisy", fn(
         a.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(), m, n, k,
-        bits_a, bits_w, rows, k0, k1, float(mismatch_sigma or 0.0),
+        bits_a, bits_w, rows, seed.data_ptr(), float(mismatch_sigma or 0.0),
         float(comparator_offset_sigma or 0.0), stream, dev))
     bitplane_mac_noisy.launches += 1
     return out.reshape(batch + (n,))

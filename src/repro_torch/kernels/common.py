@@ -33,6 +33,7 @@ from __future__ import annotations
 
 from typing import Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.rbl import rbl_voltage_physics
@@ -71,6 +72,40 @@ def seed_words(seed: int) -> Tuple[int, int]:
     return seed & MASK32, seed >> 32
 
 
+def seed_table(seed: int, calls: int) -> np.ndarray:
+    """The seed words of calls ``0 .. calls - 1`` under ``seed``: row ``n``
+    is ``seed_words(mix_seed(seed, n))``, as an int32 (calls, 2) array of
+    the uint32 bit patterns (the layout the noisy kernel reads)."""
+    return np.array([seed_words(mix_seed(seed, n)) for n in range(calls)],
+                    np.uint32).reshape(calls, 2).view(np.int32)
+
+
+def seed_row(seed: int, device=None) -> torch.Tensor:
+    """One seed's two words as an int32 (2,) tensor: a row of a seed
+    table, for a caller that holds a Python seed."""
+    w = np.asarray(seed_words(seed), dtype=np.uint32).view(np.int32)
+    return torch.from_numpy(w.copy()).to(device)
+
+
+def key_words(seed):
+    """The two Philox key words of ``seed``: Python ints for an integer
+    seed, int64 0-dim tensors (on the row's device, no copy to the host) for
+    a seed-table row (an int32 (2,) tensor of uint32 bit patterns)."""
+    if isinstance(seed, torch.Tensor):
+        w = seed.reshape(2).to(torch.int64) & MASK32
+        return w[0], w[1]
+    return seed_words(int(seed))
+
+
+def seed_int(seed) -> int:
+    """The 64-bit seed of ``seed`` (an integer, or a seed-table row read
+    back to the host)."""
+    if isinstance(seed, torch.Tensor):
+        lo, hi = (int(w) & MASK32 for w in seed.reshape(2).tolist())
+        return lo | hi << 32
+    return int(seed) & MASK64
+
+
 # ----------------------------------------------------------------- philox
 def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(high, low) 32-bit words of the 64-bit product of uint32 ``a`` (int64
@@ -81,13 +116,13 @@ def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return (t >> 32) + (p_hi >> 16), t & MASK32
 
 
-def philox4x32_10(counter: Sequence, key: Tuple[int, int]
-                  ) -> List[torch.Tensor]:
+def philox4x32_10(counter: Sequence, key) -> List[torch.Tensor]:
     """Philox4x32 with 10 rounds.  ``counter``: four uint32 words, each an
-    int64 tensor (broadcasting) or a Python int; ``key``: two uint32 Python
-    ints.  Returns the four uint32 output words as int64 tensors."""
+    int64 tensor (broadcasting) or a Python int; ``key``: two uint32 words,
+    Python ints or int64 0-dim tensors (:func:`key_words`).  Returns the
+    four uint32 output words as int64 tensors."""
     c = [torch.as_tensor(w, dtype=torch.int64) for w in counter]
-    k0, k1 = (int(w) & MASK32 for w in key)
+    k0, k1 = (w & MASK32 for w in key)
     for r in range(10):
         if r:
             k0 = (k0 + PHILOX_W[0]) & MASK32

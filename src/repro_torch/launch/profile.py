@@ -4,6 +4,12 @@ the port's Server.
     python -m repro_torch.launch.profile --arch imc-paper-110m --steps 8
     python -m repro_torch.launch.profile --imc sim           # the sim path
     python -m repro_torch.launch.profile --imc sim --imc-noise-sigma 0.05
+    python -m repro_torch.launch.profile --eager             # no CUDA graphs
+
+The server runs on an :class:`~repro_torch.launch.engine.Engine`: its
+steps are captured as CUDA graphs during the warm-up ticks, and the profiled
+ticks replay them (``cudaGraphLaunch`` among the runtime calls, the graphs'
+kernels among the device ops); ``--eager`` profiles eager steps instead.
 
 Admits ``--slots`` requests of mixed prompt lengths (random weights and
 prompts from ``--seed``), runs a few warm-up ticks, then profiles ``--steps``
@@ -30,6 +36,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import get_config, list_configs
 from repro_torch.core.fabric import add_fabric_cli, apply_fabric_cli
 from repro_torch.device import resolve_device
+from repro_torch.launch.engine import Engine
 from repro_torch.launch.server import Request, Server
 from repro_torch.models.model import init_params
 from repro_torch.telemetry import Registry, clock
@@ -50,6 +57,8 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None)
+    ap.add_argument("--eager", action="store_true",
+                    help="eager steps instead of CUDA graph replays")
     add_fabric_cli(ap)
     args = ap.parse_args(argv)
 
@@ -57,9 +66,10 @@ def main(argv=None):
     dev = resolve_device("cuda")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(
         args.seed), dev)
-    server = Server(cfg, params, slots=args.slots, kv="paged",
-                    block_size=16, buckets=(16, 32, 64), registry=Registry(),
-                    device=dev, noise_seed=args.seed)
+    engine = Engine(dev, noise_seed=args.seed, registry=Registry(),
+                    graphs=not args.eager)
+    server = Server(cfg, params, engine=engine, slots=args.slots,
+                    kv="paged", block_size=16, buckets=(16, 32, 64))
     rng = np.random.default_rng(args.seed)
     budget = args.warmup + args.steps + 2
     for i in range(args.slots):
@@ -69,6 +79,7 @@ def main(argv=None):
     for _ in range(args.warmup):
         server.poll()
     torch.cuda.synchronize()
+    captures = engine.stats.captures
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = clock()
@@ -76,6 +87,9 @@ def main(argv=None):
             server.poll()
         torch.cuda.synchronize()
         wall = clock() - t0
+    if engine.stats.captures != captures:
+        raise RuntimeError("the profiled ticks captured a graph: raise "
+                           "--warmup")
     if args.trace_out:
         prof.export_chrome_trace(args.trace_out)
 
@@ -93,6 +107,7 @@ def main(argv=None):
     out = {
         "device": torch.cuda.get_device_name(dev),
         "arch": cfg.name, "slots": args.slots, "steps": steps,
+        "graphs": engine.graphs,
         "fabric": cfg.imc_fabric.label if cfg.imc_fabric else "off",
         "step_ms": step_ms,
         "device_busy_ms_per_step": busy_ms,

@@ -13,8 +13,13 @@ the fabric (``--imc sim`` is the paper's analog pipeline;
 ``--imc-noise-sigma`` / ``--imc-comparator-sigma`` add its device mismatch
 and comparator offset) and ``--flash`` runs prefill attention through the
 flash-attention kernel.
+The server runs on an :class:`~repro_torch.launch.engine.Engine` with a
+straggler monitor, as the reference's launcher builds it: on the card every
+step is a CUDA graph, captured once per bucket and step kind and then
+replayed (``--eager``: eager steps, for comparison).
 Prints each request's first tokens, then TTFT, TPOT and decode
-tokens/s from the server's telemetry, with the device they were taken on.
+tokens/s from the server's telemetry, with the device they were taken on,
+and the engine's captures and replays.
 """
 from __future__ import annotations
 
@@ -28,8 +33,10 @@ import torch
 from repro_torch.configs import get_config, list_configs, reduce_config
 from repro_torch.core.fabric import add_fabric_cli, apply_fabric_cli
 from repro_torch.device import resolve_device
+from repro_torch.launch.engine import Engine
 from repro_torch.launch.server import Request, Server
 from repro_torch.models.model import init_params
+from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.telemetry import Registry, clock
 
 
@@ -69,6 +76,8 @@ def main(argv=None):
     ap.add_argument("--flash", action="store_true",
                     help="prefill attention through the flash-attention "
                          "kernel (use_flash_kernel)")
+    ap.add_argument("--eager", action="store_true",
+                    help="eager steps instead of CUDA graph replays")
     add_fabric_cli(ap)
     args = ap.parse_args(argv)
 
@@ -82,10 +91,12 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen, dev)
     bucket = max(16, args.prompt_len)
-    server = Server(cfg, params, slots=args.slots, kv=args.kv,
-                    block_size=args.block_size, buckets=(bucket,),
-                    max_seq_len=bucket + args.max_new, registry=Registry(),
-                    device=dev, noise_seed=args.seed)
+    reg = Registry()
+    engine = Engine(dev, noise_seed=args.seed, monitor=StragglerMonitor(),
+                    registry=reg, graphs=not args.eager)
+    server = Server(cfg, params, engine=engine, slots=args.slots,
+                    kv=args.kv, block_size=args.block_size,
+                    buckets=(bucket,), max_seq_len=bucket + args.max_new)
     rng = np.random.default_rng(args.seed)
     t0 = clock()
     handles = [server.submit(Request(
@@ -101,7 +112,11 @@ def main(argv=None):
     print(f"throughput: {ntok / max(dt, 1e-9):.1f} tok/s ({args.kv}, "
           f"attn={server.attn_impl}, fabric={fabric}, "
           f"flash={cfg.use_flash_kernel}, device={kind})")
-    print(json.dumps({"device": kind, **slo_summary(server)}))
+    st = engine.stats
+    print(json.dumps({"device": kind, **slo_summary(server),
+                      "graphs": engine.graphs, "captures": st.captures,
+                      "replays": st.replays,
+                      "swap_requests": engine.swap_requests}))
 
 
 if __name__ == "__main__":

@@ -22,14 +22,19 @@ An admission queue over a **paged KV cache** (see
 prompt length) behind the same API — the oracle the paged path is tested
 against.
 
-The server calls :func:`~repro_torch.models.model.prefill`,
-:func:`~repro_torch.models.model.decode_step` and
-:func:`~repro_torch.models.kv_cache.merge_prefill_cache` directly, eagerly,
-under ``torch.inference_mode()``.  Each model invocation takes its own noise
-seed ``mix_seed(noise_seed, tick, slot)`` (the reference's ``_next_key``),
-so a noisy fabric replays the same token streams under the same
-``noise_seed``.  The reference's ``Engine`` (a step cache, the straggler
-monitor) is not ported yet.
+Every model invocation is a step of an :class:`~repro_torch.launch.engine
+.Engine`: one prefill step per bucket, one admission step and one decode
+step, each bound to static buffers and, on the card, captured once as a CUDA
+graph and replayed (``engine=`` shares an Engine between servers; by default
+each Server builds its own).  The batch cache is the Engine's
+:class:`~repro_torch.launch.engine.ServeState`, taken (zeroed in place) when
+a server starts and after a fault, so neither a new server nor a recovery
+captures anew.  Each invocation takes the Engine's noise seed
+``mix_seed(noise_seed, tick, slot)`` (the reference's ``_next_key``), so a
+noisy fabric replays the same token streams under the same ``noise_seed``.
+Sampling stays on the host: the logits are copied out after each step.
+Each decode step's device-complete wall time feeds
+:meth:`Engine.observe_step_time` under ``host``.
 
 Serving SLOs are host-side telemetry in the server's registry:
 ``server.ttft_s``, ``server.tpot_s``, ``server.admitted`` /
@@ -41,18 +46,17 @@ device-complete.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, device_of, resolve_device
-from repro_torch.kernels.common import mix_seed
+from repro_torch.launch.engine import Engine, ServeState
 from repro_torch.models.kv_cache import (BlockAllocator, broadcast_slots,
-                                         init_paged_cache,
-                                         merge_prefill_cache)
-from repro_torch.models.model import decode_step, prefill
+                                         init_paged_cache)
 from repro_torch.models.transformer import StackCache, check_supported
 from repro_torch.runtime.fault_tolerance import InjectedFailure
 from repro_torch.telemetry import Registry, clock, get_registry, span
@@ -94,6 +98,9 @@ class Server:
 
     Parameters
     ----------
+    engine: the :class:`~repro_torch.launch.engine.Engine` whose steps serve
+        every prefill, admission and decode; ``None`` builds one on the
+        server's device with the server's ``noise_seed`` and registry.
     slots: max concurrent requests (the lockstep decode batch).
     kv: ``"paged"`` (block tables, ragged admission) or ``"ring"`` (the
         fixed-ring oracle; uniform ``len(prompt)`` and ``max_new_tokens``).
@@ -102,33 +109,60 @@ class Server:
     buckets: padded prompt lengths to prefill at (ascending).
     max_seq_len: hard per-request cap on ``len(prompt) + max_new_tokens``;
         fixes the decode step's logical attention span.
+    attn_impl: paged decode attention, in the port's words (``auto``,
+        ``torch`` or ``cuda``, :mod:`repro_torch.kernels.paged_attn.ops`);
+        ``None`` keeps the config's.  Ignored for ``kv="ring"``.
+    host: this server's fleet host index; decode-step wall times feed the
+        Engine's straggler monitor under it.
     fail_at: decode tick indices at which to inject a crash (chaos drill).
-    registry: telemetry registry (default: the process-global one).
-    device: where ``params`` live; ``None`` means the card and raises
-        without one.  Pass ``"cpu"`` to serve on the CPU.
-    noise_seed: the seed of a noisy fabric's noise; one seed per model
-        invocation is mixed from it, the tick and the slot.
+    registry: telemetry registry (default: the engine's, else the
+        process-global one).
+    device: where ``params`` live; ``None`` means the engine's device, else
+        the card (raising without one).  Pass ``"cpu"`` to serve on the CPU.
+    noise_seed: the seed of a noisy fabric's noise (default 0); one seed per
+        model invocation is mixed from it, the tick and the slot.  With
+        ``engine=`` the engine's seed is used, and a different one raises.
     """
 
-    def __init__(self, cfg, params, *, slots: int = 4, kv: str = "paged",
-                 block_size: int = 16, num_blocks: Optional[int] = None,
+    def __init__(self, cfg, params, *, engine: Optional[Engine] = None,
+                 slots: int = 4, kv: str = "paged", block_size: int = 16,
+                 num_blocks: Optional[int] = None,
                  buckets: Sequence[int] = (16, 32, 64),
                  max_seq_len: Optional[int] = None,
+                 attn_impl: Optional[str] = None, host: int = 0,
                  fail_at: Optional[Sequence[int]] = None,
                  registry: Optional[Registry] = None,
-                 device: DeviceLike = None, noise_seed: int = 0):
+                 device: DeviceLike = None,
+                 noise_seed: Optional[int] = None):
         if kv not in ("paged", "ring"):
             raise ValueError(f"kv must be 'paged' or 'ring', got {kv!r}")
+        if engine is not None and device is None:
+            device = engine.device
         self.device = resolve_device(device)
         pdev = device_of(params)
         if pdev is not None and pdev.type != self.device.type:
             raise ValueError(f"params live on {pdev}, the server was asked "
                              f"to run on {self.device}")
         check_supported(cfg)
+        if attn_impl is not None and attn_impl != cfg.attn_impl:
+            cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
+        reg = registry or (engine.registry if engine is not None
+                           else get_registry())
+        if engine is None:
+            engine = Engine(self.device, noise_seed=noise_seed or 0,
+                            registry=reg)
+        elif engine.device != self.device:
+            raise ValueError(f"the engine runs on {engine.device}, the "
+                             f"server on {self.device}")
+        elif noise_seed is not None and noise_seed != engine.base_seed:
+            raise ValueError(f"noise_seed={noise_seed} differs from the "
+                             f"engine's {engine.base_seed}")
+        self.engine = engine
         self.attn_impl = cfg.attn_impl if kv == "paged" else "ring"
         self.cfg, self.params = cfg, params
         self.slots = slots
         self.kv = kv
+        self.host = host
         self.buckets = tuple(sorted(buckets))
         self.max_seq_len = max_seq_len or (max(self.buckets) + 64)
         self.block_size = block_size
@@ -136,18 +170,19 @@ class Server:
         self.num_blocks = num_blocks or slots * self.max_blocks
         self.alloc = BlockAllocator(self.num_blocks, block_size, slots,
                                     max_blocks_per_slot=self.max_blocks)
-        self.cache: Optional[StackCache] = None
+        self._state: Optional[ServeState] = None  # taken at first admission
         self.active: List[Optional[Handle]] = [None] * slots
         self.queued: List[Handle] = []
         self.handles: List[Handle] = []
         self.recoveries = 0
         self.decode_ticks = 0
         self.decode_s = 0.0  # accumulated lockstep-decode wall time
-        self.noise_seed = noise_seed
         self._tick = 0  # one noise seed per model invocation
         self._fail_at = set(fail_at or ())
         self._ring_shape: Optional[Tuple[int, int]] = None
-        reg = registry or get_registry()
+        self._decode = engine.decode_step(cfg)
+        self._admit_step = engine.admit_step(cfg)
+        self._prefills: Dict[Optional[int], object] = {}
         self.registry = reg
         self._m_admitted = reg.counter("server.admitted")
         self._m_rejected = reg.counter("server.rejected")
@@ -159,6 +194,12 @@ class Server:
         self._m_ttft = reg.histogram("server.ttft_s")
         self._m_tpot = reg.histogram("server.tpot_s")
         self._m_step = reg.histogram("server.decode_step_s")
+
+    @property
+    def cache(self) -> Optional[StackCache]:
+        """The batch cache (the engine's state), None before the first
+        admission and after a fault."""
+        return None if self._state is None else self._state.cache
 
     def _feed_gauges(self):
         """Occupancy from the allocator's free list + queue depth."""
@@ -242,7 +283,7 @@ class Server:
         raise ValueError(f"no bucket holds a length-{plen} prompt")
 
     def _next_seed(self, slot: int = 0) -> int:
-        s = mix_seed(self.noise_seed, self._tick, slot)
+        s = self.engine.noise_seed(self._tick, slot)
         self._tick += 1
         return s
 
@@ -265,45 +306,76 @@ class Server:
             self.queued.pop(0)
             self._admit(h, slot)
 
-    def _admit(self, h: Handle, slot: int):
-        req = h.request
-        plen = len(req.prompt)
-        prompt = np.asarray(req.prompt, np.int32)
+    def _check_state(self):
+        if self._state is not None and self._state.owner is not self:
+            raise RuntimeError("another Server took this engine's serving "
+                               "state; serve one Server at a time")
+
+    def _take_state(self, one: StackCache):
+        """Take the engine's batch cache for this geometry (built after
+        ``one``, the first prefilled cache), zeroed as a fresh cache, with
+        the decode step bound to it."""
+        if self.kv == "paged":
+            geometry = ("paged", self.slots, self.num_blocks,
+                        self.block_size)
+
+            def build():
+                return init_paged_cache(one, self.slots, self.num_blocks,
+                                        self.block_size)
+        else:
+            geometry = ("ring", self.slots, self._ring_shape)
+
+            def build():
+                return StackCache(
+                    [broadcast_slots(c, self.slots) for c in one.layers],
+                    torch.zeros((self.slots,), dtype=torch.int32,
+                                device=self.device))
+        self._state = self.engine.serve_state(self.cfg, geometry, build)
+        # the decode step's warm-up steps the state it runs on: bind (and
+        # capture) it now, before take() zeroes the state
+        inputs = {"token": np.zeros((self.slots, 1), np.int32)}
+        if self.kv == "paged":
+            inputs["block_table"] = self.alloc.table()
+        self._decode.bind((self.params, self.cache), inputs)
+        self._state.take(self)
+
+    def _prefill(self, h: Handle, slot: int) -> np.ndarray:
+        """Prefill ``h``'s prompt and scatter it into ``slot``; returns the
+        last-token logits on the host."""
+        plen = len(h.request.prompt)
+        prompt = np.asarray(h.request.prompt, np.int32)
         if self.kv == "paged":
             bucket = self._bucket_for(plen)
-            padded = np.zeros((bucket,), np.int32)
-            padded[:plen] = prompt
-            batch = {"tokens": torch.from_numpy(padded[None]).to(self.device),
-                     "length": plen}
+            tokens = np.zeros((1, bucket), np.int32)
+            tokens[0, :plen] = prompt
+            inputs = {"tokens": tokens, "length": np.int32(plen)}
             max_new = 0
         else:
-            bucket = None
-            batch = {"tokens": torch.from_numpy(prompt[None]).to(self.device)}
+            bucket, inputs = None, {"tokens": prompt[None]}
             max_new = self._ring_shape[1]
+        step = self._prefills.get(bucket)
+        if step is None:
+            step = self._prefills[bucket] = self.engine.prefill_step(
+                self.cfg, max_new_tokens=max_new, bucket=bucket)
         with span("server.prefill", rid=h.rid, len=plen, bucket=bucket):
-            logits, cache1 = prefill(self.params, batch, self.cfg,
-                                     max_new_tokens=max_new,
-                                     noise_seed=self._next_seed(slot))
-            if self.cache is None:
-                if self.kv == "paged":
-                    self.cache = init_paged_cache(cache1, self.slots,
-                                                  self.num_blocks,
-                                                  self.block_size)
-                else:
-                    self.cache = StackCache(
-                        [broadcast_slots(c, self.slots)
-                         for c in cache1.layers],
-                        torch.zeros((self.slots,), dtype=torch.int32,
-                                    device=self.device))
-            table_row = torch.from_numpy(self.alloc.table_row(slot)).to(
-                self.device)
-            merge_prefill_cache(self.cache, cache1, table_row, slot)
-            logits_row = logits[0].cpu().numpy()
+            self._check_state()
+            logits, one = step((self.params,), inputs, self._next_seed(slot))
+            if self._state is None:
+                self._take_state(one)
+            admit = {"slot": np.int32(slot)}
+            if self.kv == "paged":
+                admit["table_row"] = self.alloc.table_row(slot)
+            self._admit_step((self.cache, one), admit)
+            return logits[0].cpu().numpy()
+
+    def _admit(self, h: Handle, slot: int):
+        req = h.request
+        logits_row = self._prefill(h, slot)
         h._rng = np.random.default_rng(req.seed)
         h.tokens = [self._sample(h, logits_row)]
         h._t_first = clock()
         self._m_ttft.observe(h._t_first - h._t_submit)
-        h._next_pos = plen
+        h._next_pos = len(req.prompt)
         h.status, h.slot = "active", slot
         self.active[slot] = h
         if self._finished(h):
@@ -343,21 +415,28 @@ class Server:
                     while self.alloc.blocks_for(h._next_pos + 1) > \
                             len(self.alloc.slot_blocks(i)):
                         self.alloc.append(i)
+        return self._decode_tick(self._decode_logits(toks))
+
+    def _decode_logits(self, toks: np.ndarray) -> np.ndarray:
+        """One lockstep decode step; its logits on the host."""
+        self._check_state()
+        inputs = {"token": toks}
+        if self.kv == "paged":
+            inputs["block_table"] = self.alloc.table()
         t0 = clock()
         with span("server.decode", tick=self.decode_ticks):
-            tok_t = torch.from_numpy(toks).to(self.device)
-            table = None
-            if self.kv == "paged":
-                table = torch.from_numpy(self.alloc.table()).to(self.device)
-            logits, self.cache = decode_step(self.params, self.cache, tok_t,
-                                             self.cfg, block_table=table,
-                                             noise_seed=self._next_seed())
+            logits = self._decode((self.params, self.cache), inputs,
+                                  self._next_seed())
             logits = logits.cpu().numpy()  # waits for the step: times are
             # device-complete
         dt = clock() - t0
         self.decode_s += dt
         self._m_step.observe(dt)
+        self.engine.observe_step_time(dt, host=self.host)
         self.decode_ticks += 1
+        return logits
+
+    def _decode_tick(self, logits: np.ndarray) -> List[Handle]:
         finished = []
         n_active = 0
         for i, h in enumerate(self.active):
@@ -386,7 +465,7 @@ class Server:
             self.active[i] = None
             if self.kv == "paged":
                 self.alloc.release(i)
-        self.cache = None
+        self._state = None  # the next admission takes it back, zeroed
         self.queued = requeued + self.queued
         self.recoveries += 1
         self._m_recoveries.inc()

@@ -162,7 +162,8 @@ def attn_prefill(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     """Prefill: forward over the prompt AND build the decode cache.
 
     cache_len defaults to S for global layers, window for local layers.
-    ``true_len`` (an int) marks a right-padded prompt: positions
+    ``true_len`` (an int, or a 0-dim integer tensor on x's device, as a
+    captured prefill step takes it) marks a right-padded prompt: positions
     ``>= true_len`` get ``key_pos = -1`` so the paged scatter drops them;
     causal attention already keeps padded keys out of every valid row.  The
     same argument makes ``use_flash`` (the ``flash_attn`` kernel,
@@ -195,7 +196,7 @@ def attn_prefill(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
         cp = torch.cat([torch.arange(s, device=dev)[None].expand(b, s),
                         torch.full((b, pad), -1, device=dev)], dim=1)
     if true_len is not None:
-        cp = torch.where(cp < int(true_len), cp, -1)
+        cp = torch.where(cp < true_len, cp, -1)
     cp = cp.to(torch.int32)
     if kv_dtype == "int8":
         ck, ks = _kv_quant(ck)
@@ -207,6 +208,27 @@ def attn_prefill(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     return y, cache
 
 
+def scatter_rows(flat: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
+                 rows: torch.Tensor) -> None:
+    """``flat[dest[i]] = rows[i]`` for every ``i`` with ``keep[i]``, in
+    place, with no boolean mask (a mask syncs the device and cannot be
+    captured in a CUDA graph).
+
+    A dropped row writes the first kept row's value at the first kept row's
+    index: the same bytes to the same place, so the order of the duplicate
+    writes cannot matter, and no dropped row lands on a row it could
+    corrupt.  With no row kept, every row writes flat row 0's own value
+    back.  ``dest`` of a dropped row may be out of bounds; it is never used.
+    """
+    idx = torch.arange(keep.shape[0], device=keep.device)
+    first = torch.argmax(keep.to(torch.int32))  # first kept row, else 0
+    src = torch.where(keep, idx, first)
+    any_keep = keep.any()
+    at = torch.where(any_keep, dest[src], 0)
+    vals = rows[src].to(flat.dtype)
+    flat[at] = torch.where(any_keep, vals, flat[0])
+
+
 def _attn_decode_paged(params, x, cache: PagedAttnCache, pos, block_table, *,
                        n_heads, n_kv_heads, head_dim, rope_theta,
                        window: int = 0, attn_impl: str = "auto", **imc):
@@ -216,7 +238,8 @@ def _attn_decode_paged(params, x, cache: PagedAttnCache, pos, block_table, *,
     Each row writes its new K/V at flat pool row
     ``table[pos // bs] * bs + pos % bs``; rows of inactive slots (whose table
     entry is -1) fall out of bounds and are dropped, as the reference's
-    ``mode="drop"`` scatter drops them.  Attention then runs through
+    ``mode="drop"`` scatter drops them (:func:`scatter_rows`, without a
+    mask).  Attention then runs through
     :func:`repro_torch.kernels.paged_attn.ops.paged_attention`.
     """
     from repro_torch.kernels.paged_attn.ops import paged_attention
@@ -236,8 +259,8 @@ def _attn_decode_paged(params, x, cache: PagedAttnCache, pos, block_table, *,
     keep = (widx >= 0) & (widx < nb * bs)
 
     def put(pool, new):  # pool (NB, bs, *tail); new (B, *tail)
-        flat = pool.view((nb * bs,) + tuple(pool.shape[2:]))
-        flat[widx[keep]] = new[keep].to(pool.dtype)
+        scatter_rows(pool.view((nb * bs,) + tuple(pool.shape[2:])), widx,
+                     keep, new)
 
     if cache.k_scale is not None:
         kq_new, ks_new = _kv_quant(k_new)

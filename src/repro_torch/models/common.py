@@ -10,6 +10,10 @@ Noisy fabric specs draw from an ambient seed: inside
 a fresh 64-bit seed ``mix_seed(seed, call index)`` (:func:`next_fabric_seed`,
 the counterpart of the reference's ``fabric_noise_key`` / ``fold_fabric_key``),
 so a forward is fully seeded without threading seeds through every layer.
+Given a seed table instead (an int32 (calls, 2) tensor whose row ``n`` holds
+``seed_words(mix_seed(seed, n))``, :func:`~repro_torch.kernels.common
+.seed_table`), call ``n`` takes row ``n``: the same seeds, read from device
+memory, so a captured CUDA graph draws fresh noise on every replay.
 """
 from __future__ import annotations
 
@@ -80,10 +84,11 @@ class fabric_noise_seed:
     ``with fabric_noise_seed(seed): prefill(...)`` — each ``dense`` call
     under a noisy spec takes :func:`next_fabric_seed`, so one forward's
     projections draw independent noise, and the same seed replays it.
+    ``seed`` is a 64-bit integer or a seed table (see the module docstring).
     """
 
-    def __init__(self, seed: int):
-        self.seed = int(seed)
+    def __init__(self, seed):
+        self.seed = seed if isinstance(seed, torch.Tensor) else int(seed)
 
     def __enter__(self):
         self.prev = getattr(_FABRIC_SEED, "state", None)
@@ -94,15 +99,21 @@ class fabric_noise_seed:
         _FABRIC_SEED.state = self.prev
 
 
-def next_fabric_seed() -> Optional[int]:
-    """A fresh seed off the ambient one (the call index mixed in on the
-    host), or None outside a :class:`fabric_noise_seed` context."""
+def next_fabric_seed():
+    """A fresh seed off the ambient one: the call index mixed in on the
+    host, or the table's row of that index; None outside a
+    :class:`fabric_noise_seed` context."""
     st = getattr(_FABRIC_SEED, "state", None)
     if st is None:
         return None
-    s = mix_seed(st["seed"], st["n"])
+    n, seed = st["n"], st["seed"]
     st["n"] += 1
-    return s
+    if isinstance(seed, torch.Tensor):
+        if n >= seed.shape[0]:
+            raise IndexError(f"noisy dense call {n} has no row in a seed "
+                             f"table of {seed.shape[0]}")
+        return seed[n]
+    return mix_seed(seed, n)
 
 
 def dense(params, x: torch.Tensor, *,

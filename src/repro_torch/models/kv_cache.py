@@ -24,7 +24,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.attention import AttnCache, PagedAttnCache
+from repro_torch.models.attention import (AttnCache, PagedAttnCache,
+                                          scatter_rows)
 
 __all__ = [
     "BlockAllocator", "OutOfBlocks", "PagedAttnCache",
@@ -194,7 +195,8 @@ def _scatter_ring(pool: PagedAttnCache, ring: AttnCache,
     lands at flat pool row ``table_row[p // bs] * bs + p % bs``.  Rows with
     ``key_pos == -1`` (the padded tail of a bucketed prefill) and rows whose
     logical block is unallocated are dropped, as the reference's
-    ``mode="drop"`` scatter drops them.
+    ``mode="drop"`` scatter drops them (:func:`~repro_torch.models.attention
+    .scatter_rows`, without a mask).
     """
     nb, bs = pool.k.shape[0], pool.k.shape[1]
     kp = ring.key_pos[0].to(torch.int64)  # (T,)
@@ -202,27 +204,31 @@ def _scatter_ring(pool: PagedAttnCache, ring: AttnCache,
     blk = tbl[torch.clamp(kp, 0, None).div(bs, rounding_mode="floor")
               .clamp_max(tbl.shape[0] - 1)]
     keep = (kp >= 0) & (blk >= 0)
-    dest = (blk * bs + kp % bs)[keep]
+    dest = blk * bs + kp % bs
     for p_arr, r_arr in zip(pool, ring[:2] + ring[3:]):
         if p_arr is None:
             continue
-        flat = p_arr.view((nb * bs,) + tuple(p_arr.shape[2:]))
-        flat[dest] = r_arr[0][keep].to(flat.dtype)
+        scatter_rows(p_arr.view((nb * bs,) + tuple(p_arr.shape[2:])), dest,
+                     keep, r_arr[0])
 
 
-def merge_prefill_cache(batch, one, table_row, slot: int):
+def merge_prefill_cache(batch, one, table_row, slot):
     """Merge one request's freshly prefilled (B=1) ring cache into the batch
     cache at ``slot``, in place; returns ``batch``.
 
     Paged layers scatter into the shared pools through ``table_row`` (the
     slot's (max_blocks,) block table row); ring layers write row ``slot``.
+    ``slot`` is an int or a one-element integer tensor on the cache's device
+    (a captured admission step takes it so).
     """
+    at = torch.as_tensor(slot, device=batch.pos.device).reshape(1).to(
+        torch.int64)
     for b, o in zip(batch.layers, one.layers):
         if isinstance(b, PagedAttnCache):
             _scatter_ring(b, o, table_row)
         else:
             for bb, oo in zip(b, o):
                 if bb is not None:
-                    bb[slot] = oo[0].to(bb.dtype)
-    batch.pos[slot] = one.pos.to(batch.pos.dtype)
+                    bb.index_copy_(0, at, oo.to(bb.dtype))
+    batch.pos.index_copy_(0, at, one.pos.reshape(1).to(batch.pos.dtype))
     return batch

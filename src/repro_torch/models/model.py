@@ -11,8 +11,11 @@ Under a noisy fabric spec each entry point takes ``noise_seed`` and runs its
 forward inside :class:`~repro_torch.models.common.fabric_noise_seed`, as the
 reference's ``launch/steps.py`` does with its per-step key.
 
-Batches: {"tokens": (B, S) int} (+ optional "length": int, the true prompt
-length of a right-padded bucket); decode takes ``token`` (B, 1) int.
+Batches: {"tokens": (B, S) int} (+ optional "length": the true prompt
+length of a right-padded bucket, an int or a 0-dim integer tensor on the
+tokens' device, as a captured prefill step takes it); decode takes ``token``
+(B, 1) int.  ``noise_seed`` is a 64-bit integer or a seed table (see
+:mod:`repro_torch.models.common`).
 The embedding lookup and the head matmul stay plain torch, as the reference
 leaves them outside any kernel.
 """
@@ -66,7 +69,7 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.to(torch.int64)]
 
 
-def _noise_ctx(noise_seed: Optional[int]):
+def _noise_ctx(noise_seed):
     return contextlib.nullcontext() if noise_seed is None else \
         fabric_noise_seed(noise_seed)
 
@@ -98,8 +101,12 @@ def prefill(params, batch, cfg: ModelConfig, max_new_tokens: int = 0,
         x, cache = stack_forward(params["blocks"], x, cfg, "prefill",
                                  prefill_extra=max_new_tokens,
                                  true_len=length)
-    last = x.shape[1] if length is None else int(length)
-    x_last = rmsnorm(params["final_norm"], x[:, last - 1:last])
+    if length is None:
+        x_last = x[:, -1:]
+    else:  # a gather at length - 1: a device length is never read back
+        last = torch.as_tensor(length, device=x.device).reshape(1)
+        x_last = x.index_select(1, last.to(torch.int64) - 1)
+    x_last = rmsnorm(params["final_norm"], x_last)
     logits = x_last @ _head_weight(params, cfg).to(x_last.dtype)
     return logits[:, 0].to(torch.float32), cache
 

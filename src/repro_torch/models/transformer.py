@@ -32,6 +32,15 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
     return list(cfg.pattern) * cfg.n_groups_layers + list(cfg.tail)
 
 
+def dense_calls(cfg: ModelConfig) -> int:
+    """``dense`` calls in one forward of the stack (prefill or decode): the
+    four attention projections and the MLP's two or three per layer.  A
+    noisy fabric draws one seed per call, so this sizes a step's seed
+    table."""
+    mlp = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    return len(layer_kinds(cfg)) * (4 + mlp)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise up front for what this slice has not ported."""
     bad = sorted(set(k for k in layer_kinds(cfg) if k not in ATTN_KINDS))
@@ -122,8 +131,9 @@ def stack_forward(params, x, cfg: ModelConfig, mode: str,
                   prefill_extra: int = 0, true_len=None, block_table=None):
     """Run the full stack. Returns (x, new_cache).
 
-    ``true_len`` (prefill, an int): the prompt occupies positions
-    ``[0, true_len)`` of a right-padded ``x``.  ``block_table`` (decode,
+    ``true_len`` (prefill, an int or a 0-dim integer tensor on x's device):
+    the prompt occupies positions ``[0, true_len)`` of a right-padded
+    ``x``.  ``block_table`` (decode,
     (B, max_blocks) int32) routes attention through paged pools when the
     cache holds :class:`~repro_torch.models.attention.PagedAttnCache`s.
     """
@@ -141,7 +151,7 @@ def stack_forward(params, x, cfg: ModelConfig, mode: str,
     if mode == "decode":
         new_pos = pos + 1
     else:
-        new_pos = torch.tensor(x.shape[1] if true_len is None else
-                               int(true_len), dtype=torch.int32,
-                               device=x.device)
+        new_pos = torch.as_tensor(x.shape[1] if true_len is None else
+                                  true_len, device=x.device).reshape(()).to(
+            torch.int32, copy=True)
     return x, StackCache(new_layers, new_pos)

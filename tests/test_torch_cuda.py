@@ -27,6 +27,11 @@ weights at a byte offset, K = 0 and -128 operands, and after two replays of
 a CUDA graph that captured one launch).  Every launch bumps the wrapper's
 counter exactly once; wrong dtypes and devices raise.  The ``Fabric``
 facade's word logic, adder and matmul on the card equal the CPU's.
+``bitplane_mac_noisy`` reads its seed words from device memory (a captured
+launch replays the seed written before the replay), and the ``Engine``
+serves a reduced model from CUDA graphs with the eager engine's streams,
+a captured decode step replayed equal to the eager one bit for bit
+(``exact`` and noisy ``sim``).
 """
 import numpy as np
 import pytest
@@ -698,3 +703,84 @@ def test_facade_on_the_card_equals_the_cpu(hopper, mode):
     w = (rng.normal(size=(768, 96)) * 0.05).astype(np.float32)
     assert torch.equal(card.matmul(x, w).cpu(), cpu.matmul(x, w))
     assert card.cost(x.shape, w.shape) == cpu.cost(x.shape, w.shape)
+
+
+def test_bitplane_mac_noisy_reads_its_seed_from_device_memory(hopper):
+    """The kernel reads its two seed words through a pointer: a seed-table
+    row gives what the integer seed gives, and one captured launch replayed
+    after the row is rewritten draws the new seed's stream."""
+    from repro_torch.kernels.common import seed_row
+
+    g = torch.Generator(device=hopper).manual_seed(21)
+    ua = torch.randint(0, 256, (4, 768), generator=g, device=hopper)
+    uw = torch.randint(0, 256, (768, 256), generator=g, device=hopper)
+    kw = dict(mismatch_sigma=0.3, comparator_offset_sigma=0.03)
+    row = seed_row(5, hopper)
+    want5 = bitplane_mac_noisy(ua, uw, 5, **kw)
+    assert torch.equal(bitplane_mac_noisy(ua, uw, row, **kw), want5)
+    assert torch.equal(bitplane_mac_noisy_torch(ua, uw, row, **kw), want5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bitplane_mac_noisy(ua, uw, row, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = bitplane_mac_noisy(ua, uw, row, **kw)
+    for seed in (5, 6, 5):
+        row.copy_(seed_row(seed, hopper))
+        graph.replay()
+        assert torch.equal(out, bitplane_mac_noisy(ua, uw, seed, **kw))
+    with pytest.raises(ValueError, match="seed row"):
+        bitplane_mac_noisy(ua, uw, row.to(torch.int64), **kw)
+
+
+@pytest.mark.parametrize("mode", ["exact", "noisy"])
+def test_engine_decode_graph_replays_equal_eager(hopper, mode):
+    """The served path through ``Engine`` on the card: a reduced model served
+    from CUDA graphs gives the eager engine's streams, and one more captured
+    decode step replayed on each server's state equals the eager step bit
+    for bit (logits and pools), under two seeds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.server import Request, Server
+    from repro_torch.models.model import init_params
+    from repro_torch.telemetry import Registry
+
+    spec = FabricSpec() if mode == "exact" else FabricSpec(
+        mode="sim", noise=NoiseSpec(mismatch_sigma=0.3))
+    cfg = dataclasses.replace(reduce_config(get_config("imc-paper-110m")),
+                              fabric=spec)
+    params = init_params(cfg, torch.Generator(device=hopper).manual_seed(0),
+                         hopper)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (7, 16, 20, 5)]
+    servers = {}
+    for graphs in (True, False):
+        eng = Engine(hopper, noise_seed=9, registry=Registry(), graphs=graphs)
+        s = servers[graphs] = Server(cfg, params, engine=eng, slots=4,
+                                     block_size=8, buckets=(16, 32))
+        for p in prompts:
+            s.submit(Request(p, max_new_tokens=5))
+        s.drain()
+    assert servers[True].engine.graphs
+    assert [h.tokens for h in servers[True].handles] == \
+        [h.tokens for h in servers[False].handles]
+    assert servers[True].engine.stats.captures == 5  # 2 buckets x 2 + 1
+    for seed in (11, 12):
+        out = {}
+        for graphs, s in servers.items():
+            logits = s.engine.decode_step(cfg)((params, s.cache), {
+                "token": np.arange(4, dtype=np.int32)[:, None],
+                "block_table": s.alloc.table()}, seed)
+            out[graphs] = logits.clone()
+        assert torch.equal(out[True], out[False])
+    for a, b in zip(servers[True].cache.layers, servers[False].cache.layers):
+        for x, y in zip(a, b):
+            if x is not None:
+                assert torch.equal(x, y)
+    assert torch.equal(servers[True].cache.pos, servers[False].cache.pos)
+    assert servers[True].engine.stats.captures == 5, "no capture after"
