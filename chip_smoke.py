@@ -185,8 +185,47 @@ result:
    three calls, SDPA).  The attention rows add ``floor_graph_ms``, 12
    one-element launches from a graph.
 
+8. The training path (``repro_torch.launch.train.train``, one ``Engine``;
+   the launch counters zeroed just before each run and read just after,
+   every kernel's plain version counted too):
+   a. ``exact``: full imc-paper-110m, batch 4 x seq 512, lr 1e-3, remat on,
+      8 steps, ``ckpt_every=2``; then a ``fail_at={5}`` drill, resumed by a
+      second call on its checkpoints, whose final params and optimizer
+      state must equal the uninterrupted run's bit for bit; 144
+      tensor-core ``imc_mac`` launches a step (72 projections, each layer's
+      forward run again by remat in the backward) and nothing else; step
+      time p50, train tokens/s and peak device memory printed.  Descent: a
+      held batch's loss must fall over 16 steps at warmup 4 (read beside
+      it along train()'s own 8-step schedule); one step profiled; the
+      kernels that the deterministic-algorithms mode swaps are named.
+   b. ``sim`` and noisy ``sim`` (``NoiseSpec.calibrated()``), full width, 2
+      layers, batch 4 x seq 128, 3 steps each: 24 ``bitplane_mac`` /
+      ``bitplane_mac_noisy`` launches a step; noisy, one step seed twice
+      gives the same loss and gradients bit for bit, another step's seed
+      another loss.
+   c. The card against the CPU's plain path, same params and batch, 2
+      layers at full width: ``exact`` at seq 128 and noise-free ``sim`` at
+      seq 16, step 0's loss within 1e-3 and each gradient leaf within 5e-2
+      relative L2; with the model's bf16 params each leaf's distance from a
+      float64 witness on the CPU at most 1.5x the CPU's own (the two
+      devices round bf16 apart, neither less precisely); ``exact`` with the
+      same params in float32 within 1e-3; on the card ``sim`` equals
+      ``exact`` bit for bit at seq 128.
+   d. The three kernels at the training shapes against their plain
+      versions, bit for bit: ``imc_mac`` at M = 2048 and 2047,
+      ``bitplane_mac`` and ``bitplane_mac_noisy`` (a seed-table row) at
+      M = 512.
+   Phase 7 adds the training shapes: ``imc_mac`` over one training
+   forward's 72 projections at M = 2048 (beside ``torch._int_mm``), and
+   ``bitplane_mac`` at M = 512.
+
 It prints the ``kernels`` JSON line, the card's name and power limit as
 nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --train
+
+runs phase 8 alone (its three kernels built first) and prints one JSON line
+of its results and the nvidia-smi line.
 
     python3 chip_smoke.py --time bitplane_mac [imc_mac ...]
 
@@ -231,9 +270,11 @@ dequantized and P kept exact), rounded to bf16 and unrounded.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -1819,6 +1860,548 @@ def phase_macro(torch, dev):
             "ste_grad_rel_err": grad_err, "wall_s": wall}
 
 
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 512  # 8a: train_tiny_lm's
+# full-size batch and sequence
+TRAIN_FAIL_AT = 5  # 8a's fault drill; ckpt_every 2 resumes from step 3
+TRAIN_SIM_LAYERS, TRAIN_SIM_SEQ, TRAIN_SIM_STEPS = 2, 128, 3  # 8b, 8c
+# 8c: sim's plain path takes ~1 min a (768, 3072) projection at M = 128 on
+# 8 CPU cores, so the CPU holds sim at seq 16, and the card holds it equal
+# to exact at seq 128
+TRAIN_CPU_SIM_SEQ = 16
+TRAIN_LOSS_RTOL = 1e-3  # 8c: card against the CPU's plain path
+# relative L2 of a gradient leaf, card against CPU, by the params' dtype.
+# With the model's bf16 params, each device's gradients carry bf16 rounding
+# noise, laid down differently by the two devices' libraries: 2.33e-2
+# measured at 8c's shapes (the same with cuBLAS's reduced-precision bf16
+# reductions off), while each device sits ~9.5e-2 from a float64 witness
+# (the card 1.007x the CPU's distance at worst).  The same params in
+# float32 leave the two devices' summation orders only.
+TRAIN_GRAD_RTOL = {"bfloat16": 5e-2, "float32": 1e-3}
+# 8c, bf16 params: each leaf's distance from a float64 witness on the CPU
+# (the same params in float64) on the card, at most this many times the
+# CPU's own: the card's bf16 products are no less precise than the CPU's
+TRAIN_WITNESS_RATIO = 1.5
+# 8a's descent: a held batch (the stream's step TRAIN_HELD_STEP, never
+# trained on) before and after TRAIN_DESCENT_STEPS steps at lr 1e-3 with
+# TRAIN_DESCENT_WARMUP warmup steps.  train()'s schedule over 8 steps warms
+# up for 1: its first full-lr Adam step (each element moved by ~lr) lifts
+# the loss of every batch but its own, and 8 steps do not win it back.  The
+# stream's next token is uniform given its past, so what can be learnt is
+# the uniform prediction (loss ln V = 10.37 against ~10.82 at random init)
+TRAIN_HELD_STEP = 10**6
+TRAIN_DESCENT_STEPS, TRAIN_DESCENT_WARMUP = 16, 4
+
+
+class plain_calls:
+    """Count calls of every kernel's plain version (``launches.plains()``:
+    each module's attribute, which the wrappers and the fabric engines look
+    up at call time) inside the block."""
+
+    def __enter__(self):
+        from repro_torch.kernels import launches
+
+        self.n, self.saved = 0, []
+        for m, name in launches.plains().values():
+            fn = getattr(m, name)
+            self.saved.append((m, name, fn))
+
+            def counted(*a, _fn=fn, **kw):
+                self.n += 1
+                return _fn(*a, **kw)
+
+            setattr(m, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+
+def train_run(torch, cfg, tag, must, per_step, steps, batch, seq, engine,
+              **kw):
+    """One ``repro_torch.launch.train.train`` call: every launch counter
+    zeroed just before and read just after; each kernel in ``must`` must
+    launch ``per_step`` times a step, every other kernel (and every plain
+    version) never."""
+    from repro_torch.launch.train import train
+
+    zero_counts()
+    with plain_calls() as plain:
+        state, hist = train(cfg, steps=steps, global_batch=batch,
+                            seq_len=seq, lr=1e-3, seed=0, engine=engine,
+                            **kw)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    for name, n in launches.items():
+        want = per_step * len(hist) if name in must else 0
+        if n != want:
+            raise AssertionError(f"{tag}: {name} launched {n} times in "
+                                 f"{len(hist)} steps, want {want}")
+    if plain.n:
+        raise AssertionError(f"{tag}: {plain.n} calls of plain versions")
+    return state, hist, launches
+
+
+def profile_train_step(torch, step, params, batch, seed):
+    """One train step under ``torch.profiler``: its wall time, the device's
+    busy time (the kernels' summed time), the kernel launches, and the
+    eight kernels that took most device time (ms and count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.device import deterministic
+    from repro_torch.optim.adamw import init_adamw
+
+    state = init_adamw(params)
+    with deterministic():  # as train() runs its steps
+        step(params, state, batch, seed)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(params, state, batch, seed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    dev_ev = [e for e in ev if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    launches = sum(e.count for e in ev if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cuLaunchKernelEx"))
+    syncs = sum(e.count for e in ev if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize"))
+    top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:8]
+    res = dict(wall_ms=1e3 * wall, device_busy_ms=busy,
+               idle_share=1 - busy / (1e3 * wall), launches=launches,
+               syncs=syncs,
+               top=[(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                    for e in top])
+    log(f"[8a] one train step under the profiler: {res['wall_ms']:.1f} ms, "
+        f"device busy {busy:.1f} ms (idle {res['idle_share']:.3f}), "
+        f"{launches} kernel launches, {syncs} syncs; top kernels "
+        + "; ".join(f"{k} {t:.2f} ms x{n}" for k, t, n in res["top"]))
+    return res
+
+
+def stream_batch(torch, dev, cfg, seq, batch, step):
+    """The synthetic stream's (seed 0) batch of ``step`` on ``dev``."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in SyntheticStream(
+        DataConfig(cfg.vocab_size, seq, batch)).batch(step).items()}
+
+
+def descent(torch, dev, cfg, losses):
+    """8a's descent gate: the loss of a held batch (the stream's step
+    ``TRAIN_HELD_STEP``, never trained on) after each of
+    ``TRAIN_DESCENT_STEPS`` steps of ``Engine.train_step`` at lr 1e-3,
+    warmup ``TRAIN_DESCENT_WARMUP``, batch 4 x seq 512 from random weights
+    (seed 0), must end below its loss at the start.  The same held batch
+    is read along train()'s own 8-step schedule (warmup 1) beside it.  An
+    Engine of its own, so 8a's runs keep sharing one step."""
+    from repro_torch.device import deterministic
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim.adamw import AdamWConfig, init_adamw
+    from repro_torch.telemetry import Registry
+
+    eng = Engine(dev, noise_seed=0, registry=Registry())
+    held = stream_batch(torch, dev, cfg, TRAIN_SEQ, TRAIN_BATCH,
+                        TRAIN_HELD_STEP)
+    res = {}
+    for tag, steps, warmup in (
+            ("train_schedule", TRAIN_STEPS, min(20, TRAIN_STEPS // 10 + 1)),
+            ("warmup", TRAIN_DESCENT_STEPS, TRAIN_DESCENT_WARMUP)):
+        step = eng.train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=warmup,
+                                               total_steps=steps))
+        params = init_params(cfg, device=dev, seed=0)
+        state = init_adamw(params)
+        held_loss, fresh = [], []
+        for s in range(steps + 1):
+            with torch.no_grad():
+                held_loss.append(float(loss_fn(params, held, cfg)[0]))
+            if s == steps:
+                break
+            with deterministic():
+                params, state, m = step(params, state, stream_batch(
+                    torch, dev, cfg, TRAIN_SEQ, TRAIN_BATCH, s),
+                    eng.noise_seed(s))
+            fresh.append(float(m["loss"]))
+        res[tag] = dict(steps=steps, warmup=warmup, held=held_loss,
+                        fresh=fresh)
+        log(f"[8a] descent, {steps} steps, warmup {warmup}: held batch's "
+            f"loss {' '.join(f'{x:.4f}' for x in held_loss)}; each step's "
+            f"own batch {' '.join(f'{x:.4f}' for x in fresh)}")
+        del params, state
+    if res["train_schedule"]["fresh"] != losses:
+        raise AssertionError("[8a] the descent run's steps differ from "
+                             "train()'s")
+    held = res["warmup"]["held"]
+    if not held[-1] < held[0]:
+        raise AssertionError(f"[8a] the held batch's loss did not fall in "
+                             f"{TRAIN_DESCENT_STEPS} steps: {held}")
+    return res
+
+
+def nondeterminism(torch, params, batch, cfg):
+    """Which op of the train step needs the deterministic-algorithms mode:
+    step 0's gradients twice without the mode (leaves that differ) and the
+    device kernels a profiled gradient runs with the mode and without it
+    (names only one side runs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.device import deterministic
+    from repro_torch.models.model import loss_and_grads
+    from repro_torch.tree import tree_leaves
+
+    def kernels(det):
+        with contextlib.ExitStack() as stack:
+            if det:
+                stack.enter_context(deterministic())
+            loss_and_grads(params, batch, cfg)  # warm
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                loss_and_grads(params, batch, cfg)
+                torch.cuda.synchronize()
+        return {e.key[:120]: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+
+    g1 = tree_leaves(loss_and_grads(params, batch, cfg)[2])
+    g2 = tree_leaves(loss_and_grads(params, batch, cfg)[2])
+    differ = sum(not torch.equal(x, y) for x, y in zip(g1, g2))
+    on, off = kernels(True), kernels(False)
+    only_on = sorted(set(on) - set(off))
+    only_off = sorted(set(off) - set(on))
+    log(f"[8a] without deterministic algorithms, step 0's gradients twice: "
+        f"{differ} of {len(g1)} leaves differ; kernels run only without "
+        f"the mode: {only_off}; only with it: {only_on}")
+    return dict(leaves_differ=differ, leaves=len(g1), only_without=only_off,
+                only_with=only_on)
+
+
+def phase_train(torch, dev):
+    """Phase 8: the training path on the card through
+    ``repro_torch.launch.train.train`` (one Engine, its train step cached).
+
+    a. ``exact``: full imc-paper-110m (12 layers, random weights from seed
+       0), global batch 4 x seq 512, lr 1e-3, remat on, 8 steps with
+       ``ckpt_every=2``; then the same run with a fault drill at step 5
+       (raises), resumed by a second call on its checkpoints.  Final params
+       and optimizer state of the resumed run equal the uninterrupted run's
+       bit for bit; ``imc_mac``'s tensor-core kernel launches
+       ``dense_calls`` x 2 = 144 times a step (remat runs each layer's
+       forward twice), no other kernel and no plain version runs.  Step
+       time p50 (steps 1-7), train tokens/s and peak device memory are
+       printed.  :func:`descent` gates a held batch's loss;
+       :func:`nondeterminism` names the kernels the deterministic mode
+       swaps; one step is profiled (device busy, launches, top kernels).
+    b. ``sim`` (noise-free) and ``sim`` with ``NoiseSpec.calibrated()``:
+       full width, depth cut to 2 layers, batch 4 x seq 128, 3 steps each;
+       ``bitplane_mac`` / ``bitplane_mac_noisy`` 24 launches a step.  Noisy:
+       one step seed twice gives bit-identical loss and gradients, another
+       step's seed another loss.
+    c. Card against the CPU: the 2-layer full-width model, step 0's loss
+       within ``TRAIN_LOSS_RTOL`` and each gradient leaf within
+       ``TRAIN_GRAD_RTOL`` (relative L2, by the params' dtype) of the
+       port's plain path on the CPU, same params and batch (remat off on
+       both: it changes no bit, ``tests/test_torch_train.py``): ``exact`` at
+       batch 1 x seq 128 with the model's bf16 params and with the same
+       params in float32, noise-free ``sim`` at batch 1 x seq 16 (the CPU's
+       plain ``sim`` takes ~1 min a projection at M = 128); on the card,
+       ``sim`` at seq 128 equals ``exact`` bit for bit.  With bf16 params,
+       a float64 witness (the same params in float64, on the CPU): each
+       leaf's distance from it on the card at most
+       ``TRAIN_WITNESS_RATIO`` x the CPU's; the card's gradients are also
+       read with cuBLAS's reduced-precision bf16 reductions flipped.
+    d. :func:`train_kernel_checks`: the path's kernels at its shapes.
+    """
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.fabric import FabricSpec, NoiseSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.device import deterministic
+    from repro_torch.kernels.common import seed_table
+    from repro_torch.launch.engine import Engine
+    from repro_torch.models.model import init_params, loss_and_grads
+    from repro_torch.models.transformer import dense_calls
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.fault_tolerance import InjectedFailure
+    from repro_torch.telemetry import Registry
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out = {}
+    cfg = get_config("imc-paper-110m")
+    eng = Engine(dev, noise_seed=0, registry=Registry())
+    per_step = 2 * dense_calls(cfg)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        whole, hist, launches = train_run(
+            torch, cfg, "[8a] exact", ("imc_mac", "imc_mac_tiled"), per_step,
+            TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, eng,
+            ckpt_root=os.path.join(root, "whole"), ckpt_every=2)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = [m["loss"] for m in hist]
+        step_ms = [1e3 * m["step_s"] for m in hist[1:]]
+        p50 = statistics.median(step_ms)
+        tok_s = TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3)
+        log(f"[8a] exact: imc-paper-110m trained {TRAIN_STEPS} steps "
+            f"(batch {TRAIN_BATCH} x seq {TRAIN_SEQ}) in {wall:.2f} s with "
+            f"checkpoints every 2; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+            f"({' '.join(f'{x:.4f}' for x in losses)}); step p50 "
+            f"{p50:.2f} ms (steps 1-{TRAIN_STEPS - 1}: "
+            f"{' '.join(f'{x:.1f}' for x in step_ms)}), "
+            f"{tok_s:.0f} train tokens/s, peak device memory "
+            f"{peak / 2**30:.2f} GiB; {launches['imc_mac_tiled']} "
+            f"tensor-core imc_mac launches ({per_step} a step)")
+        step = eng.train_step(cfg, AdamWConfig(
+            lr=1e-3, warmup_steps=min(20, TRAIN_STEPS // 10 + 1),
+            total_steps=TRAIN_STEPS))
+        p0 = init_params(cfg, device=dev, seed=0)
+        b0 = stream_batch(torch, dev, cfg, TRAIN_SEQ, TRAIN_BATCH, 0)
+        out["descent"] = descent(torch, dev, cfg, losses)
+        out["nondeterminism"] = nondeterminism(torch, p0, b0, cfg)
+        out["profile"] = profile_train_step(torch, step, p0, b0,
+                                            eng.noise_seed(0))
+        del p0
+        drill = os.path.join(root, "drill")
+        t0 = time.perf_counter()
+        try:
+            train_run(torch, cfg, "[8a] drill", ("imc_mac", "imc_mac_tiled"),
+                      per_step, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, eng,
+                      ckpt_root=drill, ckpt_every=2,
+                      fail_at={TRAIN_FAIL_AT})
+            raise AssertionError("[8a] the drill did not fail")
+        except InjectedFailure:
+            pass
+        resumed, hist2, _ = train_run(
+            torch, cfg, "[8a] resumed", ("imc_mac", "imc_mac_tiled"),
+            per_step, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, eng,
+            ckpt_root=drill, ckpt_every=2)
+        drill_s = time.perf_counter() - t0
+        a, b = tree_leaves(whole), tree_leaves(resumed)
+        same = sum(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in zip(a, b))
+        if same != len(a) or len(hist2) != TRAIN_STEPS - 4:
+            raise AssertionError(f"[8a] the resumed run differs: {same} of "
+                                 f"{len(a)} leaves equal, {len(hist2)} "
+                                 "steps after the resume")
+        if eng.stats.compiles != 1:
+            raise AssertionError("[8a] the three runs must share one step")
+        log(f"[8a] fault drill at step {TRAIN_FAIL_AT}: resumed from step 3, "
+            f"{len(hist2)} steps, final params and optimizer state equal to "
+            f"the uninterrupted run's bit for bit ({same} leaves), "
+            f"{drill_s:.2f} s")
+        out["exact"] = dict(losses=losses, step_ms=step_ms, step_p50_ms=p50,
+                            tokens_per_s=tok_s, peak_bytes=peak, wall_s=wall,
+                            launches_per_step=per_step,
+                            launches=launches["imc_mac"],
+                            resumed_bit_exact=True, drill_s=drill_s)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # b. sim and noisy sim at full width, 2 layers
+    small = dataclasses.replace(cfg, n_layers=TRAIN_SIM_LAYERS)
+    per_step = 2 * dense_calls(small)
+    noisy_spec = FabricSpec(mode="sim", noise=NoiseSpec.calibrated())
+    for tag, spec, kernel in (
+            ("sim", FabricSpec(mode="sim"), "bitplane_mac"),
+            ("noisy", noisy_spec, "bitplane_mac_noisy")):
+        c = dataclasses.replace(small, fabric=spec)
+        t0 = time.perf_counter()
+        _, hist, launches = train_run(
+            torch, c, f"[8b] {tag}", (kernel,), per_step, TRAIN_SIM_STEPS,
+            TRAIN_BATCH, TRAIN_SIM_SEQ, eng, log_every=TRAIN_SIM_STEPS)
+        wall = time.perf_counter() - t0
+        losses = [m["loss"] for m in hist]
+        step_ms = [1e3 * m["step_s"] for m in hist]
+        log(f"[8b] {tag}: {TRAIN_SIM_LAYERS} layers, batch {TRAIN_BATCH} x "
+            f"seq {TRAIN_SIM_SEQ}, {TRAIN_SIM_STEPS} steps in {wall:.2f} s; "
+            f"losses {' '.join(f'{x:.4f}' for x in losses)}; step ms "
+            f"{' '.join(f'{x:.1f}' for x in step_ms)}; {launches[kernel]} "
+            f"{kernel} launches ({per_step} a step)")
+        out[tag] = dict(losses=losses, step_ms=step_ms,
+                        launches=launches[kernel], launches_per_step=per_step)
+    c = dataclasses.replace(small, fabric=noisy_spec)
+    params = init_params(c, device=dev, seed=0)
+    batch = stream_batch(torch, dev, c, TRAIN_SIM_SEQ, TRAIN_BATCH, 0)
+    runs = []
+    for step in (0, 0, 1):
+        table = torch.from_numpy(seed_table(eng.noise_seed(step),
+                                            dense_calls(c))).to(dev)
+        with deterministic():
+            runs.append(loss_and_grads(params, batch, c, noise_seed=table))
+    (l0, _, g0), (l1, _, g1), (l2, _, _) = runs
+    if not (torch.equal(l0, l1) and all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(g0),
+                                               tree_leaves(g1)))):
+        raise AssertionError("[8b] noisy: one seed, two losses or gradients")
+    if torch.equal(l0, l2):
+        raise AssertionError("[8b] noisy: two step seeds, one loss")
+    log(f"[8b] noisy: step 0's seed twice, loss {float(l0):.6f} and every "
+        f"gradient bit for bit; step 1's seed: loss {float(l2):.6f}")
+
+    # c. the card against the CPU's plain path
+    out["card_vs_cpu"] = {}
+    cpu_params = init_params(small, device="cpu", seed=0)
+    params = tree_map(lambda t: t.to(dev), cpu_params)
+    card = {}
+    for tag, spec in (("exact", FabricSpec()), ("sim", FabricSpec(
+            mode="sim"))):
+        c = dataclasses.replace(small, fabric=spec, remat=False)
+        nb = SyntheticStream(DataConfig(c.vocab_size, TRAIN_SIM_SEQ,
+                                        1)).batch(0)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+        card[tag] = loss_and_grads(params, b, c)
+    (le, _, ge), (ls, _, gs) = card["exact"], card["sim"]
+    if not (torch.equal(le, ls) and all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(ge), tree_leaves(gs)))):
+        raise AssertionError("[8c] noise-free sim differs from exact")
+    log(f"[8c] card, batch 1 x seq {TRAIN_SIM_SEQ}: noise-free sim's loss "
+        f"and gradients equal exact's bit for bit")
+    f32 = tree_map(lambda t: t.to(torch.float32), cpu_params)
+    f64 = tree_map(lambda t: t.to(torch.float64), cpu_params)
+    flag = torch.backends.cuda.matmul
+    for tag, spec, seq, model in (
+            ("exact", FabricSpec(), TRAIN_SIM_SEQ, "bfloat16"),
+            ("exact", FabricSpec(), TRAIN_SIM_SEQ, "float32"),
+            ("sim", FabricSpec(mode="sim"), TRAIN_CPU_SIM_SEQ, "bfloat16")):
+        c = dataclasses.replace(small, fabric=spec, remat=False)
+        nb = SyntheticStream(DataConfig(c.vocab_size, seq, 1)).batch(0)
+        on_cpu = cpu_params if model == "bfloat16" else f32
+        runs = [("card", tree_map(lambda t: t.to(dev), on_cpu)),
+                ("cpu", on_cpu)]
+        if tag == "exact" and model == "bfloat16":
+            # the float64 witness, and the card once more with cuBLAS's
+            # bf16 reductions in reduced precision the other way round
+            runs += [("witness", f64), ("card_flipped", runs[0][1])]
+        res = {}
+        for where, p in runs:
+            b = {k: torch.from_numpy(v).to(p["embed"].device)
+                 for k, v in nb.items()}
+            reduced = flag.allow_bf16_reduced_precision_reduction
+            if where == "card_flipped":
+                flag.allow_bf16_reduced_precision_reduction = not reduced
+            t0 = time.perf_counter()
+            try:
+                loss, _, grads = loss_and_grads(p, b, c)
+                res[where] = (float(loss), [g.cpu() for g in
+                                            tree_leaves(grads)],
+                              time.perf_counter() - t0)
+            finally:
+                flag.allow_bf16_reduced_precision_reduction = reduced
+        (lc, gc, tc), (lp, gp, tp) = res["card"], res["cpu"]
+        loss_err = abs(lc - lp) / abs(lp)
+        worst = worst_rel_l2(gc, gp)
+        log(f"[8c] {tag}, {model} params, batch 1 x seq {seq}: card loss "
+            f"{lc:.6f}, CPU {lp:.6f} (rel {loss_err:.2e}); worst gradient "
+            f"rel L2 by leaf dtype {worst} (bound "
+            f"{TRAIN_GRAD_RTOL[model]}); card {tc:.2f} s, CPU {tp:.2f} s")
+        if loss_err > TRAIN_LOSS_RTOL or \
+                max(worst.values()) > TRAIN_GRAD_RTOL[model]:
+            raise AssertionError(f"[8c] {tag} {model}: card against CPU "
+                                 f"loss {loss_err} grads {worst}")
+        row = dict(loss_rel_err=loss_err, grad_rel_l2=worst, cpu_s=tp)
+        if "witness" in res:
+            gw = res["witness"][1]
+            card_w = [rel_l2(x.double(), w) for x, w in zip(gc, gw)]
+            cpu_w = [rel_l2(x.double(), w) for x, w in zip(gp, gw)]
+            # per leaf, the card's distance from the witness over the CPU's
+            ratio = max(((x.double() - w).norm() / max(
+                (y.double() - w).norm(), 1e-30)).item()
+                for x, y, w in zip(gc, gp, gw))
+            flipped = worst_rel_l2(res["card_flipped"][1], gp)
+            log(f"[8c] exact, bf16 params against the float64 witness "
+                f"(loss {res['witness'][0]:.6f}): worst leaf rel L2 card "
+                f"{max(card_w):.3e}, CPU {max(cpu_w):.3e}; worst per-leaf "
+                f"ratio card/CPU {ratio:.3f} (bound {TRAIN_WITNESS_RATIO}); "
+                f"card with allow_bf16_reduced_precision_reduction="
+                f"{not flag.allow_bf16_reduced_precision_reduction} against "
+                f"the CPU {flipped} (with "
+                f"{flag.allow_bf16_reduced_precision_reduction}: {worst})")
+            if ratio > TRAIN_WITNESS_RATIO:
+                raise AssertionError(f"[8c] the card's bf16 gradients sit "
+                                     f"{ratio:.3f}x the CPU's distance from "
+                                     f"the float64 witness")
+            row.update(witness_loss=res["witness"][0],
+                       card_to_witness=max(card_w),
+                       cpu_to_witness=max(cpu_w), witness_ratio=ratio,
+                       flipped_reduction_grad_rel_l2=flipped,
+                       reduced_precision_reduction=(
+                           flag.allow_bf16_reduced_precision_reduction))
+        out["card_vs_cpu"][f"{tag}_{model}"] = row
+    out["kernels"] = train_kernel_checks(torch, dev)
+    return out
+
+
+def worst_rel_l2(got, want):
+    """The worst relative L2 distance of ``got``'s leaves from ``want``'s,
+    by ``want``'s dtype."""
+    worst = {}
+    for x, y in zip(got, want):
+        k = str(y.dtype).removeprefix("torch.")
+        worst[k] = max(worst.get(k, 0.0), rel_l2(x.double(), y.double()))
+    return worst
+
+
+def train_kernel_checks(torch, dev):
+    """8d: the training path's three kernels at its shapes against their
+    plain versions on the same inputs, bit for bit: ``imc_mac`` at M = 2048
+    (8a's batch 4 x seq 512) and a ragged 2047 over the three (K, N) of a
+    layer, ``bitplane_mac`` at M = 512 (8b's 4 x 128) on (768, 3072), and
+    ``bitplane_mac_noisy`` at M = 512 on (768, 768) under calibrated
+    mismatch, seeded by a row of a step's seed table in device memory."""
+    from repro_torch.core.constants import MC_SIGMA_VK
+    from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
+                                                      bitplane_mac_noisy,
+                                                      bitplane_mac_noisy_torch,
+                                                      bitplane_mac_torch)
+    from repro_torch.kernels.common import seed_table
+    from repro_torch.kernels.imc_mac.ops import imc_mac, imc_mac_torch
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    checked = []
+
+    def same(tag, out, plain):
+        torch.cuda.synchronize()
+        if not torch.equal(out, plain):
+            raise AssertionError(
+                f"[8d] {tag} differs from its plain version in "
+                f"{int((out != plain).sum())} of {out.numel()} elements")
+        checked.append(tag)
+
+    for m in (TRAIN_BATCH * TRAIN_SEQ, TRAIN_BATCH * TRAIN_SEQ - 1):
+        for k, n in ((768, 768), (768, 3072), (3072, 768)):
+            a = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                              dtype=torch.int8)
+            w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                              dtype=torch.int8)
+            same(f"imc_mac {(m, k, n)}", imc_mac(a, w), imc_mac_torch(a, w))
+    m = TRAIN_BATCH * TRAIN_SIM_SEQ
+    for k, n, noisy in ((768, 3072, False), (768, 768, True)):
+        ua = torch.randint(0, 256, (m, k), generator=g, device=dev,
+                           dtype=torch.int32)
+        uw = torch.randint(0, 256, (k, n), generator=g, device=dev,
+                           dtype=torch.int32)
+        if noisy:
+            seed = torch.from_numpy(seed_table(7, 24)).to(dev)[5]
+            kw = dict(mismatch_sigma=MC_SIGMA_VK)
+            same(f"bitplane_mac_noisy {(m, k, n)}",
+                 bitplane_mac_noisy(ua, uw, seed, **kw),
+                 bitplane_mac_noisy_torch(ua, uw, seed, **kw))
+        else:
+            same(f"bitplane_mac {(m, k, n)}", bitplane_mac(ua, uw),
+                 bitplane_mac_torch(ua, uw))
+    log(f"[8d] the training shapes, each kernel equal to its plain version "
+        f"bit for bit: {'; '.join(checked)}")
+    return checked
+
+
 def time_imc_mac(torch, dev):
     """One decode step's imc_mac work: 12 layers x 6 projections at M = 4
     (4 slots), cycling 12 distinct weight sets (85 MB, more than L2)."""
@@ -1863,6 +2446,20 @@ def time_imc_mac(torch, dev):
             f"one bucket-{mp} prefill: 12 layers x {{4x (768,768), "
             f"(768,3072), (3072,768)}} at M={mp} (the tensor-core kernel); "
             "library: torch._int_mm")
+    # one training forward's projections (phase 8a: batch 4 x seq 512, M =
+    # 2048, the tensor-core kernel at 32 x 24 or 96 x 24 tiles); the
+    # library call needs no padding there
+    mt = TRAIN_BATCH * TRAIN_SEQ
+    at = {k: torch.randint(-127, 128, (mt, k), generator=g, device=dev,
+                           dtype=torch.int8) for k in (768, 3072)}
+    rows["train"] = prefill_row(
+        torch, lambda fn: step(fn, at), imc_mac, imc_mac_torch,
+        torch._int_mm,
+        layers * sum(mt * k + k * n + 4 * mt * n for k, n in shapes),
+        layers * sum(2 * mt * k * n for k, n in shapes),
+        f"one training forward (phase 8a): 12 layers x {{4x (768,768), "
+        f"(768,3072), (3072,768)}} at M={mt} (the tensor-core kernel); "
+        "library: torch._int_mm")
     # the bucket-64 launches over layer 0's weights alone (7.1 MB, resident
     # in L2): the kernel's time without device-memory traffic
     ap = acts["prefill"]
@@ -2238,8 +2835,37 @@ def time_bitplane_mac(torch, dev):
     nbytes = layers * sum(m * k + k * n + 4 * m * n for k, n in shapes)
     ops = layers * sum(2 * bits * bits * m * k * n for k, n in shapes)
     b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
+
+    # one training forward's projections at M = 512 (phase 8b's batch 4 x
+    # seq 128) over the 12 layers' weights; the plain version is timed on
+    # one (768, 3072) projection alone (all 72 would take minutes)
+    mt = TRAIN_BATCH * TRAIN_SIM_SEQ
+    at = {k: torch.randint(0, 256, (mt, k), generator=g, device=dev,
+                           dtype=torch.uint8) for k in (768, 3072)}
+    at_lib = {k: (v.to(torch.int32) - 128).to(torch.int8)
+              for k, v in at.items()}
+    kw = dict(bits_a=bits, bits_w=bits, rows=rows)
+    train = dict(
+        ms=cuda_ms(torch, lambda: step(bitplane_mac, at, ws8, **kw), iters=5),
+        graph_ms=graph_ms(torch, lambda: step(bitplane_mac, at, ws8, **kw),
+                          iters=5),
+        plain_ms=cuda_ms(torch, lambda: bitplane_mac_torch(
+            at[768].to(torch.int32), ws[0][4], **kw), iters=1, warmup=1),
+        library_ms=cuda_ms(torch, lambda: step(torch._int_mm, at_lib, ws_lib),
+                           iters=20),
+        library_graph_ms=graph_ms(torch, lambda: step(torch._int_mm, at_lib,
+                                                      ws_lib)),
+        shape=f"one training forward (phase 8b): 12 layers x {{4x (768,768), "
+              f"(768,3072), (3072,768)}} at M={mt}, 8x8 bits, rows 8; plain "
+              f"on one (768,3072) projection; library: torch._int_mm on the "
+              "signed codes")
+    train["bound_ms"], train["bound_by"] = bound(
+        layers * sum(mt * k + k * n + 4 * mt * n for k, n in shapes),
+        layers * sum(2 * bits * bits * mt * k * n for k, n in shapes),
+        INT8_OPS_PER_S)
     return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
                 library_graph_ms=lib_g, bound_ms=b_ms, bound_by=by,
+                train=train,
                 shape="one decode step: 12 layers x {4x (768,768), "
                       "(768,3072), (3072,768)} at M=4, 8x8 bits, rows 8, "
                       "uint8 operands; ops = 2*PA*PW*M*K*N binary MACs at the "
@@ -2523,6 +3149,14 @@ def main() -> int:
                           "kind": kind}))
         print(smi)
         return 0
+    if sys.argv[1:] == ["--train"]:
+        from repro_torch.kernels import build
+
+        log(build.build_all(["imc_mac", "bitplane_mac",
+                             "bitplane_mac_noisy"]))
+        print(json.dumps({"trained": phase_train(torch, dev), "kind": kind}))
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--rbl-phases"]:
         from repro_torch.kernels import build
 
@@ -2552,6 +3186,7 @@ def main() -> int:
     noisy = served["sim_noise"]
     macro = phase_macro(torch, dev)
     served["qwen"] = phase_qwen(torch, dev)
+    trained = phase_train(torch, dev)
     timed = {name: fn(torch, dev) for name, fn in TIMERS.items()}
     timed["bitplane_mac_noisy"]["noise_free_bitplane_mac_ms"] = \
         timed["bitplane_mac"]["ms"]
@@ -2564,6 +3199,8 @@ def main() -> int:
              launches_per_prefill=exact["per_prefill"]["imc_mac"],
              launches_split=exact["launches"]["imc_mac_split"],
              launches_tiled=exact["launches"]["imc_mac_tiled"],
+             launches_train=trained["exact"]["launches"],
+             launches_per_train_step=trained["exact"]["launches_per_step"],
              max_abs_err=mac_err),
         dict(name="paged_attn", replaces=f"{tpu}/paged_attn/paged_attn.py:131",
              path="exact", launches=exact["launches"]["paged_attn"],
@@ -2578,6 +3215,8 @@ def main() -> int:
              path="sim_flash", launches=sim["launches"]["bitplane_mac"],
              launches_per_decode_step=sim["per_decode_step"]["bitplane_mac"],
              launches_per_prefill=sim["per_prefill"]["bitplane_mac"],
+             launches_train=trained["sim"]["launches"],
+             launches_per_train_step=trained["sim"]["launches_per_step"],
              max_abs_err=bp_err),
         dict(name="flash_attn", replaces=f"{tpu}/flash_attn/flash_attn.py:81",
              path="sim_flash", launches=sim["launches"]["flash_attn"],
@@ -2592,6 +3231,8 @@ def main() -> int:
              launches_per_decode_step=noisy["per_decode_step"][
                  "bitplane_mac_noisy"],
              launches_per_prefill=noisy["per_prefill"]["bitplane_mac_noisy"],
+             launches_train=trained["noisy"]["launches"],
+             launches_per_train_step=trained["noisy"]["launches_per_step"],
              max_abs_err=bpn_err),
         dict(name="imc_mac_dequant",
              replaces=f"{tpu}/imc_mac/imc_mac.py:91",
@@ -2630,6 +3271,7 @@ def main() -> int:
             f"launches per decode step, {k['launches_per_prefill']} per "
             f"prefill, {k['launches']} in the {k['path']} run")
     for name, key in (("imc_mac", "prefill"), ("imc_mac", "prefill32"),
+                      ("imc_mac", "train"), ("bitplane_mac", "train"),
                       ("imc_mac_dequant", "prefill"),
                       ("rbl_decode_mac", "sweep")):
         t = timed[name][key]
@@ -2656,8 +3298,8 @@ def main() -> int:
             f"{tiers['tier3']:.4f} / {tiers['full']:.6f}")
     log(f"[7] noise-free bitplane_mac {t['noise_free_bitplane_mac_ms']:.4f} "
         "ms")
-    log(f"[8] build {build_s:.2f} s; served {json.dumps(served)}; macro "
-        f"{json.dumps(macro)}")
+    log(f"[9] build {build_s:.2f} s; served {json.dumps(served)}; macro "
+        f"{json.dumps(macro)}; trained {json.dumps(trained)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

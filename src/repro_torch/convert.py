@@ -1,4 +1,5 @@
-"""Carry parameters (and caches) from the JAX package's layout into the port.
+"""Carry parameters, optimizer state (and caches) from the JAX package's
+layout into the port.
 
 The reference stacks every pattern position's parameters across layer
 groups (leading dim G, for ``jax.lax.scan``; ``repro/models/transformer.py``
@@ -81,3 +82,16 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
     if "lm_head" in tree:
         out["lm_head"] = tree_to_torch(tree["lm_head"], device)
     return out
+
+
+def adamw_state_from_jax(state, cfg: ModelConfig, device=None):
+    """The reference's ``AdamWState`` (numpy leaves: ``step`` and the
+    ``master``, ``m``, ``v`` trees shaped as its params) -> the port's
+    :class:`~repro_torch.optim.adamw.AdamWState`, so that one AdamW step
+    can be compared on identical state."""
+    from repro_torch.optim.adamw import AdamWState
+
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=device)
+    return AdamWState(step, *(params_from_jax(t, cfg, device)
+                              for t in (state.master, state.m, state.v)))

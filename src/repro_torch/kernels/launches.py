@@ -8,7 +8,8 @@ launches nothing) and adds it on every replay (:func:`add`).  The counters
 then go on counting launches on the device.
 
 :data:`KERNELS` is the one table of the counters: the wrapper of each
-kernel, its counters and the ``__global__`` functions each counts.  The
+kernel, its plain version, its counters and the ``__global__`` functions
+each counts.  The
 ``launches`` counter counts every launch of the wrapper; the others count
 one kernel each (a variant, named ``<kernel>_<counter without
 _launches>``).  :func:`device_counts` counts a profiler's kernel names into
@@ -22,27 +23,35 @@ import re
 from typing import Dict, Iterable, List, Tuple
 
 # kernel -> (module under repro_torch.kernels, wrapper, {counter: the
-# __global__ functions whose launches it counts}).  The imc_mac kernels
+# __global__ functions whose launches it counts}, the plain version: a
+# function of the same module).  The imc_mac kernels
 # serve both entries; their DEQUANT template argument tells them apart.
 KERNELS = {
     "imc_mac": ("imc_mac.ops", "imc_mac", {
         "split_launches": ("imc_mac_splitk_kernel",),
-        "tiled_launches": ("imc_mac_mma_kernel",)}),
+        "tiled_launches": ("imc_mac_mma_kernel",)},
+        "imc_mac_torch"),
     "imc_mac_dequant": ("imc_mac.ops", "imc_mac_dequant", {
         "split_launches": ("imc_mac_splitk_kernel",),
-        "tiled_launches": ("imc_mac_mma_kernel",)}),
+        "tiled_launches": ("imc_mac_mma_kernel",)},
+        "imc_mac_dequant_torch"),
     "paged_attn": ("paged_attn.ops", "paged_attention", {
         "split_launches": ("paged_split_kernel",),
-        "staged_launches": ("paged_decode_kernel",)}),
+        "staged_launches": ("paged_decode_kernel",)},
+        "paged_decode_torch"),
     "bitplane_mac": ("bitplane_mac.ops", "bitplane_mac", {
-        "launches": ("bitplane_mac_kernel", "bitplane_mac_r8_kernel")}),
+        "launches": ("bitplane_mac_kernel", "bitplane_mac_r8_kernel")},
+        "bitplane_mac_torch"),
     "flash_attn": ("flash_attn.ops", "flash_attention", {
         "tc_launches": ("flash_attn_tc_kernel",),
-        "simt_launches": ("flash_attn_kernel",)}),
+        "simt_launches": ("flash_attn_kernel",)},
+        "flash_attention_torch"),
     "bitplane_mac_noisy": ("bitplane_mac.ops", "bitplane_mac_noisy", {
-        "launches": ("bitplane_mac_noisy_kernel",)}),
+        "launches": ("bitplane_mac_noisy_kernel",)},
+        "bitplane_mac_noisy_torch"),
     "rbl_decode_mac": ("rbl_decode.ops", "rbl_decode_mac", {
-        "launches": ("rbl_decode_mac_kernel",)}),
+        "launches": ("rbl_decode_mac_kernel",)},
+        "rbl_decode_mac_torch"),
 }
 
 _WRAPPERS: Dict[str, object] = {}
@@ -51,24 +60,33 @@ _WRAPPERS: Dict[str, object] = {}
 def wrappers() -> Dict[str, object]:
     """kernel name -> its wrapper (whose ``launches`` counts it)."""
     if not _WRAPPERS:
-        for name, (module, attr, _) in KERNELS.items():
+        for name, (module, attr, _, _) in KERNELS.items():
             mod = importlib.import_module(f"repro_torch.kernels.{module}")
             _WRAPPERS[name] = getattr(mod, attr)
     return _WRAPPERS
+
+
+def plains() -> Dict[str, Tuple[object, str]]:
+    """kernel name -> (its module, the name of its plain version there).
+    The wrappers and the fabric engines look the plain version up as the
+    module's attribute at call time."""
+    return {name: (importlib.import_module(f"repro_torch.kernels.{module}"),
+                   plain)
+            for name, (module, _, _, plain) in KERNELS.items()}
 
 
 def variants() -> Dict[str, Tuple[str, str]]:
     """variant name -> (kernel name, counter) of every per-kernel counter
     besides ``launches``."""
     return {f"{name}_{attr[:-len('_launches')]}": (name, attr)
-            for name, (_, _, attrs) in KERNELS.items()
+            for name, (_, _, attrs, _) in KERNELS.items()
             for attr in attrs if attr != "launches"}
 
 
 def counters() -> List[Tuple[object, str]]:
     """(wrapper, attribute) of every launch counter of every kernel."""
     w = wrappers()
-    return [(w[name], attr) for name, (_, _, attrs) in KERNELS.items()
+    return [(w[name], attr) for name, (_, _, attrs, _) in KERNELS.items()
             for attr in dict.fromkeys(("launches",) + tuple(attrs))]
 
 
@@ -93,7 +111,7 @@ def device_counts(kernels: Iterable[Tuple[str, int]]) -> Dict[str, int]:
     ``void (anonymous namespace)::imc_mac_splitk_kernel<4, false>(...)``);
     names of no kernel in :data:`KERNELS` are left out."""
     owner = {}
-    for name, (_, _, attrs) in KERNELS.items():
+    for name, (_, _, attrs, _) in KERNELS.items():
         for attr, fns in attrs.items():
             for f in fns:
                 owner.setdefault(f, []).append((name, attr))

@@ -5,10 +5,12 @@ The reference's Engine owns a mesh, a cache of jitted steps and the noise
 keys; the port's owns what running one H100 needs:
 
   * **step cache** — :meth:`Engine.prefill_step` (one per prefill bucket),
-    :meth:`Engine.decode_step` and :meth:`Engine.admit_step` are memoized on
+    :meth:`Engine.decode_step`, :meth:`Engine.admit_step` and
+    :meth:`Engine.train_step` (one per ``AdamWConfig``) are memoized on
     ``(ModelConfig, kind, extras, FabricSpec)``: equal keys return the same
-    :class:`Step`.  :attr:`Engine.stats` counts cache hits and distinct
-    steps (``compiles``).
+    step.  :attr:`Engine.stats` counts cache hits and distinct steps
+    (``compiles``).  The train step runs eagerly (a captured train step is
+    ROADMAP work); the serving steps are :class:`Step` objects.
   * **CUDA graphs** — a :class:`Step` binds its inputs to static buffers
     the first time it sees an argument set (the objects it reads by
     reference, such as the params and the serving state, and the shapes of
@@ -64,6 +66,7 @@ from repro_torch.kernels import launches
 from repro_torch.kernels.common import mix_seed, seed_table
 from repro_torch.launch import steps
 from repro_torch.models.transformer import dense_calls
+from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.telemetry import Registry, clock, get_registry
 
@@ -296,7 +299,7 @@ class Engine:
 
     # ----------------------------------------------------------- step cache
     def _cached_step(self, cfg: ModelConfig, kind: str, extras: Tuple,
-                     build: Callable[[], Step]) -> Step:
+                     build: Callable[[], Callable]) -> Callable:
         key = (cfg, kind, extras, cfg.imc_fabric)
         step = self._steps.get(key)
         if step is None:
@@ -338,6 +341,28 @@ class Engine:
         binding (one graph) per prefill step whose output it reads."""
         return self._cached_step(cfg, "admit", (), lambda: Step(
             self, "admit", steps.admit_step))
+
+    def train_step(self, cfg: ModelConfig,
+                   opt_cfg: AdamWConfig = AdamWConfig()) -> Callable:
+        """``step(params, opt_state, batch, seed) -> (params, opt_state,
+        metrics)`` (:func:`~repro_torch.launch.steps.make_train_step`), run
+        eagerly; ``seed`` is :meth:`noise_seed` of the step (read only by a
+        noisy fabric).  Each call's host time lands in
+        ``engine.step_s.train``."""
+        def build():
+            fn = steps.make_train_step(cfg, opt_cfg)
+            hist = self.registry.histogram("engine.step_s.train")
+
+            def train_step(params, opt_state, batch, seed=None):
+                t0 = clock()
+                out = fn(params, opt_state, batch, seed)
+                if self.registry.enabled:
+                    hist.observe(clock() - t0)
+                return out
+
+            return train_step
+
+        return self._cached_step(cfg, "train", (opt_cfg,), build)
 
     # -------------------------------------------------------------- state
     def serve_state(self, cfg: ModelConfig, geometry: Tuple,

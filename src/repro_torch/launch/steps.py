@@ -1,5 +1,20 @@
-"""Step functions: prefill, decode and admission (port of
+"""Step functions: train, prefill, decode and admission (port of
 ``repro/launch/steps.py``).
+
+    train_step(params, opt_state, batch, seed=None) -> (params, opt, metrics)
+
+runs :func:`~repro_torch.models.model.loss_fn` under the step's noise seed,
+its backward (the STE through every fabric projection) and
+:func:`~repro_torch.optim.adamw.adamw_update`.  Under
+:func:`~repro_torch.device.deterministic`, as :func:`repro_torch.launch.train
+.train` runs it, a step repeats bit for bit on the card.  A noisy fabric's
+step writes its
+seed table (one row per ``dense`` call of the forward) to the device once;
+each layer's rows are handed to it before it runs, so the layers recomputed
+in the backward replay their noise.  It returns new params and state; the
+ones passed in are not modified.  Train steps run eagerly.
+
+The serving steps:
 
 Each step reads only its tensor arguments, so :class:`~repro_torch.launch
 .engine.Engine` can bind them to static buffers and capture one CUDA graph
@@ -16,20 +31,41 @@ admission's slot are device tensors, never Python ints.
 rings, and ``cache.pos``), so the state a graph captured stays the state it
 replays on.
 
-Not ported: ``make_train_step`` (training is not ported yet) and
-``input_specs`` with its helpers, which build abstract inputs for the XLA
-dry-run (``jax.ShapeDtypeStruct``s for ``lower().compile()``); one H100
-runs no ahead-of-time lowering, so they have no counterpart here.
+Not ported: ``input_specs`` with its helpers, which build abstract inputs
+for the XLA dry-run (``jax.ShapeDtypeStruct``s for ``lower().compile()``);
+one H100 runs no ahead-of-time lowering, so they have no counterpart here.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.common import seed_table
 from repro_torch.models.kv_cache import merge_prefill_cache
-from repro_torch.models.model import decode_step, prefill
+from repro_torch.models.model import decode_step, loss_and_grads, prefill
+from repro_torch.models.transformer import dense_calls
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.tree import tree_leaves
 
 
-def make_train_step(cfg: ModelConfig, *args, **kw):
-    raise NotImplementedError("the training step is not ported yet")
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig()):
+    spec = cfg.imc_fabric
+    calls = dense_calls(cfg) if spec is not None and spec.noisy else 0
+
+    def train_step(params, opt_state, batch, seed=None):
+        seeds = None
+        if calls:
+            if seed is None:
+                raise ValueError("the train step of a noisy fabric needs a "
+                                 "seed")
+            dev = tree_leaves(params)[0].device
+            seeds = torch.from_numpy(seed_table(seed, calls)).to(dev)
+        _, metrics, grads = loss_and_grads(params, batch, cfg,
+                                           noise_seed=seeds)
+        new_params, new_opt, om = adamw_update(grads, opt_state, opt_cfg)
+        return new_params, new_opt, dict(metrics, **om)
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, max_new_tokens: int = 0):

@@ -1,0 +1,143 @@
+"""End-to-end trainer: data -> train step -> checkpoints, fault-tolerant (port
+of ``repro/launch/train.py``).
+
+One process on one device: the card unless ``device="cpu"`` (``--device
+cpu``) is asked for.  The step cache, the noise seeds and the step-time
+telemetry live in :class:`repro_torch.launch.engine.Engine`; this file is
+just the loop.
+
+    python -m repro_torch.launch.train --arch imc-paper-110m --steps 200 \\
+        --ckpt /tmp/ckpt --batch 8 --seq 256
+    python -m repro_torch.launch.train --arch imc-paper-110m --reduce \\
+        --device cpu --steps 5
+
+With ``ckpt_root`` the steps run in a
+:class:`~repro_torch.runtime.fault_tolerance.FaultTolerantLoop`: a
+``fail_at`` step raises :class:`InjectedFailure` out of :func:`train`, and
+calling :func:`train` again with the same root resumes from the latest
+committed checkpoint.
+
+Not ported: ``train_fleet`` and ``--fleet-hosts > 1`` (the virtual fleet,
+ROADMAP queue 1 item 8) raise "not ported yet".
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.core.fabric import add_fabric_cli, apply_fabric_cli
+from repro_torch.data.pipeline import DataConfig, SyntheticStream
+from repro_torch.device import DeviceLike, deterministic
+from repro_torch.launch.engine import Engine
+from repro_torch.models.model import init_params
+from repro_torch.optim.adamw import AdamWConfig, init_adamw
+from repro_torch.runtime.fault_tolerance import FaultTolerantLoop
+from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.telemetry import clock
+from repro_torch.tree import tree_leaves
+
+
+def train(cfg, *, steps: int, global_batch: int, seq_len: int,
+          ckpt_root: str | None = None, ckpt_every: int = 50,
+          lr: float = 3e-4, seed: int = 0, engine: Engine | None = None,
+          log_every: int = 10, fail_at=None, device: DeviceLike = None):
+    """Train ``cfg`` from random weights (``init_params(cfg, seed=seed)``)
+    on the synthetic stream of ``seed``.  Returns ((params, opt_state),
+    metrics per step run: the step's loss, ce, grad_norm and lr, and
+    ``step_s``, its wall time from the batch's copy-in to the metrics read
+    back).  ``engine`` (default: a new one on ``device``) sets the device
+    and the noise seeds.  The steps run under deterministic algorithms
+    (:func:`repro_torch.device.deterministic`), so a run resumed from a
+    checkpoint repeats an uninterrupted one bit for bit."""
+    opt_cfg = AdamWConfig(lr=lr, warmup_steps=min(20, steps // 10 + 1),
+                          total_steps=steps)
+    engine = engine or Engine(device=device, noise_seed=seed,
+                              monitor=StragglerMonitor())
+    dev = engine.device
+    stream = SyntheticStream(DataConfig(cfg.vocab_size, seq_len,
+                                        global_batch, seed=seed))
+
+    params = init_params(cfg, device=dev, seed=seed)
+    opt_state = init_adamw(params)
+    metrics_hist = []
+    step_fn_ = engine.train_step(cfg, opt_cfg)
+
+    def step_fn(state, batch, step):
+        t0 = clock()
+        params, opt_state = state
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        params, opt_state, metrics = step_fn_(params, opt_state, batch,
+                                              engine.noise_seed(step))
+        m = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        m["step_s"] = clock() - t0
+        metrics_hist.append(m)
+        return (params, opt_state)
+
+    with deterministic():
+        if ckpt_root:
+            loop = FaultTolerantLoop(
+                ckpt_root, step_fn, lambda s: stream.batch(s),
+                ckpt_every=ckpt_every, fail_at=fail_at,
+                monitor=engine.monitor or StragglerMonitor())
+            state = loop.run((params, opt_state), steps)
+        else:
+            state = (params, opt_state)
+            for s in range(steps):
+                t0 = clock()
+                state = step_fn(state, stream.batch(s), s)
+                engine.observe_step_time(clock() - t0)
+                if s % log_every == 0:
+                    m = metrics_hist[-1]
+                    print(f"step {s:5d} loss={m['loss']:.4f} "
+                          f"ce={m['ce']:.4f} gnorm={m['grad_norm']:.2f} "
+                          f"({clock()-t0:.2f}s)", flush=True)
+    return state, metrics_hist
+
+
+def train_fleet(cfg, *, n_hosts: int, **kw):
+    """The virtual-fleet trainer of the reference: not ported yet (the fleet
+    is ROADMAP queue 1 item 8)."""
+    raise NotImplementedError(
+        f"train_fleet ({n_hosts} hosts): the virtual fleet is not ported "
+        "yet")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="imc-paper-110m")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--reduce", action="store_true",
+                    help="use the smoke-scale config variant")
+    ap.add_argument("--fleet-hosts", type=int, default=1,
+                    help="virtual fleet of N hosts (not ported yet: N > 1 "
+                         "raises)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    add_fabric_cli(ap)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduce:
+        cfg = reduce_config(cfg)
+    cfg = apply_fabric_cli(args, cfg)
+    if args.fleet_hosts > 1:
+        train_fleet(cfg, n_hosts=args.fleet_hosts, steps=args.steps,
+                    global_batch=args.batch, seq_len=args.seq,
+                    ckpt_root=args.ckpt, lr=args.lr, seed=args.seed)
+    (params, _), hist = train(
+        cfg, steps=args.steps, global_batch=args.batch, seq_len=args.seq,
+        ckpt_root=args.ckpt, lr=args.lr, seed=args.seed, device=args.device)
+    losses = [m["loss"] for m in hist]
+    print(f"\nfinal loss {losses[-1]:.4f} (start {losses[0]:.4f}); "
+          f"params = {sum(x.numel() for x in tree_leaves(params)):,}")
+
+
+if __name__ == "__main__":
+    main()

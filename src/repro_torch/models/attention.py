@@ -1,9 +1,9 @@
-"""GQA attention: full-causal and sliding-window, prefill and decode (port of
-``repro/models/attention.py``; the training forward comes later).
+"""GQA attention: full-causal and sliding-window, train, prefill and decode
+(port of ``repro/models/attention.py``).
 
-Prefill runs over query chunks against the full K/V (global layers) or a
-window+chunk span (local layers); decode runs a single-token query against
-the cache.  Two cache layouts:
+Training and prefill run over query chunks against the full K/V (global
+layers) or a window+chunk span (local layers); decode runs a single-token
+query against the cache.  Two cache layouts:
 
   * :class:`AttnCache` — one ring per slot: ``k``/``v`` (B, T_alloc, KV, hd)
     roped keys, ``key_pos`` (B, T_alloc) absolute positions (-1 = empty).
@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import apply_rope, dense, init_dense
 
@@ -57,18 +58,22 @@ def _project_qkv(params, x, n_heads, n_kv_heads, head_dim, positions,
     return q, k, v
 
 
-def _sdpa(q, k, v, mask):
+def _sdpa(q, k, v, mask, *, native_dtype_dots: bool = True):
     """q: (B,Sq,H,hd); k/v: (B,Sk,KV,hd); mask broadcastable to
     (B,KV,rep,Sq,Sk).  Grouped formulation (no materialized K/V repeat).
 
     The dots contract the operands' values with f32 accumulation, as the
     reference's ``preferred_element_type=f32`` einsums do; the softmax runs
-    in f32 and its probabilities round to v's dtype before the second dot.
+    in f32 and its probabilities round to v's dtype before the second dot
+    (``native_dtype_dots=False``, the reference's f32-cast baseline, casts
+    the operands to f32 first, so the probabilities stay f32).
     Returns (B, Sq, H, hd) in q's dtype.
     """
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     rep = h // kv
+    if not native_dtype_dots:
+        k, v = k.to(torch.float32), v.to(torch.float32)
     qg = q.reshape(b, sq, kv, rep, hd).to(torch.float32)
     scores = torch.einsum("bqkrd,btkd->bkrqt", qg,
                           k.to(torch.float32)) * (hd ** -0.5)
@@ -79,12 +84,16 @@ def _sdpa(q, k, v, mask):
     return out.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def _chunked_causal(q, k, v, *, window: int = 0, q_chunk: int = 512):
+def _chunked_causal(q, k, v, *, window: int = 0, q_chunk: int = 512,
+                    chunk_remat: bool = True, native_dtype_dots: bool = True):
     """Causal (optionally windowed) attention over query chunks.
 
     Each chunk scores against the full K/V, or, for a window shorter than
     the sequence, against the ``window + chunk`` span that covers it — the
-    reference's scan, written as a loop.
+    reference's scan, written as a loop.  ``chunk_remat`` (when autograd
+    records) recomputes each chunk's scores in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of the
+    scan body), so the backward never holds the whole S x T score matrix.
     """
     b, s, h, hd = q.shape
     dev = q.device
@@ -96,10 +105,11 @@ def _chunked_causal(q, k, v, *, window: int = 0, q_chunk: int = 512):
         mask = kp <= qp
         if window:
             mask &= kp > qp - window
-        return _sdpa(q, k, v, mask[None, None, None])
-    outs = []
+        return _sdpa(q, k, v, mask[None, None, None],
+                     native_dtype_dots=native_dtype_dots)
     span = window + chunk
-    for ci in range(nc):
+
+    def body(ci, q, k, v):
         q_start = ci * chunk
         qc = q[:, q_start:q_start + chunk]
         qp = (q_start + torch.arange(chunk, device=dev))[:, None]
@@ -114,7 +124,14 @@ def _chunked_causal(q, k, v, *, window: int = 0, q_chunk: int = 512):
             mask = kp <= qp
             if window:
                 mask &= kp > qp - window
-        outs.append(_sdpa(qc, kc, vc, mask[None, None, None]))
+        return _sdpa(qc, kc, vc, mask[None, None, None],
+                     native_dtype_dots=native_dtype_dots)
+
+    if chunk_remat and torch.is_grad_enabled():
+        outs = [checkpoint(body, ci, q, k, v, use_reentrant=False,
+                           preserve_rng_state=False) for ci in range(nc)]
+    else:
+        outs = [body(ci, q, k, v) for ci in range(nc)]
     return torch.cat(outs, dim=1)
 
 
@@ -153,6 +170,41 @@ def _kv_quant(x):
 
 def _kv_dequant(q, scale, dtype):
     return (q.to(torch.float32) * scale.to(torch.float32)[..., None]).to(dtype)
+
+
+def attn_forward(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
+                 window: int = 0, positions=None, q_chunk: int = 512,
+                 chunk_remat: bool = True, native_dtype_dots: bool = True,
+                 use_flash: bool = False, **imc):
+    """Training / no-cache forward. x: (B, S, D) -> (B, S, D).
+
+    ``use_flash`` runs the ``flash_attn`` kernel (its plain version on a CPU
+    tensor) for a forward without gradients, as the reference's
+    ``forward_logits`` does.  The reference's kernel cannot be
+    differentiated and neither can the port's: with autograd recording
+    through q, k or v it raises.
+    """
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim,
+                           positions, rope_theta, **imc)
+    if use_flash:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise RuntimeError(
+                "use_flash_kernel=True: flash_attn has no backward (the "
+                "reference's flash kernel cannot be differentiated either); "
+                "train with use_flash_kernel=False, or run this forward "
+                "under torch.no_grad()")
+        from repro_torch.kernels.flash_attn.ops import flash_attention
+
+        out = flash_attention(q, k, v, window=window)
+    else:
+        out = _chunked_causal(q, k, v, window=window, q_chunk=q_chunk,
+                              chunk_remat=chunk_remat,
+                              native_dtype_dots=native_dtype_dots)
+    return dense(params["wo"], out.reshape(b, s, -1), **imc)
 
 
 def attn_prefill(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,

@@ -14,6 +14,10 @@ Given a seed table instead (an int32 (calls, 2) tensor whose row ``n`` holds
 ``seed_words(mix_seed(seed, n))``, :func:`~repro_torch.kernels.common
 .seed_table`), call ``n`` takes row ``n``: the same seeds, read from device
 memory, so a captured CUDA graph draws fresh noise on every replay.
+
+A training forward hands each layer its own span of calls up front
+(:func:`take_fabric_seeds`): a layer re-run by ``torch.utils.checkpoint`` in
+the backward re-enters its span and replays the seeds of its first run.
 """
 from __future__ import annotations
 
@@ -85,14 +89,20 @@ class fabric_noise_seed:
     under a noisy spec takes :func:`next_fabric_seed`, so one forward's
     projections draw independent noise, and the same seed replays it.
     ``seed`` is a 64-bit integer or a seed table (see the module docstring).
+
+    ``start`` and ``stop`` make the context a span of calls ``start ..
+    stop - 1`` of ``seed`` (:func:`take_fabric_seeds`); a call past
+    ``stop`` raises.  Entering the context again replays the span.
     """
 
-    def __init__(self, seed):
+    def __init__(self, seed, start: int = 0, stop: Optional[int] = None):
         self.seed = seed if isinstance(seed, torch.Tensor) else int(seed)
+        self.start, self.stop = start, stop
 
     def __enter__(self):
         self.prev = getattr(_FABRIC_SEED, "state", None)
-        _FABRIC_SEED.state = {"seed": self.seed, "n": 0}
+        _FABRIC_SEED.state = {"seed": self.seed, "n": self.start,
+                              "stop": self.stop}
         return self
 
     def __exit__(self, *exc):
@@ -108,12 +118,31 @@ def next_fabric_seed():
         return None
     n, seed = st["n"], st["seed"]
     st["n"] += 1
+    if st["stop"] is not None and n >= st["stop"]:
+        raise IndexError(f"noisy dense call {n} lies past its span's end "
+                         f"{st['stop']}")
     if isinstance(seed, torch.Tensor):
         if n >= seed.shape[0]:
             raise IndexError(f"noisy dense call {n} has no row in a seed "
                              f"table of {seed.shape[0]}")
         return seed[n]
     return mix_seed(seed, n)
+
+
+def take_fabric_seeds(calls: int) -> Optional[fabric_noise_seed]:
+    """The next ``calls`` seeds of the ambient context as a context of their
+    own (the ambient counter moves past them), or None outside a
+    :class:`fabric_noise_seed` context.  Entered, the span draws the same
+    seeds as the ambient context would have, however often it is entered."""
+    st = getattr(_FABRIC_SEED, "state", None)
+    if st is None:
+        return None
+    n = st["n"]
+    st["n"] += calls
+    if st["stop"] is not None and st["n"] > st["stop"]:
+        raise IndexError(f"a span of {calls} calls from {n} lies past its "
+                         f"context's end {st['stop']}")
+    return fabric_noise_seed(st["seed"], start=n, stop=n + calls)
 
 
 def dense(params, x: torch.Tensor, *,

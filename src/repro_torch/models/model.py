@@ -1,8 +1,10 @@
-"""LM wrapper: embeddings, stack, head, serving steps (port of
-``repro/models/model.py``; the loss and the modality frontends come later).
+"""LM wrapper: embeddings, stack, head, loss, serving steps (port of
+``repro/models/model.py``; the modality frontends come later).
 
 Public API:
   init_params(cfg, generator, device)       -> params dict
+  loss_fn(params, batch, cfg)               -> (loss, metrics)
+  loss_and_grads(params, batch, cfg)        -> (loss, metrics, grads)
   forward_logits(params, batch, cfg)        -> logits (small models / tests)
   prefill(params, batch, cfg)               -> (last_logits, StackCache)
   decode_step(params, cache, token, cfg)    -> (logits, StackCache)
@@ -11,13 +13,13 @@ Under a noisy fabric spec each entry point takes ``noise_seed`` and runs its
 forward inside :class:`~repro_torch.models.common.fabric_noise_seed`, as the
 reference's ``launch/steps.py`` does with its per-step key.
 
-Batches: {"tokens": (B, S) int} (+ optional "length": the true prompt
-length of a right-padded bucket, an int or a 0-dim integer tensor on the
-tokens' device, as a captured prefill step takes it); decode takes ``token``
-(B, 1) int.  ``noise_seed`` is a 64-bit integer or a seed table (see
-:mod:`repro_torch.models.common`).
-The embedding lookup and the head matmul stay plain torch, as the reference
-leaves them outside any kernel.
+Batches: {"tokens": (B, S) int} (+ "labels": (B, S) int for the loss; +
+optional "length": the true prompt length of a right-padded bucket, an int
+or a 0-dim integer tensor on the tokens' device, as a captured prefill step
+takes it); decode takes ``token`` (B, 1) int.  ``noise_seed`` is a 64-bit
+integer or a seed table (see :mod:`repro_torch.models.common`).
+The embedding lookup, the head matmul and the cross-entropy stay plain
+torch, as the reference leaves them outside any kernel.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import contextlib
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -32,6 +35,9 @@ from repro_torch.models.common import (fabric_noise_seed, init_dense,
                                        init_rmsnorm, rmsnorm)
 from repro_torch.models.transformer import (StackCache, check_supported,
                                             init_stack, stack_forward)
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+CE_CHUNK = 512
 
 
 # -------------------------------------------------------------------- init
@@ -74,17 +80,71 @@ def _noise_ctx(noise_seed):
         fabric_noise_seed(noise_seed)
 
 
+# -------------------------------------------------------------------- loss
+def _ce_chunk(xi, head_w, li):
+    """Summed token CE of one sequence chunk: (B, c, D) x (D, V) logits in
+    x's dtype, cast to f32, logsumexp minus the gold logit."""
+    logits = (xi @ head_w.to(xi.dtype)).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, li[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def _chunked_ce(x, head_w, labels, chunk: int = CE_CHUNK):
+    """Mean token CE without materializing the whole (B, S, V) logits: one
+    sequence chunk at a time, each recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+    scan body) when autograd records."""
+    b, s, d = x.shape
+    if s % chunk != 0:
+        chunk = s
+    labels = labels.to(torch.int64)
+    remat = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        args = (x[:, c0:c0 + chunk], head_w, labels[:, c0:c0 + chunk])
+        tot = tot + (checkpoint(_ce_chunk, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+                     if remat else _ce_chunk(*args))
+    return tot / (b * s)
+
+
+def loss_fn(params, batch, cfg: ModelConfig,
+            noise_seed: Optional[int] = None):
+    """Mean next-token CE of ``batch`` ({"tokens", "labels"}: (B, S) int
+    tensors on the params' device). Returns (loss, {"ce", "loss"})."""
+    x = _embed(params, batch["tokens"])
+    with _noise_ctx(noise_seed):
+        x, _, _ = stack_forward(params["blocks"], x, cfg, "train")
+    x = rmsnorm(params["final_norm"], x)
+    ce = _chunked_ce(x, _head_weight(params, cfg), batch["labels"])
+    return ce, {"ce": ce, "loss": ce}
+
+
+def loss_and_grads(params, batch, cfg: ModelConfig,
+                   noise_seed: Optional[int] = None):
+    """:func:`loss_fn` and its gradient with respect to every param (the
+    reference's ``jax.value_and_grad(loss_fn, has_aux=True)``).  Returns
+    (loss, metrics, grads), ``grads`` shaped as ``params`` in the params'
+    dtypes.  ``params`` are read through detached views; their tensors are
+    not modified."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(tree_unflatten(params, leaves), batch, cfg,
+                                noise_seed=noise_seed)
+        grads = torch.autograd.grad(loss, leaves)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_unflatten(params, list(grads)))
+
+
 # -------------------------------------------------------------------- logits
 def forward_logits(params, batch, cfg: ModelConfig,
                    noise_seed: Optional[int] = None) -> torch.Tensor:
-    """Full (B, S, V) f32 logits of a causal forward — small models only.
-
-    The serving slice has no training forward; a prefill with no extra cache
-    room computes the same causal forward and its cache is dropped.
-    """
+    """Full (B, S, V) f32 logits of the training forward — small models
+    only."""
     x = _embed(params, batch["tokens"])
     with _noise_ctx(noise_seed):
-        x, _ = stack_forward(params["blocks"], x, cfg, "prefill")
+        x, _, _ = stack_forward(params["blocks"], x, cfg, "train")
     x = rmsnorm(params["final_norm"], x)
     return (x @ _head_weight(params, cfg).to(x.dtype)).to(torch.float32)
 
@@ -98,7 +158,7 @@ def prefill(params, batch, cfg: ModelConfig, max_new_tokens: int = 0,
     length = batch.get("length")
     x = _embed(params, batch["tokens"])
     with _noise_ctx(noise_seed):
-        x, cache = stack_forward(params["blocks"], x, cfg, "prefill",
+        x, cache, _ = stack_forward(params["blocks"], x, cfg, "prefill",
                                  prefill_extra=max_new_tokens,
                                  true_len=length)
     if length is None:
@@ -122,7 +182,7 @@ def decode_step(params, cache: StackCache, token: torch.Tensor,
     """
     x = _embed(params, token)
     with _noise_ctx(noise_seed):
-        x, new_cache = stack_forward(params["blocks"], x, cfg, "decode",
+        x, new_cache, _ = stack_forward(params["blocks"], x, cfg, "decode",
                                      cache=cache, pos=cache.pos,
                                      block_table=block_table)
     x = rmsnorm(params["final_norm"], x)

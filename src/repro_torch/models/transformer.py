@@ -7,17 +7,29 @@ runs ``jax.lax.scan``; the port keeps one entry per layer in order (layer
 and loops in Python.  Only the attention kinds run here: ``attn`` (global)
 and ``local`` (sliding window), each followed by its MLP.  MoE, SSD and
 RG-LRU blocks raise "not ported yet".
+
+Modes: ``train`` (no cache; with ``cfg.remat`` and autograd recording,
+each layer runs under ``torch.utils.checkpoint`` and is recomputed in the
+backward, as the reference's ``jax.checkpoint`` of its scan body),
+``prefill`` and ``decode``.  A noisy fabric's training forward hands each
+layer its own span of seeds before the layer runs
+(:func:`~repro_torch.models.common.take_fabric_seeds`), so a recomputed
+layer draws the noise of its first run, and a forward draws the seeds a
+prefill over the same tokens draws.
 """
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional
+import contextlib
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import (attn_decode, attn_prefill,
-                                          init_attention)
-from repro_torch.models.common import init_rmsnorm, rmsnorm
+from repro_torch.models.attention import (attn_decode, attn_forward,
+                                          attn_prefill, init_attention)
+from repro_torch.models.common import (init_rmsnorm, rmsnorm,
+                                       take_fabric_seeds)
 from repro_torch.models.mlp import apply_mlp, init_mlp
 
 ATTN_KINDS = ("attn", "local")
@@ -32,13 +44,17 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
     return list(cfg.pattern) * cfg.n_groups_layers + list(cfg.tail)
 
 
+def layer_dense_calls(cfg: ModelConfig) -> int:
+    """``dense`` calls in one layer's forward: the four attention
+    projections and the MLP's two or three."""
+    return 4 + (3 if cfg.mlp in ("swiglu", "geglu") else 2)
+
+
 def dense_calls(cfg: ModelConfig) -> int:
-    """``dense`` calls in one forward of the stack (prefill or decode): the
-    four attention projections and the MLP's two or three per layer.  A
-    noisy fabric draws one seed per call, so this sizes a step's seed
-    table."""
-    mlp = 3 if cfg.mlp in ("swiglu", "geglu") else 2
-    return len(layer_kinds(cfg)) * (4 + mlp)
+    """``dense`` calls in one forward of the stack (train, prefill or
+    decode).  A noisy fabric draws one seed per call, so this sizes a step's
+    seed table."""
+    return len(layer_kinds(cfg)) * layer_dense_calls(cfg)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -96,7 +112,13 @@ def apply_block(params, x, kind: str, cfg: ModelConfig, mode: str,
               head_dim=cfg.hd, rope_theta=cfg.rope_theta, window=window,
               **imc)
     h = rmsnorm(params["norm1"], x)
-    if mode == "prefill":
+    if mode == "train":
+        y = attn_forward(params["attn"], h, q_chunk=cfg.q_chunk,
+                         chunk_remat=cfg.chunk_remat,
+                         native_dtype_dots=cfg.native_dtype_dots,
+                         use_flash=cfg.use_flash_kernel, **kw)
+        new_cache = None
+    elif mode == "prefill":
         if true_len is not None:
             # ragged (right-padded) admission keeps EVERY row, even for
             # windowed layers: the cache is scattered into the pools
@@ -126,10 +148,24 @@ def apply_block(params, x, kind: str, cfg: ModelConfig, mode: str,
 
 
 # ------------------------------------------------------------------ stack
+def _zero_aux() -> Dict[str, float]:
+    """The MoE auxiliary losses, which a dense stack leaves at zero (the
+    reference's ``_acc_aux`` adds nothing for blocks without a router)."""
+    return {"load_balance_loss": 0.0, "router_z_loss": 0.0}
+
+
+def _train_layer(params, x, kind, cfg, seeds):
+    """One layer of a training forward, under its own span of noise seeds
+    (None for a noise-free fabric)."""
+    with seeds if seeds is not None else contextlib.nullcontext():
+        return apply_block(params, x, kind, cfg, "train")[0]
+
+
 def stack_forward(params, x, cfg: ModelConfig, mode: str,
                   cache: Optional[StackCache] = None, pos=None,
                   prefill_extra: int = 0, true_len=None, block_table=None):
-    """Run the full stack. Returns (x, new_cache).
+    """Run the full stack. Returns (x, new_cache, aux): ``new_cache`` is
+    None in ``train`` mode; ``aux`` holds the MoE losses (zeros here).
 
     ``true_len`` (prefill, an int or a 0-dim integer tensor on x's device):
     the prompt occupies positions ``[0, true_len)`` of a right-padded
@@ -137,10 +173,24 @@ def stack_forward(params, x, cfg: ModelConfig, mode: str,
     (B, max_blocks) int32) routes attention through paged pools when the
     cache holds :class:`~repro_torch.models.attention.PagedAttnCache`s.
     """
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be 'prefill' or 'decode' in the serving "
-                         f"slice, got {mode!r}")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got "
+                         f"{mode!r}")
     check_supported(cfg)
+    if mode == "train":
+        spec = cfg.imc_fabric
+        noisy = spec is not None and spec.noisy
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i, kind in enumerate(layer_kinds(cfg)):
+            seeds = take_fabric_seeds(layer_dense_calls(cfg)) if noisy \
+                else None
+            p = params["layers"][i]
+            if remat:
+                x = checkpoint(_train_layer, p, x, kind, cfg, seeds,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _train_layer(p, x, kind, cfg, seeds)
+        return x, None, _zero_aux()
     new_layers = []
     for i, kind in enumerate(layer_kinds(cfg)):
         lc = cache.layers[i] if mode == "decode" else None
@@ -154,4 +204,4 @@ def stack_forward(params, x, cfg: ModelConfig, mode: str,
         new_pos = torch.as_tensor(x.shape[1] if true_len is None else
                                   true_len, device=x.device).reshape(()).to(
             torch.int32, copy=True)
-    return x, StackCache(new_layers, new_pos)
+    return x, StackCache(new_layers, new_pos), _zero_aux()

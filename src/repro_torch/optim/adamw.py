@@ -1,0 +1,112 @@
+"""AdamW with mixed-precision masters (port of ``repro/optim/adamw.py``).
+
+  * params may live in bf16; the optimizer keeps fp32 master copies and
+    moments, in trees shaped as the params (:mod:`repro_torch.tree`).
+  * global-norm clipping, decoupled weight decay, linear-warmup cosine decay.
+  * the step counter, the learning rate and the norm are 0-dim device
+    tensors, so an update reads nothing back to the host.
+
+Every new param, norm scales included, is cast to ``param_dtype`` (bf16 by
+default) after a step, as in the reference.  The update writes new tensors;
+the caller's state is not modified.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor  # () int32
+    master: Any  # fp32 master params
+    m: Any  # fp32 first moment
+    v: Any  # fp32 second moment
+
+
+class AdamWConfig(NamedTuple):
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+
+
+def init_adamw(params) -> AdamWState:
+    """Masters are float32 copies (never aliases of a float32 param);
+    moments are zeros; the step lies on the params' device."""
+    leaves = tree_leaves(params)
+    dev = leaves[0].device if leaves else None
+    master = tree_map(lambda x: x.detach().to(torch.float32, copy=True),
+                      params)
+    zeros = lambda: tree_map(  # noqa: E731
+        lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device),
+        params)
+    return AdamWState(torch.zeros((), dtype=torch.int32, device=dev), master,
+                      zeros(), zeros())
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a 0-dim float32 tensor on like's device, filled there (no
+    host-to-device copy, so no sync): a divisor of this type divides (a
+    Python-number divisor is a multiply by its reciprocal on CUDA, and
+    ``number / tensor`` is one on every device)."""
+    return torch.full((), v, dtype=torch.float32, device=like.device)
+
+
+def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup to ``cfg.lr``, then cosine decay to ``min_lr_frac``
+    of it at ``total_steps``; float32, as the reference computes it."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = torch.clamp(step / _f32(max(cfg.warmup_steps, 1), step), max=1.0)
+    t = torch.clamp((step - cfg.warmup_steps)
+                    / _f32(max(cfg.total_steps - cfg.warmup_steps, 1), step),
+                    0.0, 1.0)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (
+        1 + torch.cos(math.pi * t))
+    return cfg.lr * warm * cos
+
+
+def global_norm(tree) -> torch.Tensor:
+    sq = [torch.sum(torch.square(x.to(torch.float32)))
+          for x in tree_leaves(tree)]
+    return torch.sqrt(sum(sq[1:], sq[0]))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    norm = global_norm(grads)
+    scale = torch.clamp(_f32(max_norm, norm) / torch.clamp(norm, min=1e-12),
+                        max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
+def adamw_update(grads, state: AdamWState, cfg: AdamWConfig,
+                 param_dtype=torch.bfloat16):
+    """Returns (new_params (param_dtype), new_state, metrics)."""
+    grads = tree_map(lambda g: g.to(torch.float32), grads)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    step = state.step + 1
+    lr = lr_schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    stepf = step.to(torch.float32)
+    bc1 = 1 - torch.pow(_f32(b1, stepf), stepf)
+    bc2 = 1 - torch.pow(_f32(b2, stepf), stepf)
+
+    new_m = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.m, grads)
+    new_v = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.v, grads)
+
+    def upd(p, m, v):
+        return p - lr * (m / bc1 / (torch.sqrt(v / bc2) + cfg.eps)
+                         + cfg.weight_decay * p)
+
+    new_master = tree_map(upd, state.master, new_m, new_v)
+    new_params = tree_map(lambda p: p.to(param_dtype), new_master)
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return new_params, AdamWState(step, new_master, new_m, new_v), metrics

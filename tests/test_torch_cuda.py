@@ -31,7 +31,11 @@ facade's word logic, adder and matmul on the card equal the CPU's.
 launch replays the seed written before the replay), and the ``Engine``
 serves a reduced model from CUDA graphs with the eager engine's streams,
 a captured decode step replayed equal to the eager one bit for bit
-(``exact`` and noisy ``sim``).
+(``exact`` and noisy ``sim``).  The training path: ``imc_mac`` at a training
+forward's M = 2048 (and 2047) on the tensor-core kernel, bit for bit; one
+train step's loss, gradients and params on the card against the CPU's plain
+path (``exact`` and ``sim``); noisy ``sim``'s remat replaying its seeds
+through ``bitplane_mac_noisy``.
 """
 import numpy as np
 import pytest
@@ -784,3 +788,111 @@ def test_engine_decode_graph_replays_equal_eager(hopper, mode):
                 assert torch.equal(x, y)
     assert torch.equal(servers[True].cache.pos, servers[False].cache.pos)
     assert servers[True].engine.stats.captures == 5, "no capture after"
+
+
+# ------------------------------------------------------------ training path
+@pytest.mark.parametrize("m", [2048, 2047])
+@pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768)])
+def test_imc_mac_training_shapes_bit_exact(hopper, m, k, n):
+    """A training forward's projections (batch 4 x seq 512 of the
+    demonstrator, and a ragged M) on the tensor-core kernel."""
+    g = torch.Generator(device=hopper).manual_seed(m + k + n)
+    qa = torch.randint(-128, 128, (m, k), generator=g, device=hopper,
+                       dtype=torch.int8)
+    qw = torch.randint(-128, 128, (k, n), generator=g, device=hopper,
+                       dtype=torch.int8)
+    split, tiled = imc_mac.split_launches, imc_mac.tiled_launches
+    out = imc_mac(qa, qw)
+    torch.cuda.synchronize()
+    assert (imc_mac.split_launches, imc_mac.tiled_launches) == \
+        (split, tiled + 1)
+    assert torch.equal(out, imc_mac_torch(qa, qw))
+
+
+def _rel_l2(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("mode", ["exact", "sim"])
+def test_train_step_on_the_card_equals_the_cpu(hopper, mode, dtype):
+    """Reduced imc-paper-110m, 2 layers, batch 2 x seq 32: loss within 1e-3
+    (relative) and every gradient leaf within 2e-2 (relative L2) of the
+    CPU's plain path with the model's bf16 params, 1e-3 with the same
+    params in float32; one train step's params within 5e-3 (Adam's first
+    step moves an element by +-lr by its gradient's sign).  With bf16
+    params each device's gradients carry bf16 rounding noise, laid down
+    differently by the two devices' libraries (measured 8.0e-3 on an
+    H100, the f32 norm scales included); in float32 only the summation
+    orders differ."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_params, loss_and_grads
+    from repro_torch.optim.adamw import AdamWConfig, init_adamw
+    from repro_torch.tree import tree_leaves, tree_map
+
+    spec = FabricSpec() if mode == "exact" else FabricSpec(mode="sim")
+    cfg = dataclasses.replace(reduce_config(get_config("imc-paper-110m"),
+                                            n_layers=2), fabric=spec)
+    cpu = tree_map(lambda t: t.to(getattr(torch, dtype)),
+                   init_params(cfg, device="cpu", seed=0))
+    card = tree_map(lambda t: t.to(hopper), cpu)
+    nb = SyntheticStream(DataConfig(cfg.vocab_size, 32, 2)).batch(0)
+    res = {}
+    for where, p in (("card", card), ("cpu", cpu)):
+        dev = tree_leaves(p)[0].device
+        b = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+        res[where] = (loss_and_grads(p, b, cfg),
+                      make_train_step(cfg, AdamWConfig(lr=1e-3))(
+                          p, init_adamw(p), b))
+    ((lc, _, gc), (pc, _, _)), ((lp, _, gp), (pp, _, _)) = \
+        res["card"], res["cpu"]
+    assert abs(float(lc) - float(lp)) <= 1e-3 * abs(float(lp))
+    for x, y in zip(tree_leaves(gc), tree_leaves(gp)):
+        assert x.device.type == "cuda" and x.dtype == y.dtype
+        assert _rel_l2(x, y) <= (2e-2 if dtype == "bfloat16" else 1e-3)
+    for x, y in zip(tree_leaves(pc), tree_leaves(pp)):
+        assert _rel_l2(x, y) <= 5e-3
+
+
+def test_noisy_train_remat_replays_on_the_card(hopper):
+    """Noisy sim through ``bitplane_mac_noisy``: the layers recomputed in the
+    backward replay their seed-table rows (remat on equals remat off, bit
+    for bit); one seed replays, another step's seed differs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.device import deterministic
+    from repro_torch.kernels.bitplane_mac.ops import bitplane_mac_noisy
+    from repro_torch.kernels.common import seed_table
+    from repro_torch.models.model import init_params, loss_and_grads
+    from repro_torch.models.transformer import dense_calls
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(
+        reduce_config(get_config("imc-paper-110m"), n_layers=2),
+        fabric=FabricSpec(mode="sim", noise=NoiseSpec(mismatch_sigma=0.3)))
+    params = init_params(cfg, device=hopper, seed=0)
+    b = {k: torch.from_numpy(v).to(hopper) for k, v in SyntheticStream(
+        DataConfig(cfg.vocab_size, 32, 2)).batch(0).items()}
+    runs = []
+    before = bitplane_mac_noisy.launches
+    for remat, seed in ((True, 5), (False, 5), (True, 6)):
+        table = torch.from_numpy(seed_table(seed, dense_calls(cfg))).to(
+            hopper)
+        with deterministic():
+            runs.append(loss_and_grads(
+                params, b, dataclasses.replace(cfg, remat=remat),
+                noise_seed=table))
+    # remat on: 12 launches forward + 12 recomputed; off: 12
+    assert bitplane_mac_noisy.launches - before == 24 + 12 + 24
+    (l0, _, g0), (l1, _, g1), (l2, _, _) = runs
+    assert torch.equal(l0, l1)
+    for x, y in zip(tree_leaves(g0), tree_leaves(g1)):
+        assert torch.equal(x, y)
+    assert not torch.equal(l0, l2)

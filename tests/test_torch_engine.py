@@ -200,10 +200,10 @@ def test_noise_seed_and_unported_parts():
     assert eng.noise_seed(3, 1) == mix_seed(7, 3, 1)
     assert eng.noise_seed(3, 1) != Engine("cpu", noise_seed=8).noise_seed(3, 1)
     assert not eng.graphs, "the CPU has no CUDA graphs"
-    from repro_torch.launch import steps
+    from repro_torch.launch.train import train_fleet
 
     with pytest.raises(NotImplementedError, match="not ported"):
-        steps.make_train_step(get_config("imc-paper-110m"))
+        train_fleet(get_config("imc-paper-110m"), n_hosts=2)
 
 
 # ------------------------------------------- engine vs today's eager serving
@@ -345,7 +345,8 @@ def test_noisy_engines_take_a_seed_table_row():
 def test_launch_table_names_every_counter_and_kernel():
     """``launches.KERNELS`` is the one list of counters (the Engine adds
     replays to them; ``chip_smoke.py`` reads them): every counter a wrapper
-    ticks is in it, and every ``__global__`` function it names exists."""
+    ticks is in it, and every ``__global__`` function and plain version it
+    names exists."""
     import pathlib
     import re
 
@@ -357,7 +358,7 @@ def test_launch_table_names_every_counter_and_kernel():
         ticked |= set(re.findall(r"(\w+)\.(\w*launches) \+= 1",
                                  ops.read_text()))
     w = launches.wrappers()
-    table = {(w[name].__name__, attr) for name, (_, _, attrs)
+    table = {(w[name].__name__, attr) for name, (_, _, attrs, _)
              in launches.KERNELS.items()
              for attr in ("launches",) + tuple(attrs)}
     # imc_mac's launcher, shared by its two entries, ticks wrapper.<counter>
@@ -371,9 +372,11 @@ def test_launch_table_names_every_counter_and_kernel():
                               r"\))?\s+(\w+)\(",
                               "".join(p.read_text() for p in
                                       (root.parent / "csrc").glob("*.cu"))))
-    named = {f for _, _, attrs in launches.KERNELS.values()
+    named = {f for _, _, attrs, _ in launches.KERNELS.values()
              for fns in attrs.values() for f in fns}
     assert named == globals_
+    for mod, plain in launches.plains().values():  # each plain version
+        assert callable(getattr(mod, plain))
     assert set(launches.variants()) | set(launches.KERNELS) == \
         set(launches.read())
 
