@@ -1,2 +1,3 @@
-from repro_torch.configs.base import (ATTN_IMPLS, ModelConfig, get_config,
+from repro_torch.configs.base import (ATTN_IMPLS, LONG_CONTEXT_ARCHS, SHAPES,
+                                      ModelConfig, ShapeConfig, get_config,
                                       list_configs, reduce_config, register)

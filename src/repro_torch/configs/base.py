@@ -161,6 +161,27 @@ class ModelConfig:
         return full - inactive
 
 
+# ---------------------------------------------------------------- shape suite
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+# Archs allowed to run long_500k (sub-quadratic decode structure); pure
+# full-attention archs skip it.
+LONG_CONTEXT_ARCHS = {"mamba2-370m", "recurrentgemma-9b", "gemma3-12b"}
+
+
 # ------------------------------------------------------------------- registry
 _REGISTRY: Dict[str, ModelConfig] = {}
 
@@ -185,7 +206,9 @@ def list_configs():
 def _load_all():
     import importlib
 
-    for mod in ("qwen2_5_3b", "imc_paper"):
+    for mod in ("musicgen_large", "qwen2_72b", "deepseek_coder_33b",
+                "qwen2_5_3b", "gemma3_12b", "dbrx_132b", "qwen3_moe_30b_a3b",
+                "llava_next_mistral_7b", "imc_paper"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -70,7 +70,9 @@ def layers_from_groups(groups, tail, cfg: ModelConfig) -> List[Any]:
 
 
 def params_from_jax(tree, cfg: ModelConfig, device=None):
-    """The reference's ``init_params`` tree (numpy leaves) -> port params."""
+    """The reference's ``init_params`` tree (numpy leaves) -> port params.
+    A layer's leaves keep their names, MoE ones included (the float32
+    router, the (E, D, F) / (E, F, D) expert stacks)."""
     blocks = tree["blocks"]
     out = {
         "embed": to_torch(tree["embed"], device),
@@ -79,8 +81,9 @@ def params_from_jax(tree, cfg: ModelConfig, device=None):
             device)},
         "final_norm": tree_to_torch(tree["final_norm"], device),
     }
-    if "lm_head" in tree:
-        out["lm_head"] = tree_to_torch(tree["lm_head"], device)
+    for name in ("frontend_proj", "lm_head"):
+        if name in tree:
+            out[name] = tree_to_torch(tree[name], device)
     return out
 
 

@@ -12,8 +12,12 @@ The generator is counter-based and random-access: numpy's Philox4x32-10
 keyed by ``(seed, step << 32 | shard)``, where the reference uses threefry
 through ``jax.random``.  The two draw different streams; the drift
 transform, ``(base + cumsum(base % 7)) % V``, is the reference's.  Batches
-are numpy int32 arrays, as the reference hands its loop host arrays; the
-trainer moves them to the device.
+are numpy arrays, as the reference hands its loop host arrays; the trainer
+moves them to the device.  With ``frontend_dim > 0`` (a modality stub) a
+batch carries "embeddings" (per, seq, frontend_dim) in place of "tokens":
+standard normals drawn after the tokens from the same generator, rounded to
+bf16 values (the reference draws them in bf16) and held in a float32 array,
+which the model casts to bf16 exactly.
 """
 from __future__ import annotations
 
@@ -44,14 +48,19 @@ def drift_tokens(base: np.ndarray, vocab_size: int) -> np.ndarray:
     return ((base + drift) % vocab_size).astype(np.int32)
 
 
+def round_to_bf16(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to the nearest bf16 (ties to even), still
+    float32 (finite inputs)."""
+    bits = x.astype(np.float32).view(np.uint32)
+    bits = (bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return bits.view(np.float32)
+
+
 class SyntheticStream:
     """Random-access LM batches: ``batch(step, shard, n_shards)``."""
 
     def __init__(self, cfg: DataConfig):
-        if cfg.frontend_dim:
-            raise NotImplementedError(
-                "modality frontends are not ported yet: the stream emits "
-                "token batches only")
         self.cfg = cfg
 
     def _rng(self, step: int, shard: int) -> np.random.Generator:
@@ -67,10 +76,16 @@ class SyntheticStream:
             raise ValueError(f"global_batch {cfg.global_batch} not divisible "
                              f"by {n_shards} shards")
         per = cfg.global_batch // n_shards
-        base = self._rng(step, shard).integers(
-            0, cfg.vocab_size, (per, cfg.seq_len + 1), dtype=np.int32)
+        rng = self._rng(step, shard)
+        base = rng.integers(0, cfg.vocab_size, (per, cfg.seq_len + 1),
+                            dtype=np.int32)
         toks = drift_tokens(base, cfg.vocab_size)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.frontend_dim:
+            out["embeddings"] = round_to_bf16(rng.standard_normal(
+                (per, cfg.seq_len, cfg.frontend_dim), dtype=np.float32))
+            del out["tokens"]
+        return out
 
     def host_iterator(self, start_step: int, shard: int, n_shards: int):
         step = start_step

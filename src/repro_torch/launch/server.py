@@ -144,6 +144,11 @@ class Server:
             raise ValueError(f"params live on {pdev}, the server was asked "
                              f"to run on {self.device}")
         check_supported(cfg)
+        if cfg.frontend != "none":
+            raise ValueError(
+                f"{cfg.name}: the Server serves token prompts, as the "
+                f"reference's does; drive a {cfg.frontend} frontend's "
+                "embeddings through models.model.prefill and decode_step")
         if attn_impl is not None and attn_impl != cfg.attn_impl:
             cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
         reg = registry or (engine.registry if engine is not None

@@ -56,11 +56,15 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
     engine = engine or Engine(device=device, noise_seed=seed,
                               monitor=StragglerMonitor())
     dev = engine.device
-    stream = SyntheticStream(DataConfig(cfg.vocab_size, seq_len,
-                                        global_batch, seed=seed))
+    stream = SyntheticStream(DataConfig(
+        cfg.vocab_size, seq_len, global_batch, seed=seed,
+        frontend_dim=cfg.frontend_dim if cfg.frontend != "none" else 0))
 
     params = init_params(cfg, device=dev, seed=seed)
-    opt_state = init_adamw(params)
+    # the loop holds the state only through ``state``: a step's old params
+    # and optimizer state are freed once the next ones replace them
+    state = (params, init_adamw(params))
+    del params
     metrics_hist = []
     step_fn_ = engine.train_step(cfg, opt_cfg)
 
@@ -81,9 +85,8 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
                 ckpt_root, step_fn, lambda s: stream.batch(s),
                 ckpt_every=ckpt_every, fail_at=fail_at,
                 monitor=engine.monitor or StragglerMonitor())
-            state = loop.run((params, opt_state), steps)
+            state = loop.run(state, steps)
         else:
-            state = (params, opt_state)
             for s in range(steps):
                 t0 = clock()
                 state = step_fn(state, stream.batch(s), s)

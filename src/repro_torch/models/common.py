@@ -29,6 +29,7 @@ import torch
 from repro_torch.core.fabric import FabricSpec
 from repro_torch.core.imc_linear import imc_linear_apply
 from repro_torch.kernels.common import mix_seed
+from repro_torch.tree import tree_leaves
 
 
 # ---------------------------------------------------------------------- norms
@@ -169,3 +170,8 @@ def dense(params, x: torch.Tensor, *,
     if "b" in params:
         y = y + params["b"].to(x.dtype)
     return y
+
+
+def count_params(tree) -> int:
+    """Elements over every tensor leaf of ``tree``."""
+    return sum(t.numel() for t in tree_leaves(tree))

@@ -1,5 +1,5 @@
-"""LM wrapper: embeddings, stack, head, loss, serving steps (port of
-``repro/models/model.py``; the modality frontends come later).
+"""LM wrapper: embeddings / modality frontends, stack, head, losses,
+serving steps (port of ``repro/models/model.py``).
 
 Public API:
   init_params(cfg, generator, device)       -> params dict
@@ -16,10 +16,19 @@ reference's ``launch/steps.py`` does with its per-step key.
 Batches: {"tokens": (B, S) int} (+ "labels": (B, S) int for the loss; +
 optional "length": the true prompt length of a right-padded bucket, an int
 or a 0-dim integer tensor on the tokens' device, as a captured prefill step
-takes it); decode takes ``token`` (B, 1) int.  ``noise_seed`` is a 64-bit
-integer or a seed table (see :mod:`repro_torch.models.common`).
-The embedding lookup, the head matmul and the cross-entropy stay plain
-torch, as the reference leaves them outside any kernel.
+takes it); decode takes ``token`` (B, 1) int.  A config with a modality
+frontend (``cfg.frontend`` "audio" or "vision": a stub, as in the
+reference) takes {"embeddings": (B, S, frontend_dim)} in place of
+"tokens" for the loss, ``forward_logits`` and ``prefill``, projected into
+the model by ``frontend_proj``; its decode steps take tokens.
+``noise_seed`` is a 64-bit integer or a seed table (see
+:mod:`repro_torch.models.common`).  The embedding lookup, the frontend
+projection, the head matmul and the cross-entropy stay plain torch, as the
+reference leaves them outside any kernel and off the fabric.
+
+With MoE layers the loss adds the auxiliary losses summed over the layers,
+``AUX_LB_COEF`` x load balance + ``AUX_Z_COEF`` x router z, and the
+metrics carry both.
 """
 from __future__ import annotations
 
@@ -31,12 +40,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import (fabric_noise_seed, init_dense,
-                                       init_rmsnorm, rmsnorm)
+from repro_torch.models.common import (dense, fabric_noise_seed,
+                                       init_dense, init_rmsnorm, rmsnorm)
 from repro_torch.models.transformer import (StackCache, check_supported,
                                             init_stack, stack_forward)
 from repro_torch.tree import tree_leaves, tree_unflatten
 
+AUX_LB_COEF = 0.01
+AUX_Z_COEF = 0.001
 CE_CHUNK = 512
 
 
@@ -59,6 +70,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
         "blocks": init_stack(g, cfg, device=dev),
         "final_norm": init_rmsnorm(cfg.d_model, device=dev),
     }
+    if cfg.frontend != "none":
+        params["frontend_proj"] = init_dense(g, cfg.frontend_dim,
+                                             cfg.d_model, device=dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = init_dense(g, cfg.d_model, cfg.vocab_size,
                                        scale=cfg.d_model ** -0.5, device=dev)
@@ -73,6 +87,16 @@ def _head_weight(params, cfg: ModelConfig):
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.to(torch.int64)]
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """The stack's input: the frontend's projection of the batch's
+    embeddings, cast to the projection's dtype (bf16, as the reference
+    casts them; float64 for a float64 witness), or the token embeddings."""
+    if cfg.frontend != "none":
+        w = params["frontend_proj"]["w"]
+        return dense(params["frontend_proj"], batch["embeddings"].to(w.dtype))
+    return _embed(params, batch["tokens"])
 
 
 def _noise_ctx(noise_seed):
@@ -111,14 +135,21 @@ def _chunked_ce(x, head_w, labels, chunk: int = CE_CHUNK):
 
 def loss_fn(params, batch, cfg: ModelConfig,
             noise_seed: Optional[int] = None):
-    """Mean next-token CE of ``batch`` ({"tokens", "labels"}: (B, S) int
-    tensors on the params' device). Returns (loss, {"ce", "loss"})."""
-    x = _embed(params, batch["tokens"])
+    """Mean next-token CE of ``batch`` ({"tokens" or "embeddings",
+    "labels"}: tensors on the params' device), plus the MoE auxiliary terms.
+    Returns (loss, {"ce", ["load_balance_loss", "router_z_loss",] "loss"})."""
+    x = _embed_inputs(params, batch, cfg)
     with _noise_ctx(noise_seed):
-        x, _, _ = stack_forward(params["blocks"], x, cfg, "train")
+        x, _, aux = stack_forward(params["blocks"], x, cfg, "train")
     x = rmsnorm(params["final_norm"], x)
     ce = _chunked_ce(x, _head_weight(params, cfg), batch["labels"])
-    return ce, {"ce": ce, "loss": ce}
+    loss, metrics = ce, {"ce": ce}
+    if cfg.n_experts:
+        loss = (loss + AUX_LB_COEF * aux["load_balance_loss"]
+                + AUX_Z_COEF * aux["router_z_loss"])
+        metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def loss_and_grads(params, batch, cfg: ModelConfig,
@@ -126,13 +157,15 @@ def loss_and_grads(params, batch, cfg: ModelConfig,
     """:func:`loss_fn` and its gradient with respect to every param (the
     reference's ``jax.value_and_grad(loss_fn, has_aux=True)``).  Returns
     (loss, metrics, grads), ``grads`` shaped as ``params`` in the params'
-    dtypes.  ``params`` are read through detached views; their tensors are
-    not modified."""
+    dtypes; a leaf the loss does not read (a frontend model's token
+    embedding) gets zeros.  ``params`` are read through detached views;
+    their tensors are not modified."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss, metrics = loss_fn(tree_unflatten(params, leaves), batch, cfg,
                                 noise_seed=noise_seed)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten(params, list(grads)))
 
@@ -142,7 +175,7 @@ def forward_logits(params, batch, cfg: ModelConfig,
                    noise_seed: Optional[int] = None) -> torch.Tensor:
     """Full (B, S, V) f32 logits of the training forward — small models
     only."""
-    x = _embed(params, batch["tokens"])
+    x = _embed_inputs(params, batch, cfg)
     with _noise_ctx(noise_seed):
         x, _, _ = stack_forward(params["blocks"], x, cfg, "train")
     x = rmsnorm(params["final_norm"], x)
@@ -152,11 +185,12 @@ def forward_logits(params, batch, cfg: ModelConfig,
 # ------------------------------------------------------------------ serving
 def prefill(params, batch, cfg: ModelConfig, max_new_tokens: int = 0,
             noise_seed: Optional[int] = None):
-    """batch: {"tokens": (B, S)} (+ optional "length": the true prompt length
-    of a right-padded bucket — the last-token logits then come from position
+    """batch: {"tokens": (B, S)} or, with a frontend, {"embeddings": (B, S,
+    frontend_dim)} (+ optional "length": the true prompt length of a
+    right-padded bucket — the last-token logits then come from position
     ``length - 1`` and the cache marks the padded tail empty)."""
     length = batch.get("length")
-    x = _embed(params, batch["tokens"])
+    x = _embed_inputs(params, batch, cfg)
     with _noise_ctx(noise_seed):
         x, cache, _ = stack_forward(params["blocks"], x, cfg, "prefill",
                                  prefill_extra=max_new_tokens,

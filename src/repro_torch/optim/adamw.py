@@ -17,7 +17,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 class AdamWState(NamedTuple):
@@ -80,18 +80,18 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(sq[1:], sq[0]))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
-    scale = torch.clamp(_f32(max_norm, norm) / torch.clamp(norm, min=1e-12),
-                        max=1.0)
-    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
-
-
 def adamw_update(grads, state: AdamWState, cfg: AdamWConfig,
                  param_dtype=torch.bfloat16):
-    """Returns (new_params (param_dtype), new_state, metrics)."""
-    grads = tree_map(lambda g: g.to(torch.float32), grads)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    """Returns (new_params (param_dtype), new_state, metrics).
+
+    Leaf by leaf: a leaf's float32 gradient, its clipped copy and the
+    update's temporaries live only while that leaf is updated, so the
+    step's peak holds the old and the new state and not also two float32
+    copies of every gradient.  Each element takes the reference's ops in
+    its order."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(_f32(cfg.grad_clip, gnorm)
+                        / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -99,14 +99,21 @@ def adamw_update(grads, state: AdamWState, cfg: AdamWConfig,
     bc1 = 1 - torch.pow(_f32(b1, stepf), stepf)
     bc2 = 1 - torch.pow(_f32(b2, stepf), stepf)
 
-    new_m = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.m, grads)
-    new_v = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.v, grads)
-
-    def upd(p, m, v):
-        return p - lr * (m / bc1 / (torch.sqrt(v / bc2) + cfg.eps)
-                         + cfg.weight_decay * p)
-
-    new_master = tree_map(upd, state.master, new_m, new_v)
-    new_params = tree_map(lambda p: p.to(param_dtype), new_master)
+    new_m, new_v, new_master, new_params = [], [], [], []
+    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.m),
+                          tree_leaves(state.v), tree_leaves(state.master)):
+        g = g.to(torch.float32)
+        g = g * scale.to(g.dtype)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        p = p - lr * (m / bc1 / (torch.sqrt(v / bc2) + cfg.eps)
+                      + cfg.weight_decay * p)
+        new_m.append(m)
+        new_v.append(v)
+        new_master.append(p)
+        new_params.append(p.to(param_dtype))
     metrics = {"grad_norm": gnorm, "lr": lr}
-    return new_params, AdamWState(step, new_master, new_m, new_v), metrics
+    return (tree_unflatten(state.master, new_params),
+            AdamWState(step, tree_unflatten(state.master, new_master),
+                       tree_unflatten(state.m, new_m),
+                       tree_unflatten(state.v, new_v)), metrics)

@@ -178,9 +178,12 @@ def test_unported_paths_raise_up_front(cfg, params):
     noisy = dataclasses.replace(cfg, fabric=FabricSpec(
         mode="sim", noise=NoiseSpec.calibrated()))
     assert Server(noisy, params, device="cpu").cfg.imc_fabric.noisy
-    moe = dataclasses.replace(cfg, pattern=("moe",))
+    ssd = dataclasses.replace(cfg, pattern=("ssd",))
     with pytest.raises(NotImplementedError, match="not ported"):
-        Server(moe, params, device="cpu")
+        Server(ssd, params, device="cpu")
+    vision = dataclasses.replace(cfg, frontend="vision", frontend_dim=8)
+    with pytest.raises(ValueError, match="token prompts"):
+        Server(vision, params, device="cpu")
 
 
 def _serve_mix(cfg, params, lengths=LENGTHS):

@@ -101,8 +101,18 @@ def test_batch_for_shape_and_frontend_stub():
 
     b = batch_for_shape(Cfg, Shape, seed=2)
     assert b["tokens"].shape == (3, 12) and b["labels"].shape == (3, 12)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SyntheticStream(DataConfig(50, 12, 3, frontend_dim=8))
+    # the frontend stub: embeddings in place of tokens, bf16 values, and the
+    # same labels as the token stream of the same seed and step
+    stream = SyntheticStream(DataConfig(50, 12, 3, frontend_dim=8))
+    e = stream.batch(4)
+    assert set(e) == {"embeddings", "labels"}
+    assert e["embeddings"].shape == (3, 12, 8)
+    assert e["embeddings"].dtype == np.float32
+    as_bf16 = torch.from_numpy(e["embeddings"]).to(torch.bfloat16).float()
+    np.testing.assert_array_equal(as_bf16.numpy(), e["embeddings"])
+    assert 0.8 < float(np.std(e["embeddings"])) < 1.2
+    np.testing.assert_array_equal(
+        e["labels"], SyntheticStream(DataConfig(50, 12, 3)).batch(4)["labels"])
 
 
 # ------------------------------------------------------------------ optim
