@@ -113,8 +113,9 @@ result:
       ``flash_attn`` and ``paged_attn`` must launch, ``imc_mac`` never;
       the tensor-core ``flash_attn`` kernel 12 times per bucketed prefill
       and the split ``paged_attn`` kernel 12 times per decode step, the
-      CUDA-core flash and staged paged kernels never (on any served
-      path).
+      CUDA-core flash and staged paged kernels never (on any of phase
+      6's paths; recurrentgemma's rep 16 takes the staged one in phase
+      10).
       On the card, ``sim`` prefill logits (flash off) must equal ``exact``'s
       bit for bit.  ``sim`` + flash must lie within 2e-2 of the largest
       |logit| of the plain path on the CPU with flash attention, and give
@@ -260,19 +261,69 @@ result:
       no farther from a float64 witness's than 1.5x the CPU's loss (or
       within 1e-5 of it), each gradient leaf within 5e-2 relative L2 and
       within 1.5x the CPU's distance from the witness.
+   Phases 3 and 5 here also take phase 10's geometry: rep 16 at hd 256
+   (recurrentgemma's 16 heads over one KV head: the staged ``paged_attn``
+   kernel, the CUDA-core ``flash_attn`` one), windows 2048 and S 2100
+   under it.
    Phase 7 adds three rows: ``flash_attn`` over gemma3's six layers at
    S = 64 (hd 256) beside SDPA, ``paged_attn`` over its decode step, and
    ``imc_mac`` over one qwen2-72b decode layer (878 MB of int8 weights).
 
+10. The recurrent families at full width, random weights from seed 0,
+   ``exact`` fabric unless noted: ``mamba2-370m`` (SSD layers, no MLP, no
+   attention) whole, 48 layers, in 10b and 10d and cut to 24 for 10a's
+   serves (which hold phase 10 near 200 s), and ``recurrentgemma-9b`` cut
+   to one (rglru, rglru, local) period and its two-block tail (5 of 38
+   layers; 16 heads over one KV head at hd 256, window 2048).
+   a. Served as 9a serves (``serve_family``): per decode step the split-K
+      ``imc_mac`` once per fabric projection (``dense_calls``: 2 an SSD
+      layer, 3 + 3 an RG-LRU one, whose gates ``w_a``/``w_i`` stay off
+      the fabric, 7 a local one) and, per local layer, the staged
+      ``paged_attn`` kernel (rep 16); mamba2 launches no attention kernel.
+      Per bucket-32/64 prefill the tensor-core ``imc_mac`` once per
+      projection.  Prefill logits layer by layer against the CPU's plain
+      path.  mamba2 also in ``sim`` (96 ``bitplane_mac`` a step) and noisy
+      ``sim``; recurrentgemma in ``sim`` + flash (the CUDA-core flash
+      kernel once per local layer per prefill); ``sim`` prefill logits
+      equal ``exact``'s.
+   b. The state at the prompt's length, fabric off: a 37-token prompt
+      prefilled in a 64 bucket and at its own length (mamba2 also 200
+      tokens in a 256 bucket: two SSD chunks of 128 and the recurrence
+      between them, against one chunk of 200), layer by layer from the
+      same input, each recurrent and conv state within ``STATE_RTOL``
+      relative L2 and one decode step from each within ``LOGIT_RTOL``; end
+      to end measured (two chunkings' roundings compound over 48 layers).
+      mamba2 serves that 200-token prompt in a 256 bucket and 16 new
+      tokens from graphs, held step by step against the unpaged decode
+      from the same bucketed prefill.
+   c. recurrentgemma: a 2000-token prompt in a 2048 bucket and 64 new
+      tokens, past its window of 2048 (the RG-LRU scan over 2048
+      positions), served paged from graphs against the unpaged ring decode
+      grown from the same prefill: gated with the fabric off, measured
+      under ``exact``.
+   d. 2 steps each of mamba2 (48 layers) and recurrentgemma (5 layers) at
+      batch 1 x seq 256 through ``launch.train.train`` and the Engine, as
+      9d: ``imc_mac`` alone, twice per projection a step; step times and
+      peak memory beside the leaves.  At ``reduce_config`` width (mamba2 2
+      layers, recurrentgemma its period and tail) the card against the CPU
+      with 9d's gates.
+   Phase 10 runs in a process of its own (``--families mamba2-370m
+   recurrentgemma-9b``), with a fresh CUDA context, allocator and profiler.
+   Phase 7 adds two rows: ``paged_attn`` over one recurrentgemma decode
+   step at full depth (12 local layers, positions to 2047 under its
+   window) beside SDPA, and ``imc_mac`` over one mamba2 decode step (96
+   launches at N = 4384 and 1024) beside ``torch._int_mm``.
+
 It prints the ``kernels`` JSON line (each kernel also with its launches
-over phase 9, ``launches_families``), the card's name and power limit as
-nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.
+over phase 9, ``launches_families``, and over phase 10,
+``launches_recurrent``), the card's name and power limit as nvidia-smi
+gives them, and last ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --families [CONFIG ...]
 
-runs phase 9 alone, with phases 3 and 5 at its geometries and its phase-7
-rows (or only the named configs' parts of phase 9), and prints one JSON
-line and the nvidia-smi line.
+runs phases 9 and 10 alone, with phases 3 and 5 at their geometries and
+their phase-7 rows (or only the named configs' parts of phases 9 and 10),
+and prints one JSON line and the nvidia-smi line.
 
     python3 chip_smoke.py --drift CONFIG LAYERS
 
@@ -3180,14 +3231,34 @@ TIMERS = {"imc_mac": time_imc_mac, "paged_attn": time_paged_attn,
 # ----------------------------------------------------------- phase 9
 # the attention-only families at full width: depth (layers) of each, its
 # whole pattern period and at least two layers
+# (phase 10's serves too: mamba2-370m at half its 48 layers, which holds
+# phase 10 near 200 s; recurrentgemma-9b one (rglru, rglru, local) period
+# and its two-block tail)
 FAMILY_LAYERS = {"gemma3-12b": 6, "deepseek-coder-33b": 2, "qwen2-72b": 2,
                  "qwen3-moe-30b-a3b": 2, "dbrx-132b": 2,
-                 "llava-next-mistral-7b": 2, "musicgen-large": 2}
+                 "llava-next-mistral-7b": 2, "musicgen-large": 2,
+                 "mamba2-370m": 24, "recurrentgemma-9b": 5}
 SERVED_FAMILIES = ("gemma3-12b", "deepseek-coder-33b", "qwen2-72b",
                    "qwen3-moe-30b-a3b", "dbrx-132b")  # 9a: token configs
-SIM_FAMILIES = ("gemma3-12b", "qwen3-moe-30b-a3b")  # 9a: sim + flash too
+RECURRENT_FAMILIES = ("mamba2-370m", "recurrentgemma-9b")  # 10a-10c
+# 9a/10a: sim (with flash prefill where a layer attends) too, and noisy sim
+SIM_FAMILIES = ("gemma3-12b", "qwen3-moe-30b-a3b") + RECURRENT_FAMILIES
+NOISY_FAMILIES = ("qwen3-moe-30b-a3b", "mamba2-370m")
 FRONTEND_FAMILIES = ("llava-next-mistral-7b", "musicgen-large")  # 9c
-WINDOW_PROMPT, WINDOW_NEW, WINDOW_BUCKET = 1000, 48, 1024  # 9b: gemma3
+# 9b/10c: (prompt, new tokens, bucket) of one request past the window
+WINDOW_REQUESTS = {"gemma3-12b": (1000, 48, 1024),
+                   "recurrentgemma-9b": (2000, 64, 2048)}
+# 10b: (prompt, bucket) prefilled in the bucket and at its own length
+# (fabric off); at 200 in 256 the bucket runs two SSD chunks of 128 and the
+# recurrence between them, the exact length one chunk of 200 (mamba2 only)
+STATE_PROMPTS = ((37, 64), (200, 256))
+CHUNKED_REQUEST = (200, 16, 256)  # mamba2: prompt, new tokens, bucket
+# 10b: relative L2 of each recurrent and conv state, bucketed prefill
+# against exact length, on the card with the fabric off
+STATE_RTOL = 1e-2
+# 10b and 10d: the depth of each (mamba2-370m whole); 10d trains 2 steps
+# at full width, batch 1 x seq 256
+RECURRENT_DEPTH = {"mamba2-370m": 48, "recurrentgemma-9b": 5}
 FRONTEND_LENGTHS, FRONTEND_BUCKET, FRONTEND_STEPS = (20, 45), 64, 8  # 9c
 # 9d: (config, batch, seq) trained 2 steps at full width, 2 layers
 TRAIN_FAMILIES = (("qwen3-moe-30b-a3b", 1, 256),
@@ -3210,9 +3281,16 @@ def free_device(torch):
     torch.cuda.empty_cache()
 
 
-def family_model(torch, dev, name, **kw):
-    """Full-width ``name`` at its phase-9 depth, ``exact`` fabric, random
-    weights from seed 0 on the card; and its parameter count."""
+def phase_of(name) -> str:
+    """The phase that serves ``name``: 10 for the recurrent families, else
+    9."""
+    return "10" if name in RECURRENT_FAMILIES else "9"
+
+
+def family_model(torch, dev, name, layers=None, **kw):
+    """Full-width ``name`` at ``layers`` layers (default: its phase-9 or
+    phase-10 serving depth), ``exact`` fabric, random weights from seed 0
+    on the card; and its parameter count."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3220,7 +3298,8 @@ def family_model(torch, dev, name, **kw):
     from repro_torch.models.common import count_params
     from repro_torch.models.model import init_params
 
-    cfg = dataclasses.replace(get_config(name), n_layers=FAMILY_LAYERS[name],
+    cfg = dataclasses.replace(get_config(name),
+                              n_layers=layers or FAMILY_LAYERS[name],
                               fabric=FabricSpec(mode="exact"), **kw)
     free_device(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -3228,11 +3307,16 @@ def family_model(torch, dev, name, **kw):
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     n = count_params(params)
-    log(f"[9] {name}: {cfg.n_layers} of {get_config(name).n_layers} layers "
-        f"at full width (d_model {cfg.d_model}, {cfg.n_heads} heads over "
-        f"{cfg.n_kv_heads}, hd {cfg.hd}, d_ff {cfg.d_ff}"
+    log(f"[{phase_of(name)}] {name}: {cfg.n_layers} of "
+        f"{get_config(name).n_layers} layers at full width (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, hd "
+        f"{cfg.hd}, d_ff {cfg.d_ff}"
         + (f", {cfg.n_experts} experts top-{cfg.top_k}" if cfg.n_experts
-           else "") + f"): {n / 1e9:.3f} B params on {dev} in "
+           else "")
+        + (f", SSD state {cfg.ssm_state} x headdim {cfg.ssm_headdim}"
+           if cfg.ssm_state else "")
+        + (f", LRU width {cfg.lru_w}" if "rglru" in cfg.pattern else "")
+        + f"): {n / 1e9:.3f} B params on {dev} in "
         f"{time.perf_counter() - t0:.2f} s")
     return cfg, params, n
 
@@ -3319,12 +3403,34 @@ def end_to_end(tag, cfg, card, plain):
     return err, scale
 
 
+def attn_layers(cfg):
+    """(attention layers of ``cfg``, the ``paged_attn`` kernel they take:
+    the split kernel at rep 1-8, the staged one above, as
+    ``kernels/paged_attn/ops.py::takes_split`` rules)."""
+    from repro_torch.models.transformer import ATTN_KINDS, layer_kinds
+
+    n = sum(k in ATTN_KINDS for k in layer_kinds(cfg))
+    rep = cfg.n_heads // cfg.n_kv_heads
+    return n, ("paged_attn_split" if rep <= 8 else "paged_attn_staged")
+
+
+def check_counts(tag, counts, want):
+    bad = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if bad:
+        raise AssertionError(f"{tag}: launches (got, want) {bad}; all "
+                             f"{counts}")
+
+
 def serve_family(torch, dev, name):
-    """9a: ``name`` served through ``Server`` + ``Engine`` as phase 6 serves
-    (``serve_path``): ``exact``; ``sim`` + flash and noisy ``sim`` where
-    asked.  Launches per decode step and per bucketed prefill asserted by
-    kernel name; first-prefill logits held against the plain path on the
-    CPU."""
+    """9a / 10a: ``name`` served through ``Server`` + ``Engine`` as phase 6
+    serves (``serve_path``): ``exact``; ``sim`` (with flash prefill where
+    a layer attends) and noisy ``sim`` where asked.  Launches per decode
+    step and per bucketed prefill asserted by kernel name: ``imc_mac`` (or
+    ``bitplane_mac``) once per fabric projection (``dense_calls``), the
+    paged kernel of its rep and the flash kernel of its hd once per
+    attention layer, none of either without one; first-prefill logits held
+    against the plain path on the CPU.  A family with a window adds 9b or
+    10c, the request past it."""
     import dataclasses
 
     import numpy as np
@@ -3332,35 +3438,35 @@ def serve_family(torch, dev, name):
     from repro_torch.core.fabric import FabricSpec
     from repro_torch.models.transformer import dense_calls
 
+    ph = phase_of(name)
     t0 = time.perf_counter()
     cfg, params, n_params = family_model(torch, dev, name)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in PROMPTS]
     layers, calls = cfg.n_layers, dense_calls(cfg)
-    out = {"layers": layers, "params": n_params}
+    attn, paged = attn_layers(cfg)
+    other_paged = ({"paged_attn_split", "paged_attn_staged"} - {paged}).pop()
+    # kernels an attention layer must launch, and what no layer may
+    attn_must = ("paged_attn",) if attn else ()
+    attn_never = (other_paged,) if attn else ("paged_attn",)
+    out = {"layers": layers, "params": n_params, "dense_calls": calls,
+           "attn_layers": attn}
     exact, card = serve_path(torch, dev, cfg, params, prompts,
-                             f"{name} exact", must=("imc_mac", "paged_attn"),
+                             f"{name} exact", must=("imc_mac",) + attn_must,
                              never=("bitplane_mac", "flash_attn",
-                                    "bitplane_mac_noisy",
-                                    "paged_attn_staged"))
+                                    "bitplane_mac_noisy") + attn_never)
     log_turns(f"{name} exact", exact)
-    step = exact["per_decode_step"]
-    if step["imc_mac_split"] != calls or step["imc_mac_tiled"] or \
-            step["paged_attn_split"] != layers or step["paged_attn"] != layers:
-        raise AssertionError(f"{name} exact: {step} per decode step; "
-                             f"expected {calls} split-K imc_mac and {layers} "
-                             "split paged_attn launches")
+    check_counts(f"{name} exact, a decode step", exact["per_decode_step"],
+                 {"imc_mac_split": calls, "imc_mac_tiled": 0,
+                  "paged_attn": attn, paged: attn})
     for bucket, prompt in ((32, prompts[5][:20]), (64, prompts[2])):
         zero_counts()
         first_prefill(torch, dev, params, cfg, prompt, bucket=bucket)
         counts = read_counts()
-        if counts["imc_mac_tiled"] != calls or counts["imc_mac_split"]:
-            raise AssertionError(
-                f"{name} exact: a bucket-{bucket} prefill launched "
-                f"{counts['imc_mac_tiled']} tensor-core and "
-                f"{counts['imc_mac_split']} split-K imc_mac kernels; "
-                f"expected {calls} and 0")
+        check_counts(f"{name} exact, a bucket-{bucket} prefill", counts,
+                     {"imc_mac_tiled": calls, "imc_mac_split": 0,
+                      "paged_attn": 0, "flash_attn": 0})
         exact[f"per_prefill_{bucket}"] = counts
     params_cpu = _to_cpu(params)
     padded = torch.zeros((1, 16), dtype=torch.int32)
@@ -3372,96 +3478,213 @@ def serve_family(torch, dev, name):
                                           params_cpu, batch)
     exact.update(logit_err=err, logit_scale=scale, cpu_prefill_s=cpu_s,
                  layer_errs=layer_errs, head_err=head_err)
-    log(f"[9a] {name} exact: prefill logits card vs CPU plain path max err "
-        f"{err:.3g} (largest |logit| {scale:.3g}, CPU {cpu_s:.1f} s); layer "
-        f"by layer from the card's inputs {fmt_errs(layer_errs)}, head "
-        f"{head_err:.2e} (of each output's largest magnitude); "
-        f"{calls} split-K imc_mac and {layers} split paged_attn launches a "
-        f"decode step, {calls} tensor-core imc_mac a bucket-32/64 prefill")
+    log(f"[{ph}a] {name} exact: prefill logits card vs CPU plain path max "
+        f"err {err:.3g} (largest |logit| {scale:.3g}, CPU {cpu_s:.1f} s); "
+        f"layer by layer from the card's inputs {fmt_errs(layer_errs)}, "
+        f"head {head_err:.2e} (of each output's largest magnitude); "
+        f"{calls} split-K imc_mac and {attn} {paged} launches a decode "
+        f"step, {calls} tensor-core imc_mac a bucket-32/64 prefill")
     out["exact"] = exact
+    kernel = "flash_attn_simt" if cfg.hd > 128 else "flash_attn_tc"
+    other = "flash_attn_tc" if cfg.hd > 128 else "flash_attn_simt"
+    # a path with flash prefill: what its attention layers must and must
+    # not launch
+    flash_must = ("flash_attn", "paged_attn") if attn else ()
+    flash_never = ((other, other_paged) if attn
+                   else ("flash_attn", "paged_attn"))
     if name in SIM_FAMILIES:
         sim_cfg = dataclasses.replace(cfg, fabric=FabricSpec(mode="sim"),
                                       use_flash_kernel=True)
-        kernel = "flash_attn_simt" if cfg.hd > 128 else "flash_attn_tc"
-        other = "flash_attn_tc" if cfg.hd > 128 else "flash_attn_simt"
+        stag = f"{name} sim" + ("+flash" if attn else "")
         sim, sim_flash = serve_path(
-            torch, dev, sim_cfg, params, prompts, f"{name} sim+flash",
-            must=("bitplane_mac", "flash_attn", "paged_attn"),
-            never=("imc_mac", "bitplane_mac_noisy", other,
-                   "paged_attn_staged"))
-        log_turns(f"{name} sim+flash", sim)
-        step, pre = sim["per_decode_step"], sim["per_prefill"]
-        if step["bitplane_mac"] != calls or \
-                step["paged_attn_split"] != layers or pre[kernel] != layers:
-            raise AssertionError(f"{name} sim+flash: {step} per decode "
-                                 f"step, {pre} per prefill")
+            torch, dev, sim_cfg, params, prompts, stag,
+            must=("bitplane_mac",) + flash_must,
+            never=("imc_mac", "bitplane_mac_noisy") + flash_never)
+        log_turns(stag, sim)
+        check_counts(f"{stag}, a decode step", sim["per_decode_step"],
+                     {"bitplane_mac": calls, "paged_attn": attn,
+                      paged: attn})
+        check_counts(f"{stag}, a prefill", sim["per_prefill"],
+                     {"flash_attn": attn, kernel: attn})
         sim_dense = first_prefill(torch, dev, params, dataclasses.replace(
             sim_cfg, use_flash_kernel=False), prompts[0])
         if not torch.equal(sim_dense, card):
             raise AssertionError(f"{name}: sim prefill logits differ from "
                                  "exact's on the card")
-        flash_cfg = dataclasses.replace(cfg, use_flash_kernel=True)
-        ferr = fscale = None  # not run past E2E_GATED_LAYERS
-        if cfg.n_layers <= E2E_GATED_LAYERS:
-            plain_flash, _ = cpu_prefill(torch, params_cpu, flash_cfg, batch)
-            ferr, fscale = end_to_end(f"{name} sim+flash", cfg, sim_flash,
-                                      plain_flash)
-        # sim == exact bit for bit on the card, so the card's flash path
-        # is checked layer by layer in exact with flash
-        flayers, fhead = layerwise_gate(torch, f"{name} flash", flash_cfg,
-                                        params, params_cpu, batch)
+        ferr = fscale = flayers = fhead = None
+        if attn:
+            flash_cfg = dataclasses.replace(cfg, use_flash_kernel=True)
+            if cfg.n_layers <= E2E_GATED_LAYERS:
+                plain_flash, _ = cpu_prefill(torch, params_cpu, flash_cfg,
+                                             batch)
+                ferr, fscale = end_to_end(f"{name} sim+flash", cfg,
+                                          sim_flash, plain_flash)
+            # sim == exact bit for bit on the card, so the card's flash path
+            # is checked layer by layer in exact with flash
+            flayers, fhead = layerwise_gate(torch, f"{name} flash",
+                                            flash_cfg, params, params_cpu,
+                                            batch)
         sim.update(logit_err=ferr, logit_scale=fscale, layer_errs=flayers,
                    head_err=fhead)
-        log(f"[9a] {name} sim+flash: sim prefill logits equal exact's bit "
-            f"for bit; "
+        log(f"[{ph}a] {stag}: sim prefill logits equal exact's bit for bit"
             + ("" if ferr is None else
-               f"card vs CPU plain path (flash) max err {ferr:.3g} (largest "
-               f"|logit| {fscale:.3g}); ")
-            + f"layer by layer (exact with "
-            f"flash) {fmt_errs(flayers)}, head {fhead:.2e}; {kernel} "
-            f"{layers} a prefill")
+               f"; card vs CPU plain path (flash) max err {ferr:.3g} "
+               f"(largest |logit| {fscale:.3g})")
+            + ("" if flayers is None else
+               f"; layer by layer (exact with flash) {fmt_errs(flayers)}, "
+               f"head {fhead:.2e}; {kernel} {attn} a prefill")
+            + f"; {calls} bitplane_mac a decode step")
         out["sim_flash"] = sim
-    if name == "qwen3-moe-30b-a3b":
+    if name in NOISY_FAMILIES:
+        ntag = f"{name} sim+noise" + ("+flash" if attn else "")
         noisy, _ = serve_path(
-            torch, dev, noisy_config(cfg), params, prompts,
-            f"{name} sim+noise+flash",
-            must=("bitplane_mac_noisy", "flash_attn", "paged_attn"),
-            never=("imc_mac", "bitplane_mac", "flash_attn_simt",
-                   "paged_attn_staged"), noise_seed=NOISE_SEED)
-        log_turns(f"{name} sim+noise+flash", noisy)
-        if noisy["per_decode_step"]["bitplane_mac_noisy"] != calls:
-            raise AssertionError(f"{name} noisy: {noisy['per_decode_step']}"
-                                 " per decode step")
+            torch, dev, noisy_config(cfg), params, prompts, ntag,
+            must=("bitplane_mac_noisy",) + flash_must,
+            never=("imc_mac", "bitplane_mac") + flash_never,
+            noise_seed=NOISE_SEED)
+        log_turns(ntag, noisy)
+        check_counts(f"{ntag}, a decode step", noisy["per_decode_step"],
+                     {"bitplane_mac_noisy": calls})
         out["sim_noise"] = noisy
-    if name == "gemma3-12b":
+    if name in WINDOW_REQUESTS:
         # gated with the fabric off: the exact fabric requantizes each
         # decode row per tensor, so the paged kernel's f32 softmax and the
-        # ring's bf16 one, an ulp apart, compound over the six layers
-        # (3.7e-2 of the largest |logit| at the first decode step); the
+        # ring's bf16 one, an ulp apart, compound over the layers (gemma3:
+        # 3.7e-2 of the largest |logit| at the first decode step); the
         # window's masking itself is held bit-level in phase 3's cases
         out["window"] = window_request(torch, dev, dataclasses.replace(
-            cfg, fabric=None), params)
-        out["window_exact"] = window_request(torch, dev, cfg, params,
-                                             gate=False)
+            cfg, fabric=None), params, *WINDOW_REQUESTS[name])
+        out["window_exact"] = window_request(
+            torch, dev, cfg, params, *WINDOW_REQUESTS[name], gate=False)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / GiB
     out["wall_s"] = time.perf_counter() - t0
-    log(f"[9a {name}] {out['wall_s']:.1f} s, peak device memory "
+    log(f"[{ph}a {name}] {out['wall_s']:.1f} s, peak device memory "
         f"{out['peak_gib']:.2f} GiB")
     del params, params_cpu
     free_device(torch)
     return out
 
 
-def window_request(torch, dev, cfg, params, gate: bool = True):
-    """9b: one gemma3 request of ``WINDOW_PROMPT`` tokens in a bucket of
-    ``WINDOW_BUCKET`` and ``WINDOW_NEW`` new tokens, past its 1024 window,
-    served through ``Server`` + ``Engine`` (graphs); its logits at every
-    step held against a decode through ring caches without paging (the
-    same bucketed prefill, its rings grown by the new tokens' rows; the
-    served tokens fed back), greedy tokens equal where the margin
-    allows.  A prefill at the prompt's own length is no oracle: the
-    fabric quantizes each projection's input per tensor, padding rows
-    included.  ``gate=False`` measures without gating the logits."""
+def recurrent_state(torch, dev, name):
+    """10b at ``RECURRENT_DEPTH``: ``bucket_state`` at each of
+    ``STATE_PROMPTS`` (the second, two SSD chunks, for an SSD config only),
+    and an SSD config's ``CHUNKED_REQUEST`` served from graphs against the
+    unpaged decode (``window_request``)."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    cfg, params, _ = family_model(torch, dev, name,
+                                  layers=RECURRENT_DEPTH[name])
+    ssd = "ssd" in cfg.pattern
+    out = {"layers": cfg.n_layers,
+           "state": [bucket_state(torch, dev, cfg, params, n, bucket)
+                     for n, bucket in STATE_PROMPTS[:1 + ssd]]}
+    if ssd:
+        out["chunked"] = window_request(
+            torch, dev, dataclasses.replace(cfg, fabric=None), params,
+            *CHUNKED_REQUEST)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[10b {name}] {out['wall_s']:.1f} s")
+    del params
+    free_device(torch)
+    return out
+
+
+def bucket_state(torch, dev, cfg, params, n, bucket):
+    """10b: one prompt of ``n`` tokens prefilled on the card in a bucket of
+    ``bucket`` (its length a device tensor, as the Server's graphs take it)
+    and at its own length, with the fabric off (the
+    ``exact`` fabric quantizes each projection's input per tensor, padding
+    rows included, so a bucket is no exact-length prefill there).  Layer by
+    layer, from the same input (the exact-length run's, the bucket's padding
+    after it): every recurrent and conv state within ``STATE_RTOL``
+    relative L2, and one decode step from each layer's two states, on the
+    same input, within ``LOGIT_RTOL`` of its largest magnitude.  End to end
+    (both prefills through the whole stack, then the next decode step),
+    the states and logits part as the two chunkings' roundings compound
+    over the depth (one bf16 ulp flipped in a layer's output grows through
+    the next): measured, not gated."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models.model import _embed, decode_step, prefill
+    from repro_torch.models.transformer import (RECURRENT_CACHES,
+                                                apply_block, layer_kinds)
+
+    cfg = dataclasses.replace(cfg, fabric=None)
+    prompt = np.random.default_rng(10).integers(
+        0, cfg.vocab_size, n).astype(np.int32)
+    padded = np.zeros((1, bucket), np.int32)
+    padded[0, :n] = prompt
+    tokens = torch.from_numpy(padded).to(dev)
+    length = torch.tensor(n, device=dev)
+    pos = torch.tensor(n, dtype=torch.int32, device=dev)
+
+    def states(c):
+        return list(c) if isinstance(c, RECURRENT_CACHES) else []
+
+    layer_states, step_errs = [], []
+    with torch.inference_mode():
+        xe = _embed(params, tokens[:, :n])
+        pad = _embed(params, tokens[:, n:])
+        le, ce = prefill(params, {"tokens": tokens[:, :n]}, cfg,
+                         max_new_tokens=1)
+        tok = le.argmax(-1).reshape(1, 1).to(torch.int32)
+        xd = _embed(params, tok)
+        for i, kind in enumerate(layer_kinds(cfg)):
+            p = params["blocks"]["layers"][i]
+            ye, c_e, _ = apply_block(p, xe, kind, cfg, "prefill",
+                                     prefill_extra=1)
+            _, c_b, _ = apply_block(p, torch.cat([xe, pad], dim=1), kind,
+                                    cfg, "prefill", true_len=length)
+            layer_states += [rel_l2(b.float(), e.float())
+                             for b, e in zip(states(c_b), states(c_e))]
+            de, _, _ = apply_block(p, xd, kind, cfg, "decode", cache=c_e,
+                                   pos=pos)
+            db, _, _ = apply_block(p, xd, kind, cfg, "decode", cache=c_b,
+                                   pos=pos)
+            step_errs.append(((db - de).float().abs().max()
+                              / de.float().abs().max()).item())
+            xe, xd = ye, de
+        # end to end
+        lb, cb = prefill(params, {"tokens": tokens, "length": length}, cfg)
+        nb, _ = decode_step(params, cb, tok, cfg)
+        ne, _ = decode_step(params, ce, tok, cfg)
+    e2e_states = [rel_l2(b.float(), e.float())
+                  for cb_i, ce_i in zip(cb.layers, ce.layers)
+                  for b, e in zip(states(cb_i), states(ce_i))]
+    e2e_logits = [((x - y).abs().max() / y.abs().max()).item()
+                  for x, y in ((lb, le), (nb, ne))]
+    log(f"[10b] {cfg.name}: a {n}-token prompt prefilled in a "
+        f"{bucket} bucket against its own length, fabric off; layer "
+        f"by layer from the same input: states (each recurrent layer's "
+        f"state, then its conv state) rel L2 worst {max(layer_states):.3g} "
+        f"{fmt_errs(layer_states[:8])} ... (bound {STATE_RTOL}), the next "
+        f"decode step's layer outputs worst {max(step_errs):.3g} (bound "
+        f"{LOGIT_RTOL}); end to end (not gated) states rel L2 by layer "
+        f"{fmt_errs(e2e_states)}, last logits {e2e_logits[0]:.3g} and the "
+        f"next step's {e2e_logits[1]:.3g} of the largest |logit|")
+    if max(layer_states) > STATE_RTOL or max(step_errs) > LOGIT_RTOL:
+        raise AssertionError(f"[10b] {cfg.name}: states {layer_states}, "
+                             f"decode steps {step_errs}")
+    return {"prompt": n, "bucket": bucket,
+            "layer_state_rel_l2": layer_states, "layer_step_errs": step_errs,
+            "e2e_state_rel_l2": e2e_states, "e2e_logit_errs": e2e_logits}
+
+
+def window_request(torch, dev, cfg, params, prompt_len, new, bucket,
+                   gate: bool = True):
+    """9b / 10c / 10b's chunked request: one request of ``prompt_len``
+    tokens in a bucket of ``bucket`` and ``new`` new tokens, served through
+    ``Server`` + ``Engine`` (graphs); its logits at every step held
+    against a decode without paging from the same bucketed prefill, its
+    rings grown by the new tokens' rows (a prefill at the prompt's own
+    length is no oracle: under a fabric, which quantizes each projection's
+    input per tensor, padding rows included, and over many layers, where
+    another chunking's roundings compound; 10b holds that layer by layer),
+    the served tokens fed back; greedy tokens equal where the margin
+    allows.  ``gate=False`` measures without gating the logits."""
     import numpy as np
 
     from repro_torch.launch.engine import Engine
@@ -3470,13 +3693,15 @@ def window_request(torch, dev, cfg, params, gate: bool = True):
     from repro_torch.models.transformer import StackCache, dense_calls
     from repro_torch.telemetry import Registry
 
+    ph = "9b" if cfg.name == "gemma3-12b" else \
+        "10" + ("c" if cfg.window else "b")
     rng = np.random.default_rng(9)
-    prompt = rng.integers(0, cfg.vocab_size, WINDOW_PROMPT).astype(np.int32)
+    prompt = rng.integers(0, cfg.vocab_size, prompt_len).astype(np.int32)
     engine = Engine(dev, registry=Registry())
     server = Server(cfg, params, engine=engine,
                     slots=1, kv="paged", block_size=16,
-                    buckets=(WINDOW_BUCKET,),
-                    max_seq_len=WINDOW_BUCKET + 64, registry=Registry())
+                    buckets=(bucket,),
+                    max_seq_len=bucket + 64, registry=Registry())
     served = []
     prefill_fn, decode_fn = server._prefill, server._decode_logits
     server._prefill = lambda h, slot: served.append(
@@ -3484,31 +3709,31 @@ def window_request(torch, dev, cfg, params, gate: bool = True):
     server._decode_logits = lambda toks: served.append(
         np.array(decode_fn(toks)[0])) or served[-1][None]
     zero_counts()
-    h = server.submit(Request(prompt, max_new_tokens=WINDOW_NEW))
+    h = server.submit(Request(prompt, max_new_tokens=new))
     server.drain()
     torch.cuda.synchronize()
     launches = read_counts()
     # a new graph engine: the prefill, admission and decode steps each run
     # once more as their capture's warm-up
     warm = int(engine.graphs)
-    steps = WINDOW_NEW - 1 + warm
+    steps = new - 1 + warm
     calls = dense_calls(cfg) if cfg.imc_fabric is not None else 0
-    want = {"paged_attn_split": steps * cfg.n_layers,
+    attn, paged = attn_layers(cfg)
+    want = {"paged_attn": steps * attn, paged: steps * attn,
             "imc_mac_split": steps * calls,
             "imc_mac_tiled": (1 + warm) * calls}
-    if not h.done or len(served) != WINDOW_NEW or any(
+    if not h.done or len(served) != new or any(
             launches[k] != v for k, v in want.items()):
-        raise AssertionError(f"[9b] the request served {len(served)} steps "
-                             f"with launches {launches}; expected {want}")
-    # the oracle: the same bucketed prefill, its ring caches grown by the new
-    # tokens' rows (empty), then decode steps through them, unpaged
-    padded = np.zeros((1, WINDOW_BUCKET), np.int32)
-    padded[0, :WINDOW_PROMPT] = prompt
+        raise AssertionError(f"[{ph}] the request served {len(served)} "
+                             f"steps with launches {launches}; expected "
+                             f"{want}")
+    padded = np.zeros((1, bucket), np.int32)
+    padded[0, :prompt_len] = prompt
     ring = []
     with torch.inference_mode():
         logits, cache = prefill(params, {"tokens": torch.from_numpy(
-            padded).to(dev), "length": WINDOW_PROMPT}, cfg)
-        cache = StackCache([grow_ring(torch, c, WINDOW_NEW)
+            padded).to(dev), "length": prompt_len}, cfg)
+        cache = StackCache([grow_ring(torch, c, new)
                             for c in cache.layers], cache.pos)
         ring.append(logits[0].float().cpu().numpy())
         for t in h.tokens[:-1]:
@@ -3521,35 +3746,40 @@ def window_request(torch, dev, cfg, params, gate: bool = True):
         errs.append(err)
         scales.append(scale)
         if gate and err > LOGIT_RTOL * scale:
-            raise AssertionError(f"[9b] step {i} (position "
-                                 f"{WINDOW_PROMPT + i}): served vs ring max "
+            raise AssertionError(f"[{ph}] step {i} (position "
+                                 f"{prompt_len + i}): served vs unpaged max "
                                  f"err {err} > {LOGIT_RTOL} x {scale}")
         top2 = np.sort(r)[-2:]
         if gate and top2[1] - top2[0] > LOGIT_RTOL * scale:
             checked += 1
             if int(np.argmax(r)) != h.tokens[i]:
-                raise AssertionError(f"[9b] step {i}: served token "
-                                     f"{h.tokens[i]}, ring argmax "
+                raise AssertionError(f"[{ph}] step {i}: served token "
+                                     f"{h.tokens[i]}, unpaged argmax "
                                      f"{int(np.argmax(r))}")
-    worst = max(e / sc for e, sc in zip(errs, scales))
+    rel = [e / sc for e, sc in zip(errs, scales)]
     fabric = cfg.imc_fabric.mode if cfg.imc_fabric is not None else "off"
-    log(f"[9b] gemma3-12b, fabric {fabric}: a {WINDOW_PROMPT}-token prompt "
-        f"in a {WINDOW_BUCKET} bucket and {WINDOW_NEW} new tokens (positions "
-        f"to {WINDOW_PROMPT + WINDOW_NEW - 1}, window {cfg.window}) served "
-        f"paged from graphs against the ring decode: worst step "
-        f"{worst:.3g} of its largest |logit| (by step "
-        f"{fmt_errs([e / sc for e, sc in zip(errs, scales)][:8])} ...)"
-        + (f", within {LOGIT_RTOL}; {checked} of {WINDOW_NEW} greedy tokens "
+    log(f"[{ph}] {cfg.name}, fabric {fabric}: a {prompt_len}-token prompt "
+        f"in a {bucket} bucket and {new} new tokens (positions to "
+        f"{prompt_len + new - 1}, window {cfg.window}) served paged from "
+        f"graphs against the unpaged decode from the same bucketed prefill: "
+        f"worst step {max(rel):.3g} of its largest |logit| (by "
+        f"step {fmt_errs(rel[:8])} ...)"
+        + (f", within {LOGIT_RTOL}; {checked} of {new} greedy tokens "
            "checked, all equal" if gate else " (not gated)")
         + f"; launches {launches}")
-    return {"max_rel_err": worst, "rel_errs": [e / sc for e, sc in
-                                               zip(errs, scales)],
+    return {"max_rel_err": max(rel), "rel_errs": rel,
             "tokens_checked": checked, "launches": launches}
 
 
 def grow_ring(torch, c, extra: int):
     """A ring cache (``AttnCache``) with ``extra`` empty rows appended, so
-    that decode positions up to ``extra`` past its length wrap onto none."""
+    that decode positions up to ``extra`` past its length wrap onto none; a
+    recurrent layer's state as it is."""
+    from repro_torch.models.attention import AttnCache
+
+    if not isinstance(c, AttnCache):
+        return c
+
     def grow(t, fill=0):
         if t is None:
             return None
@@ -3713,12 +3943,12 @@ def leaf_bytes(tree):
                if hasattr(t, "numel"))
 
 
-def train_family(torch, dev, name, batch, seq):
-    """9d: ``TRAIN_FAMILY_STEPS`` steps of full-width ``name`` (2 layers,
-    ``exact``) through ``launch.train.train`` and the Engine: imc_mac alone
-    launches, twice per fabric projection a step (remat), no plain
-    version runs; the MoE metrics present; step time and peak memory, the
-    peak reckoned from the leaves."""
+def train_family(torch, dev, name, batch, seq, layers=2):
+    """9d / 10d: ``TRAIN_FAMILY_STEPS`` steps of full-width ``name``
+    (``layers`` layers, ``exact``) through ``launch.train.train`` and the
+    Engine: imc_mac alone launches, twice per fabric projection a step
+    (remat), no plain version runs; the MoE metrics present; step time and
+    peak memory, the peak reckoned from the leaves."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3728,32 +3958,34 @@ def train_family(torch, dev, name, batch, seq):
     from repro_torch.models.transformer import dense_calls
     from repro_torch.telemetry import Registry
 
-    cfg = dataclasses.replace(get_config(name), n_layers=2,
+    cfg = dataclasses.replace(get_config(name), n_layers=layers,
                               fabric=FabricSpec(mode="exact"))
+    ph = phase_of(name)
     free_device(torch)
     torch.cuda.reset_peak_memory_stats()
     per_step = 2 * dense_calls(cfg)
     t0 = time.perf_counter()
     (params, opt), hist, launches = train_run(
-        torch, cfg, f"[9d] {name}", ("imc_mac", "imc_mac_tiled"), per_step,
+        torch, cfg, f"[{ph}d] {name}", ("imc_mac", "imc_mac_tiled"), per_step,
         TRAIN_FAMILY_STEPS, batch, seq,
         Engine(dev, noise_seed=0, registry=Registry()))
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     for m in hist:
         if not all(math.isfinite(v) for v in m.values()):
-            raise AssertionError(f"[9d] {name}: metrics {m}")
+            raise AssertionError(f"[{ph}d] {name}: metrics {m}")
         if cfg.n_experts and not {"load_balance_loss",
                                   "router_z_loss"} <= set(m):
-            raise AssertionError(f"[9d] {name}: no MoE metrics in {m}")
+            raise AssertionError(f"[{ph}d] {name}: no MoE metrics in {m}")
     sizes = {"params": leaf_bytes(params), "grads": leaf_bytes(params),
              "adamw_state": leaf_bytes(opt)}
-    out = {"batch": batch, "seq": seq, "steps": len(hist),
+    out = {"layers": layers, "batch": batch, "seq": seq, "steps": len(hist),
            "metrics": hist, "launches": launches,
            "step_s": [m["step_s"] for m in hist], "peak_gib": peak / GiB,
            "leaves_gib": {k: v / GiB for k, v in sizes.items()},
            "wall_s": wall}
-    log(f"[9d] {name} (2 layers, batch {batch} x seq {seq}): losses "
+    log(f"[{ph}d] {name} ({layers} layers, batch {batch} x seq {seq}): "
+        f"losses "
         f"{[round(m['loss'], 4) for m in hist]}, metrics {hist[-1]}; step "
         f"times {[round(m['step_s'], 3) for m in hist]} s; imc_mac "
         f"{launches['imc_mac']} launches ({per_step} a step); peak device "
@@ -3764,11 +3996,12 @@ def train_family(torch, dev, name, batch, seq):
     return out
 
 
-def train_family_card_vs_cpu(torch, dev, name):
-    """9d: 2 layers of ``name`` at ``reduce_config`` width, the card against
-    the CPU's plain path: loss within ``FAMILY_LOSS_RTOL``, each gradient
-    leaf within ``TRAIN_GRAD_RTOL`` (bf16 params) and within
-    ``TRAIN_WITNESS_RATIO`` x the CPU's distance from a float64 witness."""
+def train_family_card_vs_cpu(torch, dev, name, layers=2):
+    """9d / 10d: ``layers`` layers of ``name`` at ``reduce_config`` width,
+    the card against the CPU's plain path: loss within
+    ``FAMILY_LOSS_RTOL``, each gradient leaf within ``TRAIN_GRAD_RTOL``
+    (bf16 params) and within ``TRAIN_WITNESS_RATIO`` x the CPU's distance
+    from a float64 witness."""
     import dataclasses
 
     from repro_torch.configs import get_config, reduce_config
@@ -3777,8 +4010,9 @@ def train_family_card_vs_cpu(torch, dev, name):
     from repro_torch.models.model import init_params, loss_and_grads
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(reduce_config(get_config(name)), n_layers=2,
+    cfg = dataclasses.replace(reduce_config(get_config(name)), n_layers=layers,
                               fabric=FabricSpec(mode="exact"), remat=False)
+    ph = phase_of(name)
     cpu_params = init_params(cfg, device="cpu", seed=0)
     fd = cfg.frontend_dim if cfg.frontend != "none" else 0
     nb = SyntheticStream(DataConfig(cfg.vocab_size, 64, 2,
@@ -3801,7 +4035,8 @@ def train_family_card_vs_cpu(torch, dev, name):
     ratio = max(((x.double() - w).norm() / max(
         (y.double() - w).norm(), 1e-30)).item()
         for x, y, w in zip(gc, gp, gw) if w.norm() > 0)
-    log(f"[9d] {name} reduced (2 layers), card vs CPU: loss {lc:.6f} / "
+    log(f"[{ph}d] {name} reduced ({layers} layers), card vs CPU: loss "
+        f"{lc:.6f} / "
         f"{lp:.6f} (rel {loss_err:.2e}); float64 witness {lw:.6f}, the card "
         f"{card_w:.2e} and the CPU {cpu_w:.2e} from it; worst gradient rel "
         f"L2 by leaf dtype {worst}; worst per-leaf distance from the "
@@ -3809,7 +4044,7 @@ def train_family_card_vs_cpu(torch, dev, name):
     if loss_err > FAMILY_LOSS_RTOL or not loss_ok or \
             max(worst.values()) > TRAIN_GRAD_RTOL["bfloat16"] or \
             ratio > TRAIN_WITNESS_RATIO:
-        raise AssertionError(f"[9d] {name} reduced: loss {loss_err}, grads "
+        raise AssertionError(f"[{ph}d] {name} reduced: loss {loss_err}, grads "
                              f"{worst}, witness ratio {ratio}")
     return {"loss_rel_err": loss_err, "loss_card_to_witness": card_w,
             "loss_cpu_to_witness": cpu_w, "grad_rel_l2": worst,
@@ -3835,6 +4070,62 @@ def phase_families(torch, dev, only=None):
     out["wall_s"] = time.perf_counter() - t0
     log(f"[9] families: {out['wall_s']:.1f} s in all")
     return out
+
+
+def phase_recurrent(torch, dev, only=None):
+    """Phase 10: the recurrent families (module docstring); ``only`` names
+    the configs to run (default: both)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    out = {"train": {}, "train_card_vs_cpu": {}, "state": {}}
+    for name in RECURRENT_FAMILIES:
+        if only is not None and name not in only:
+            continue
+        out["train"][name] = train_family(torch, dev, name, 1, 256,
+                                          layers=RECURRENT_DEPTH[name])
+        cfg = get_config(name)  # one pattern period and the tail
+        out["train_card_vs_cpu"][name] = train_family_card_vs_cpu(
+            torch, dev, name, layers=max(2, len(cfg.pattern) + len(cfg.tail)))
+        out[name] = serve_family(torch, dev, name)
+        out["state"][name] = recurrent_state(torch, dev, name)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[10] recurrent families: {out['wall_s']:.1f} s in all")
+    return out
+
+
+def own_process(torch, args, timeout=900):
+    """This script with ``args`` in a process of its own (a fresh CUDA
+    context, allocator and profiler), after this one's cached device memory
+    is freed; its log is echoed, its JSON line (the one before the last)
+    returned."""
+    free_device(torch)
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), *args],
+                       cwd=ROOT, stdout=subprocess.PIPE, text=True,
+                       timeout=timeout)
+    lines = r.stdout.splitlines()
+    for line in lines[:-2]:
+        log(line)
+    if r.returncode:
+        raise AssertionError(f"chip_smoke.py {' '.join(args)} exited "
+                             f"{r.returncode}")
+    return json.loads(lines[-2])
+
+
+def recurrent_launches(rec, kernel):
+    """A kernel's launches over phase 10's served, state, window and
+    training runs."""
+    n = 0
+    for name in RECURRENT_FAMILIES:
+        for path in ("exact", "sim_flash", "sim_noise", "window",
+                     "window_exact"):
+            if path in rec.get(name, {}):
+                n += rec[name][path]["launches"][kernel]
+        if "chunked" in rec["state"].get(name, {}):
+            n += rec["state"][name]["chunked"]["launches"][kernel]
+    for r in rec["train"].values():
+        n += r["launches"][kernel]
+    return n
 
 
 def drift(torch, dev, name, layers):
@@ -3918,14 +4209,19 @@ def family_launches(fam, kernel):
 
 
 # phase 3 at the families' geometries: (H, KV, hd) of gemma3 (rep 2, hd
-# 256), llava (rep 4), dbrx (rep 6) and deepseek (rep 7); positions past
-# windows of 1024 and 4096; the last slot's table is empty
-FAMILY_PAGED_GEOMS = ((16, 8, 256), (32, 8, 128), (48, 8, 128), (56, 8, 128))
+# 256), llava (rep 4), dbrx (rep 6), deepseek (rep 7) and recurrentgemma
+# (rep 16, hd 256: the staged kernel); positions past windows of 1024, 2048
+# and 4096; the last slot's table is empty
+FAMILY_PAGED_GEOMS = ((16, 8, 256), (32, 8, 128), (48, 8, 128), (56, 8, 128),
+                      (16, 1, 256))
+FAMILY_PAGED_WINDOWS = (0, 1024, 2048, 4096)
 FAMILY_PAGED_POS = [5, 1100, 4200, 0]
 FAMILY_PAGED_MB = 264  # table blocks of 16: position 4200 needs 263
 # phase 5 at the families' geometries: gemma3's hd 256 (the CUDA-core
-# kernel), dbrx's rep 6 and deepseek's rep 7
-FAMILY_FLASH_GEOMS = ((16, 8, 256), (48, 8, 128), (56, 8, 128))
+# kernel), dbrx's rep 6, deepseek's rep 7 and recurrentgemma's rep 16 at hd
+# 256; S 1100 under window 1024 (gemma3) and 2100 under 2048 (recurrentgemma)
+FAMILY_FLASH_GEOMS = ((16, 8, 256), (48, 8, 128), (56, 8, 128), (16, 1, 256))
+FAMILY_FLASH_LONG = ((1024, (16, 8, 256), 1100), (2048, (16, 1, 256), 2100))
 
 
 def bf16_ulp(x: float) -> float:
@@ -3934,9 +4230,9 @@ def bf16_ulp(x: float) -> float:
 
 
 def phase_family_attn(torch, dev):
-    """Phases 3 and 5 at phase 9's geometries: ``paged_attn`` and
-    ``flash_attn`` against their plain versions, the kernel each call must
-    take asserted."""
+    """Phases 3 and 5 at phase 9's and phase 10's geometries: ``paged_attn``
+    and ``flash_attn`` against their plain versions, the kernel each call
+    must take asserted."""
     from repro_torch.kernels.flash_attn.ops import (flash_attention,
                                                     flash_attention_torch)
     from repro_torch.kernels.paged_attn.ops import (paged_attention,
@@ -3947,14 +4243,15 @@ def phase_family_attn(torch, dev):
     B = len(FAMILY_PAGED_POS)
     for H, KV, hd in FAMILY_PAGED_GEOMS:
         for dtype in ("f32", "bf16", "int8"):
-            for window in (0, 1024, 4096):
+            for window in FAMILY_PAGED_WINDOWS:
                 q, k, v, tbl, p, kw = attn_inputs(
                     torch, dev, dtype, B, H, KV, hd, FAMILY_PAGED_POS,
                     mb=FAMILY_PAGED_MB, seed=200 + n, inactive_last=True)
                 split = takes_split(H // KV, k, v)
-                if split != (dtype != "f32" or hd <= 128):
-                    raise AssertionError(f"paged_attn {dtype} hd={hd}: the "
-                                         "dispatch rule changed")
+                if split != (H // KV <= 8 and (dtype != "f32" or hd <= 128)):
+                    raise AssertionError(f"paged_attn {dtype} rep={H // KV} "
+                                         f"hd={hd}: the dispatch rule "
+                                         "changed")
                 before = paged_attention.split_launches
                 out = paged_attention(q, k, v, tbl, p, window=window, **kw)
                 torch.cuda.synchronize()
@@ -3986,7 +4283,7 @@ def phase_family_attn(torch, dev):
     cases = [(dtype, window, geom, S) for dtype in ("f32", "bf16")
              for window in (0, 16) for geom in FAMILY_FLASH_GEOMS
              for S in (1, 17, 64, 100)]
-    cases += [(dtype, 1024, FAMILY_FLASH_GEOMS[0], 1100)
+    cases += [(dtype, window, geom, S) for window, geom, S in FAMILY_FLASH_LONG
               for dtype in ("f32", "bf16")]
     for dtype, window, (H, KV, hd), S in cases:
         dt = torch.float32 if dtype == "f32" else torch.bfloat16
@@ -4008,8 +4305,8 @@ def phase_family_attn(torch, dev):
                                  f"{err} > {FLASH_ATOL[dtype]}")
         n += 1
     log(f"[3, 5] paged_attn and flash_attn at the families' geometries "
-        f"(rep 2/4/6/7, hd 128/256, windows 1024/4096) within bounds on {n} "
-        f"cases; worst {worst}")
+        f"(rep 2/4/6/7/16, hd 128/256, windows 1024/2048/4096) within bounds "
+        f"on {n} cases; worst {worst}")
     return worst
 
 
@@ -4133,6 +4430,102 @@ def time_family_rows(torch, dev):
     return rows
 
 
+def time_recurrent_rows(torch, dev):
+    """Phase 7's rows at phase 10's geometries: ``paged_attn`` over one
+    recurrentgemma decode step at its full depth (12 local layers, rep 16,
+    hd 256: the staged kernel), long contexts under its window of 2048, and
+    ``imc_mac`` over one mamba2 decode step (96 projections at M = 4);
+    each beside its bound, plain version and library call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.imc_mac.ops import imc_mac, imc_mac_torch
+    from repro_torch.kernels.paged_attn.ops import (paged_attention,
+                                                    paged_decode_torch)
+
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(17)
+    H, KV, hd, layers, window = 16, 1, 256, 12, 2048
+    B, bs, mb = 4, 16, 132
+    pos = [2047, 1500, 700, 100]
+    pins = [attn_inputs(torch, dev, "bf16", B, H, KV, hd, pos, bs=bs, mb=mb,
+                        seed=400 + i) for i in range(layers)]
+    dense = []
+    for q, k, v, tbl, p, _ in pins:
+        nb = k.shape[0]
+        ctx = torch.arange(mb * bs, device=dev)
+        t = torch.where(tbl < 0, 0, tbl).long()
+        gidx = t[:, ctx // bs] * bs + ctx % bs
+        valid = ((ctx[None] <= p.long()[:, None])
+                 & (ctx[None] > p.long()[:, None] - window)
+                 & (tbl[:, ctx // bs] >= 0))
+        kd = k.reshape(nb * bs, KV, hd)[gidx].permute(0, 2, 1, 3)
+        vd = v.reshape(nb * bs, KV, hd)[gidx].permute(0, 2, 1, 3)
+        dense.append((q.permute(0, 2, 1, 3).contiguous(), kd.contiguous(),
+                      vd.contiguous(), valid[:, None, None, :]))
+
+    def paged():
+        return [paged_attention(q, k, v, t, p, window=window)
+                for q, k, v, t, p, _ in pins]
+
+    def sdpa_dense():
+        return [F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                               enable_gqa=True)
+                for q, k, v, m in dense]
+
+    live = sum(min(p_ + 1, window) for p_ in pos)
+    b_ms, by = bound(layers * (live * KV * hd * 2 * 2 + 2 * B * H * hd * 2
+                               + 4 * (B * mb + B)),
+                     layers * live * H * hd * 4, BF16_FLOPS_PER_S)
+    rows["paged_attn"] = dict(
+        ms=cuda_ms(torch, paged, iters=20), graph_ms=graph_ms(torch, paged),
+        plain_ms=cuda_ms(torch, lambda: [
+            paged_decode_torch(q, k, v, t, p, window=window)
+            for q, k, v, t, p, _ in pins], iters=5),
+        library_ms=cuda_ms(torch, sdpa_dense, iters=20),
+        library_graph_ms=graph_ms(torch, sdpa_dense), bound_ms=b_ms,
+        bound_by=by,
+        shape="recurrentgemma-9b, one decode step at full depth: 12 local "
+              "layers x (B=4, H=16, KV=1, hd=256, bf16 pools, block 16, "
+              "window 2048, positions 2047/1500/700/100; the staged "
+              "kernel); library: F.scaled_dot_product_attention over the "
+              "gathered span (enable_gqa)")
+
+    m, d, d_in, n_in, depth = 4, 1024, 2048, 4384, 48
+    shapes = [(d, n_in), (d_in, d)] * depth
+    a = {k: torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                          dtype=torch.int8) for k in (d, d_in)}
+    a_pad = {k: torch.cat([v, v.new_zeros((32 - m, k))]) for k, v in a.items()}
+    ws = [torch.randint(-127, 128, s, generator=g, device=dev,
+                        dtype=torch.int8) for s in shapes]
+
+    def step(fn, act):
+        return [fn(act[w.shape[0]], w) for w in ws]
+
+    b_ms, by = bound(sum(m * k + k * n + 4 * m * n for k, n in shapes),
+                     sum(2 * m * k * n for k, n in shapes), INT8_OPS_PER_S)
+    rows["imc_mac"] = dict(
+        ms=cuda_ms(torch, lambda: step(imc_mac, a), iters=20),
+        graph_ms=graph_ms(torch, lambda: step(imc_mac, a)),
+        plain_ms=cuda_ms(torch, lambda: step(imc_mac_torch, a), iters=3),
+        library_ms=cuda_ms(torch, lambda: step(torch._int_mm, a_pad),
+                           iters=20),
+        library_graph_ms=graph_ms(torch, lambda: step(torch._int_mm, a_pad)),
+        bound_ms=b_ms, bound_by=by,
+        shape="mamba2-370m, one decode step: 48 x {in_proj (1024,4384), "
+              "out_proj (2048,1024)} at M=4 (the split-K kernel, 96 "
+              "launches, 316 MB of weights); library: torch._int_mm with M "
+              "padded to 32")
+    del pins, dense, ws
+    free_device(torch)
+    for name, r in rows.items():
+        log(f"[7] {name}, {r['shape']}: {r['ms']:.4f} ms, {r['graph_ms']:.4f}"
+            f" ms from a graph (bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}; plain {r['plain_ms']:.4f} ms; library "
+            f"{r['library_ms']:.4f} ms, {r['library_graph_ms']:.4f} ms from "
+            "a graph)")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4199,10 +4592,15 @@ def main() -> int:
         log(build.build_all(["imc_mac", "paged_attn", "bitplane_mac",
                              "flash_attn", "bitplane_mac_noisy"]))
         only = sys.argv[2:] or None
-        out = {"families": phase_families(torch, dev, only)}
+        out = {}
+        if only is None or set(only) - set(RECURRENT_FAMILIES):
+            out["families"] = phase_families(torch, dev, only)
+        if only is None or set(only) & set(RECURRENT_FAMILIES):
+            out["recurrent"] = phase_recurrent(torch, dev, only)
         if only is None:
             out.update(attn=phase_family_attn(torch, dev),
-                       rows=time_family_rows(torch, dev))
+                       rows=time_family_rows(torch, dev),
+                       recurrent_rows=time_recurrent_rows(torch, dev))
         print(json.dumps({"families": out, "kind": kind}))
         print(smi)
         return 0
@@ -4238,9 +4636,16 @@ def main() -> int:
     served["qwen"] = phase_qwen(torch, dev)
     trained = phase_train(torch, dev)
     families = phase_families(torch, dev)
+    # in this process, after phases 6-9, the profiler has missed one
+    # kernel of a replayed graph that a fresh process counts: phase 10
+    # runs in its own
+    recurrent = own_process(torch, ["--families", *RECURRENT_FAMILIES])[
+        "families"]["recurrent"]
     timed = {name: fn(torch, dev) for name, fn in TIMERS.items()}
     for name, row in time_family_rows(torch, dev).items():
         timed[name]["families"] = row
+    for name, row in time_recurrent_rows(torch, dev).items():
+        timed[name]["recurrent"] = row
     timed["bitplane_mac_noisy"]["noise_free_bitplane_mac_ms"] = \
         timed["bitplane_mac"]["ms"]
 
@@ -4308,12 +4713,19 @@ def main() -> int:
     fam_rows = {"imc_mac": ("qwen2-72b", "exact", "imc_mac"),
                 "paged_attn": ("gemma3-12b", "exact", "paged_attn"),
                 "flash_attn": ("gemma3-12b", "sim_flash", "flash_attn")}
+    rec_rows = {"imc_mac": ("mamba2-370m", "exact", "imc_mac"),
+                "paged_attn": ("recurrentgemma-9b", "exact", "paged_attn")}
     for k in kernels:
         k["launches_families"] = family_launches(families, k["name"])
+        k["launches_recurrent"] = recurrent_launches(recurrent, k["name"])
         if k["name"] in fam_rows:  # the phase-9 row's own path
             name, path, key = fam_rows[k["name"]]
             timed[k["name"]]["families"]["launches"] = \
                 families[name][path]["launches"][key]
+        if k["name"] in rec_rows:  # the phase-10 row's own path
+            name, path, key = rec_rows[k["name"]]
+            timed[k["name"]]["recurrent"]["launches"] = \
+                recurrent[name][path]["launches"][key]
         k["max_abs_err_families"] = {
             key: v for key, v in family_attn.items()
             if key.split()[0] == k["name"].split("_")[0]} or None
@@ -4337,7 +4749,8 @@ def main() -> int:
     for name, key in (("imc_mac", "prefill"), ("imc_mac", "prefill32"),
                       ("imc_mac", "train"), ("bitplane_mac", "train"),
                       ("imc_mac", "families"), ("paged_attn", "families"),
-                      ("flash_attn", "families"),
+                      ("flash_attn", "families"), ("imc_mac", "recurrent"),
+                      ("paged_attn", "recurrent"),
                       ("imc_mac_dequant", "prefill"),
                       ("rbl_decode_mac", "sweep")):
         t = timed[name][key]
@@ -4366,7 +4779,7 @@ def main() -> int:
         "ms")
     log(f"[summary] build {build_s:.2f} s; served {json.dumps(served)}; "
         f"macro {json.dumps(macro)}; trained {json.dumps(trained)}; "
-        f"families {json.dumps(families)}")
+        f"families {json.dumps(families)}; recurrent {json.dumps(recurrent)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

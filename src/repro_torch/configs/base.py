@@ -208,7 +208,8 @@ def _load_all():
 
     for mod in ("musicgen_large", "qwen2_72b", "deepseek_coder_33b",
                 "qwen2_5_3b", "gemma3_12b", "dbrx_132b", "qwen3_moe_30b_a3b",
-                "llava_next_mistral_7b", "imc_paper"):
+                "llava_next_mistral_7b", "mamba2_370m",
+                "recurrentgemma_9b", "imc_paper"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

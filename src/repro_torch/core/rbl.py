@@ -71,6 +71,22 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
     return z * pow2
 
 
+class ExpF32(torch.autograd.Function):
+    """:func:`exp_f32` forward, d/dx e^x = e^x backward (``ExpF32.apply``);
+    a float64 input (a float64 witness of the model) takes ``torch.exp``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.exp(x) if x.dtype == torch.float64 else exp_f32(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * y
+
+
 def _f32(k, device=None) -> torch.Tensor:
     return torch.as_tensor(k, dtype=torch.float32, device=device)
 

@@ -28,8 +28,8 @@ admission's slot are device tensors, never Python ints.
     admit_step(cache, one, slot, table_row=None) -> None
 
 ``serve_step`` and ``admit_step`` update ``cache`` in place (the pools or
-rings, and ``cache.pos``), so the state a graph captured stays the state it
-replays on.
+rings, the recurrent layers' state and ``cache.pos``), so the state a graph
+captured stays the state it replays on.
 
 Not ported: ``input_specs`` with its helpers, which build abstract inputs
 for the XLA dry-run (``jax.ShapeDtypeStruct``s for ``lower().compile()``);
@@ -43,7 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import seed_table
 from repro_torch.models.kv_cache import merge_prefill_cache
 from repro_torch.models.model import decode_step, loss_and_grads, prefill
-from repro_torch.models.transformer import dense_calls
+from repro_torch.models.transformer import RECURRENT_CACHES, dense_calls
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.tree import tree_leaves
 
@@ -83,7 +83,13 @@ def make_serve_step(cfg: ModelConfig):
     def serve_step(params, cache, token, block_table=None, seeds=None):
         logits, new = decode_step(params, cache, token, cfg,
                                   block_table=block_table, noise_seed=seeds)
-        cache.pos.copy_(new.pos)  # the next positions land in the state
+        # a recurrent layer's decode returns a new state, and the next
+        # positions are new: both land in the bound state
+        for old, fresh in zip(cache.layers, new.layers):
+            if isinstance(old, RECURRENT_CACHES):
+                for dst, src in zip(old, fresh):
+                    dst.copy_(src)
+        cache.pos.copy_(new.pos)
         return logits
 
     return serve_step

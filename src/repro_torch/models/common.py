@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core.fabric import FabricSpec
 from repro_torch.core.imc_linear import imc_linear_apply
+from repro_torch.core.rbl import ExpF32
 from repro_torch.kernels.common import mix_seed
 from repro_torch.tree import tree_leaves
 
@@ -44,6 +45,13 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6,
     x = x.to(torch.float32)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * params["scale"].to(torch.float32)).to(dt)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, the reference's ``logaddexp(x, 0)``: max(x, 0) +
+    log1p(exp(-|x|)), with XLA's CPU float32 exp (``F.softplus`` turns to the
+    identity above 20 and rounds apart below it)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(ExpF32.apply(-torch.abs(x)))
 
 
 # ----------------------------------------------------------------------- rope

@@ -14,6 +14,9 @@ all slots, and a per-slot **block table** maps logical block ``j`` (positions
     request's ring cache, and :func:`merge_prefill_cache` scatters a freshly
     prefilled (B=1, possibly padded) ring cache into the pools at the
     positions its ``key_pos`` names.  Both write the batch cache in place.
+    Recurrent layers (``SsdCache``, ``RgLruCache``) keep their state dense,
+    one row per slot beside the pools (it is O(1) in sequence length, so
+    paging buys nothing there), written at the slot on admission.
 
 The ring path in :mod:`repro_torch.models.attention` remains the oracle.
 """
@@ -155,9 +158,10 @@ class BlockAllocator:
 
 
 # ------------------------------------------------------------ device caches
-def broadcast_slots(one: AttnCache, slots: int) -> AttnCache:
-    """Zero-filled ring cache with ``slots`` rows, shaped after a B=1 one."""
-    return AttnCache(*[None if o is None else
+def broadcast_slots(one, slots: int):
+    """A zero-filled layer cache with ``slots`` rows, shaped after a B=1 one
+    (a ring ``AttnCache``, an ``SsdCache`` or an ``RgLruCache``)."""
+    return type(one)(*[None if o is None else
                        o.new_zeros((slots,) + tuple(o.shape[1:]))
                        for o in one])
 
@@ -179,10 +183,13 @@ def _empty_pool_like(one: AttnCache, num_blocks: int,
 
 def init_paged_cache(one, slots: int, num_blocks: int, block_size: int):
     """Empty batched paged cache shaped after one request's ring StackCache:
-    attention layers become shared pools, ``pos`` a per-slot vector."""
+    attention layers become shared pools, recurrent layers ``slots`` rows of
+    state, ``pos`` a per-slot vector."""
     from repro_torch.models.transformer import StackCache
 
-    layers = [_empty_pool_like(c, num_blocks, block_size) for c in one.layers]
+    layers = [_empty_pool_like(c, num_blocks, block_size)
+              if isinstance(c, AttnCache) else broadcast_slots(c, slots)
+              for c in one.layers]
     return StackCache(layers, torch.zeros((slots,), dtype=torch.int32,
                                           device=one.pos.device))
 
@@ -217,7 +224,8 @@ def merge_prefill_cache(batch, one, table_row, slot):
     cache at ``slot``, in place; returns ``batch``.
 
     Paged layers scatter into the shared pools through ``table_row`` (the
-    slot's (max_blocks,) block table row); ring layers write row ``slot``.
+    slot's (max_blocks,) block table row); ring and recurrent layers write
+    row ``slot``.
     ``slot`` is an int or a one-element integer tensor on the cache's device
     (a captured admission step takes it so).
     """

@@ -38,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.rbl import exp_f32
+from repro_torch.core.rbl import ExpF32
 from repro_torch.models.common import init_dense
 from repro_torch.models.mlp import gelu_tanh, silu
 
@@ -75,21 +75,6 @@ def moe_capacity(n_tokens: int, n_experts: int, top_k: int,
     return min(cap, n_tokens * top_k)
 
 
-class _ExpF32(torch.autograd.Function):
-    """:func:`exp_f32` forward, d/dx e^x = e^x backward."""
-
-    @staticmethod
-    def forward(ctx, x):
-        y = exp_f32(x)
-        ctx.save_for_backward(y)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        (y,) = ctx.saved_tensors
-        return g * y
-
-
 def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last dim, adding left to right."""
     s = x[..., 0]
@@ -116,7 +101,7 @@ def router_probs(logits: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softmax(logits, axis=-1)`` in float32: exp(x - max) over its
     sum, in XLA's arithmetic (see the module docstring)."""
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
-    u = _ExpF32.apply(logits - m)
+    u = ExpF32.apply(logits - m)
     return u / xla_sum(u)[..., None]
 
 

@@ -1,18 +1,24 @@
-"""Decoder stack: a loop over attention blocks (port of
+"""Decoder stack: a loop over heterogeneous blocks (port of
 ``repro/models/transformer.py``).
 
 The reference stacks each pattern position's parameters across groups and
 runs ``jax.lax.scan``; the port keeps one entry per layer in order (layer
 ``g * len(pattern) + p`` is group ``g``, position ``p``; the tail follows)
 and loops in Python.  Block kinds: ``attn`` (global attention + MLP),
-``local`` (sliding-window attention + MLP) and ``moe`` (global attention +
-the MoE FFN of :mod:`repro_torch.models.moe`).  SSD and RG-LRU blocks, and
-``mlp="none"``, raise "not ported yet".
+``local`` (sliding-window attention + MLP), ``moe`` (global attention +
+the MoE FFN of :mod:`repro_torch.models.moe`), ``rglru`` (the RG-LRU
+recurrent block of :mod:`repro_torch.models.rglru` + MLP) and ``ssd`` (the
+Mamba2 SSD block of :mod:`repro_torch.models.ssd`, no MLP).  A layer's
+cache is an ``AttnCache`` / ``PagedAttnCache``, an ``RgLruCache`` or an
+``SsdCache``.
 
 Modes: ``train`` (no cache; with ``cfg.remat`` and autograd recording,
 each layer runs under ``torch.utils.checkpoint`` and is recomputed in the
 backward, as the reference's ``jax.checkpoint`` of its scan body),
-``prefill`` and ``decode``.  A noisy fabric's training forward hands each
+``prefill`` and ``decode``.  A bucketed prefill's ``true_len`` reaches the
+recurrent blocks too, whose state is then the state at ``true_len`` (the
+reference hands it to attention only, and its recurrent states absorb the
+padding).  A noisy fabric's training forward hands each
 layer its own span of seeds before the layer runs
 (:func:`~repro_torch.models.common.take_fabric_seeds`), so a recomputed
 layer draws the noise of its first run, and a forward draws the seeds a
@@ -35,12 +41,19 @@ from repro_torch.models.common import (init_rmsnorm, rmsnorm,
                                        take_fabric_seeds)
 from repro_torch.models.mlp import apply_mlp, init_mlp
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.rglru import (RgLruCache, init_rglru, rglru_decode,
+                                      rglru_forward)
+from repro_torch.models.ssd import SsdCache, init_ssd, ssd_decode, ssd_forward
 
 ATTN_KINDS = ("attn", "local", "moe")  # blocks that attend, then an FFN
+KINDS = ATTN_KINDS + ("rglru", "ssd")
+RECURRENT_CACHES = (RgLruCache, SsdCache)  # dense per-slot state
+_MLP_CALLS = {"swiglu": 3, "geglu": 3, "gelu": 2, "none": 0}
 
 
 class StackCache(NamedTuple):
-    layers: List[Any]  # one AttnCache / PagedAttnCache per layer
+    layers: List[Any]  # per layer: AttnCache / PagedAttnCache, RgLruCache
+    # or SsdCache
     pos: torch.Tensor  # next position: () after a prefill, (slots,) batched
 
 
@@ -49,12 +62,16 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 
 
 def layer_dense_calls(cfg: ModelConfig, kind: str) -> int:
-    """Fabric ``dense`` calls in one ``kind`` layer's forward: the four
-    attention projections, and the MLP's two or three (a ``moe`` layer's
-    router and experts stay off the fabric, as in the reference)."""
+    """Fabric ``dense`` calls in one ``kind`` layer's forward: an ``ssd``
+    layer's ``in_proj`` and ``out_proj``; an ``rglru`` layer's two branches
+    and ``w_out`` (its gates stay off the fabric), then the MLP's; the four
+    attention projections, then the MLP's (a ``moe`` layer's router and
+    experts stay off the fabric, as in the reference)."""
+    if kind == "ssd":
+        return 2
     if kind == "moe":
         return 4
-    return 4 + (3 if cfg.mlp in ("swiglu", "geglu") else 2)
+    return (3 if kind == "rglru" else 4) + _MLP_CALLS[cfg.mlp]
 
 
 def dense_calls(cfg: ModelConfig) -> int:
@@ -65,26 +82,41 @@ def dense_calls(cfg: ModelConfig) -> int:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise up front for what this slice has not ported."""
-    bad = sorted(set(k for k in layer_kinds(cfg) if k not in ATTN_KINDS))
+    """Raise up front for a block kind the stack does not know, and for
+    ``mlp="none"`` beside a block that runs an MLP (the reference reads the
+    missing MLP's params there)."""
+    kinds = set(layer_kinds(cfg))
+    bad = sorted(kinds - set(KINDS))
     if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {bad} are not ported yet (repro_torch "
-            f"runs {ATTN_KINDS} blocks)")
-    if cfg.mlp == "none":
-        raise NotImplementedError(f"{cfg.name}: mlp='none' is not ported yet")
+        raise ValueError(f"{cfg.name}: unknown block kinds {bad} (the stack "
+                         f"runs {KINDS} blocks)")
+    with_ffn = sorted(kinds - {"ssd"})
+    if cfg.mlp == "none" and with_ffn:
+        raise ValueError(f"{cfg.name}: mlp='none' leaves its {with_ffn} "
+                         "blocks without an MLP")
 
 
 # ------------------------------------------------------------------ init
 def init_block(generator: torch.Generator, cfg: ModelConfig, kind: str, *,
                device=None):
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     d = cfg.d_model
-    p = {"norm1": init_rmsnorm(d, device=device),
-         "attn": init_attention(generator, d, cfg.n_heads, cfg.n_kv_heads,
-                                cfg.hd, qkv_bias=cfg.qkv_bias,
-                                device=device)}
+    p = {"norm1": init_rmsnorm(d, device=device)}
+    if kind in ATTN_KINDS:
+        p["attn"] = init_attention(generator, d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.hd, qkv_bias=cfg.qkv_bias,
+                                   device=device)
+    elif kind == "rglru":
+        p["rglru"] = init_rglru(generator, d, cfg.lru_w, cfg.conv_width,
+                                device=device)
+    elif kind == "ssd":
+        p["ssd"] = init_ssd(generator, d, expand=cfg.ssm_expand,
+                            headdim=cfg.ssm_headdim, state=cfg.ssm_state,
+                            conv_width=cfg.conv_width, device=device)
+        if cfg.post_norm:
+            p["post_norm1"] = init_rmsnorm(d, device=device)
+        return p
+    else:
+        raise ValueError(kind)
     if cfg.post_norm:
         p["post_norm1"] = init_rmsnorm(d, device=device)
         p["post_norm2"] = init_rmsnorm(d, device=device)
@@ -110,40 +142,64 @@ def _imc_kw(cfg: ModelConfig):
     return {} if spec is None else {"spec": spec}
 
 
-def apply_block(params, x, kind: str, cfg: ModelConfig, mode: str,
-                cache=None, pos=None, prefill_extra: int = 0, true_len=None,
-                block_table=None):
-    """Pre-norm residual block. Returns (x, new_cache, aux): ``aux`` holds a
-    ``moe`` block's auxiliary losses, None for the other kinds."""
+def _mix(params, h, kind: str, cfg: ModelConfig, mode: str, cache, pos,
+         prefill_extra: int, true_len, block_table):
+    """The token-mixing half of a block. Returns (y, new_cache); the cache
+    is None in ``train`` mode."""
     imc = _imc_kw(cfg)
+    if kind == "rglru":
+        if mode == "decode":
+            state, conv_state = cache
+            return rglru_decode(params["rglru"], h, state, conv_state, **imc)
+        y, c = rglru_forward(params["rglru"], h, true_len=true_len, **imc)
+        return y, (c if mode == "prefill" else None)
+    if kind == "ssd":
+        kw = dict(expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+                  state=cfg.ssm_state, **imc)
+        if mode == "decode":
+            return ssd_decode(params["ssd"], h, cache, **kw)
+        y, c = ssd_forward(params["ssd"], h, chunk=cfg.ssd_chunk,
+                           true_len=true_len, **kw)
+        return y, (c if mode == "prefill" else None)
     window = cfg.window if kind == "local" else 0
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.hd, rope_theta=cfg.rope_theta, window=window,
               **imc)
-    h = rmsnorm(params["norm1"], x)
     if mode == "train":
-        y = attn_forward(params["attn"], h, q_chunk=cfg.q_chunk,
-                         chunk_remat=cfg.chunk_remat,
-                         native_dtype_dots=cfg.native_dtype_dots,
-                         use_flash=cfg.use_flash_kernel, **kw)
-        new_cache = None
-    elif mode == "prefill":
+        return attn_forward(params["attn"], h, q_chunk=cfg.q_chunk,
+                            chunk_remat=cfg.chunk_remat,
+                            native_dtype_dots=cfg.native_dtype_dots,
+                            use_flash=cfg.use_flash_kernel, **kw), None
+    if mode == "prefill":
         if true_len is not None:
             # ragged (right-padded) admission keeps EVERY row, even for
             # windowed layers: the cache is scattered into the pools
-            cache_len = x.shape[1]
+            cache_len = h.shape[1]
         else:
-            cache_len = window if window else x.shape[1] + prefill_extra
-        y, new_cache = attn_prefill(params["attn"], h, q_chunk=cfg.q_chunk,
-                                    cache_len=cache_len,
-                                    kv_dtype=cfg.kv_dtype, true_len=true_len,
-                                    use_flash=cfg.use_flash_kernel, **kw)
-    else:
-        y, new_cache = attn_decode(params["attn"], h, cache, pos,
-                                   block_table=block_table,
-                                   attn_impl=cfg.attn_impl, **kw)
+            cache_len = window if window else h.shape[1] + prefill_extra
+        return attn_prefill(params["attn"], h, q_chunk=cfg.q_chunk,
+                            cache_len=cache_len, kv_dtype=cfg.kv_dtype,
+                            true_len=true_len,
+                            use_flash=cfg.use_flash_kernel, **kw)
+    return attn_decode(params["attn"], h, cache, pos,
+                       block_table=block_table, attn_impl=cfg.attn_impl,
+                       **kw)
+
+
+def apply_block(params, x, kind: str, cfg: ModelConfig, mode: str,
+                cache=None, pos=None, prefill_extra: int = 0, true_len=None,
+                block_table=None):
+    """Pre-norm residual block. Returns (x, new_cache, aux): ``aux`` holds a
+    ``moe`` block's auxiliary losses, None for the other kinds.  An ``ssd``
+    block returns after its mixer (no MLP, no ``norm2``)."""
+    imc = _imc_kw(cfg)
+    h = rmsnorm(params["norm1"], x)
+    y, new_cache = _mix(params, h, kind, cfg, mode, cache, pos,
+                        prefill_extra, true_len, block_table)
     if cfg.post_norm:
         y = rmsnorm(params["post_norm1"], y)
+    if kind == "ssd":
+        return x + y, new_cache, None
     # The reference compiles the block as one XLA computation, which feeds
     # norm2 the f32 sum of the residual and the attention output without
     # rounding it to x's dtype first; the residual stream itself is rounded.

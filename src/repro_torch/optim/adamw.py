@@ -80,18 +80,33 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(sq[1:], sq[0]))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """min(1, max_norm / max(norm, 1e-12)), float32, on norm's device."""
+    return torch.clamp(_f32(max_norm, norm) / torch.clamp(norm, min=1e-12),
+                       max=1.0)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """``grads`` scaled so that their global norm is at most ``max_norm``,
+    and that norm: (clipped grads, norm), as the reference's.
+    :func:`adamw_update` applies the same scale leaf by leaf instead."""
+    norm = global_norm(grads)
+    scale = _clip_scale(norm, max_norm)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+
+
 def adamw_update(grads, state: AdamWState, cfg: AdamWConfig,
                  param_dtype=torch.bfloat16):
     """Returns (new_params (param_dtype), new_state, metrics).
 
-    Leaf by leaf: a leaf's float32 gradient, its clipped copy and the
-    update's temporaries live only while that leaf is updated, so the
-    step's peak holds the old and the new state and not also two float32
-    copies of every gradient.  Each element takes the reference's ops in
-    its order."""
+    Leaf by leaf: a leaf's float32 gradient and the update's temporaries
+    live only while that leaf is updated, at most two of them at once
+    (written in place into tensors the update allocated), so the step's
+    peak holds the old and the new state and two float32 copies of the
+    largest leaf, not of every gradient.  Each element takes the
+    reference's ops in its order, each op rounded as it rounds it."""
     gnorm = global_norm(grads)
-    scale = torch.clamp(_f32(cfg.grad_clip, gnorm)
-                        / torch.clamp(gnorm, min=1e-12), max=1.0)
+    scale = _clip_scale(gnorm, cfg.grad_clip)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -102,12 +117,26 @@ def adamw_update(grads, state: AdamWState, cfg: AdamWConfig,
     new_m, new_v, new_master, new_params = [], [], [], []
     for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.m),
                           tree_leaves(state.v), tree_leaves(state.master)):
-        g = g.to(torch.float32)
-        g = g * scale.to(g.dtype)
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        p = p - lr * (m / bc1 / (torch.sqrt(v / bc2) + cfg.eps)
-                      + cfg.weight_decay * p)
+        g = g.to(torch.float32, copy=True)
+        g.mul_(scale.to(g.dtype))
+        m = b1 * m
+        m.add_((1 - b1) * g)  # b1 * m + (1 - b1) * g
+        t = (1 - b2) * g
+        t.mul_(g)
+        del g
+        v = b2 * v
+        v.add_(t)  # b2 * v + (1 - b2) * g * g
+        del t
+        d = v / bc2
+        d.sqrt_()
+        d.add_(cfg.eps)
+        u = m / bc1
+        u.div_(d)
+        del d
+        u.add_(cfg.weight_decay * p)
+        u.mul_(lr)
+        p = p - u  # p - lr * (m / bc1 / (sqrt(v / bc2) + eps) + wd * p)
+        del u
         new_m.append(m)
         new_v.append(v)
         new_master.append(p)

@@ -178,9 +178,9 @@ def test_unported_paths_raise_up_front(cfg, params):
     noisy = dataclasses.replace(cfg, fabric=FabricSpec(
         mode="sim", noise=NoiseSpec.calibrated()))
     assert Server(noisy, params, device="cpu").cfg.imc_fabric.noisy
-    ssd = dataclasses.replace(cfg, pattern=("ssd",))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Server(ssd, params, device="cpu")
+    mamba = reduce_config(get_config("mamba2-370m"))
+    server = Server(mamba, init_params(mamba, device="cpu"), device="cpu")
+    assert server.cfg.pattern == ("ssd",) and server.cfg.mlp == "none"
     vision = dataclasses.replace(cfg, frontend="vision", frontend_dim=8)
     with pytest.raises(ValueError, match="token prompts"):
         Server(vision, params, device="cpu")
