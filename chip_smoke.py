@@ -314,10 +314,55 @@ result:
    window) beside SDPA, and ``imc_mac`` over one mamba2 decode step (96
    launches at N = 4384 and 1024) beside ``torch._int_mm``.
 
+11. The fleet (``repro_torch.fleet``): two virtual hosts on the one card
+    (``LocalCoordinator(2, devices=["cuda:0", "cuda:0"])``), one Engine
+    each, full-width ``imc-paper-110m``.
+   a. Phase 6's six prompts, three waves, through a ``FleetServer`` (4
+      slots, paged, buckets 16/32/64), with the fabric off, ``exact`` and
+      ``sim`` + flash, no plain version called: each host's streams equal
+      those of a single-host ``Server`` on the card fed that host's
+      requests, wave by wave (a decode step quantizes its activations per
+      tensor over its batch, so under a fabric a stream depends on its
+      batch mates and the oracle serves each host's batches); with the
+      fabric off every wave's streams also equal those of one ``Server``
+      on the card fed all six requests; round-robin uses both hosts; no
+      host builds or captures after the two warm-up waves; the merged
+      registry counts 18 admissions and 18 TTFT samples.  Each host's
+      launches, counted by name over its own polls, are exactly its decode
+      steps times one replayed decode step's launches plus its prefills
+      times one replayed prefill's of their bucket (one more of each for
+      the warm-up run before a capture): ``paged_attn`` (off),
+      ``imc_mac`` and ``paged_attn`` (``exact``) or ``bitplane_mac``,
+      ``flash_attn`` and ``paged_attn`` (``sim``), and nothing else.
+      Merged TTFT / TPOT p50, each host's decode seconds and the fleet's
+      decode rate are printed beside one Server fed all six requests.
+   b. The straggler drill at 8a's shape (batch 4 x seq 512, ``exact``):
+      ``train_fleet`` for 8 steps with ``ckpt_every=2``, host 1's observed
+      times 5 s slower from step 3: host 1 removed, one shrink equal to
+      ``shrink_after_failure(plan_for_fleet(...))``, ``fault.resumes`` up by
+      one, one train step built per host (none on resume), 144
+      ``imc_mac`` launches a host step and nothing else, and the final
+      params and optimizer state equal a single-host ``train`` of the same
+      8 steps on the card bit for bit.  Each host's step p50 and the card's
+      peak memory are printed.
+   c. ``DistributedCoordinator`` over a one-process NCCL group
+      (``file://`` rendezvous in a temporary directory): one tagged
+      snapshot gathered and merged equal to the local merge, a barrier.
+   d. ``python -m repro_torch.serve_batched`` as a subprocess, single-host
+      and with ``--fleet-hosts 2 --fleet-devices cuda:0,cuda:0 --telemetry
+      --trace-out``: exit 0 and its ``serve_batched OK`` line.
+   Phase 11 runs in a process of its own (``--fleet``).
+
 It prints the ``kernels`` JSON line (each kernel also with its launches
-over phase 9, ``launches_families``, and over phase 10,
-``launches_recurrent``), the card's name and power limit as nvidia-smi
-gives them, and last ``{"ok": true, "device": {...}}``.
+over phase 9, ``launches_families``, over phase 10,
+``launches_recurrent``, and over phase 11's serves and drill,
+``launches_fleet``), the card's name and power limit as nvidia-smi gives
+them, and last ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --fleet
+
+runs phase 11 alone (its four kernels built first) and prints one JSON line
+of its results and the nvidia-smi line.
 
     python3 chip_smoke.py --families [CONFIG ...]
 
@@ -4526,6 +4571,435 @@ def time_recurrent_rows(torch, dev):
     return rows
 
 
+# ---------------------------------------------------------- phase 11
+FLEET_DEVICES = ("cuda:0", "cuda:0")  # two virtual hosts on the one card
+FLEET_WAVES = 3  # 11a: warm-up takes n_hosts waves, the third must not build
+FLEET_DELAY_S = 5.0  # 11b: host 1's observed skew from FLEET_SLOW_FROM on
+FLEET_SLOW_FROM = 3
+
+
+def fleet_serve(torch, dev, cfg, params, prompts, tag, must, never):
+    """11a: phase 6's six prompts, ``FLEET_WAVES`` waves, through a
+    ``FleetServer`` of two hosts on the card, under ``plain_calls``.  Every
+    launch counter is zeroed just before and read just after; each host's
+    polls (its prefills, admissions and decode steps) are also counted
+    apart, and must equal its decode steps and bucketed prefills times the
+    launches of one replayed step of each (``fleet_step_launches``).  Each
+    host's streams must equal those of a single-host ``Server`` on the card
+    fed that host's requests, wave by wave (a decode step quantizes its
+    activations per tensor over its batch: under a fabric a stream depends
+    on its batch mates, so the oracle serves each host's batches); with the
+    fabric off, every wave's streams must also equal those of one Server
+    fed all six requests.  Both hosts must serve; no host may build or
+    capture after the warm-up waves; the merged registry counts every
+    admission and TTFT."""
+    from collections import Counter
+
+    from repro_torch.fleet import FleetEngine, FleetServer, LocalCoordinator
+    from repro_torch.launch.engine import Engine
+    from repro_torch.launch.serve import slo_summary
+    from repro_torch.launch.server import Request, Server
+    from repro_torch.telemetry import Registry
+
+    never = tuple(never) + MACRO_KERNELS
+    kw = dict(slots=4, kv="paged", block_size=16, buckets=(16, 32, 64))
+    fleet = FleetEngine(LocalCoordinator(2, devices=FLEET_DEVICES),
+                        noise_seed=0)
+    fsrv = FleetServer(cfg, params, fleet, **kw)
+    by_host = {h: dict.fromkeys(read_counts(), 0) for h in fsrv.servers}
+    for h, srv in fsrv.servers.items():
+        def counted(_h=h, _poll=srv.poll):
+            before = read_counts()
+            out = _poll()
+            for k, v in read_counts().items():
+                by_host[_h][k] += v - before[k]
+            return out
+
+        srv.poll = counted
+    zero_counts()
+    waves, walls = [], []
+    with plain_calls() as plain:
+        for wave in range(FLEET_WAVES):
+            t0 = time.perf_counter()
+            waves.append([fsrv.submit(Request(p, max_new_tokens=MAX_NEW))
+                          for p in prompts])
+            fsrv.drain()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if wave == fsrv.n_hosts - 1:
+                warm = fleet.traces_by_host()
+    launches = read_counts()
+    if plain.n:
+        raise AssertionError(f"{tag}: the fleet serve called plain "
+                             f"versions {plain.n} times")
+    if fleet.traces_by_host() != warm:
+        raise AssertionError(f"{tag}: builds + captures by host went {warm} "
+                             f"after the warm-up to "
+                             f"{fleet.traces_by_host()}")
+    if not all(h.done and len(h.tokens) == MAX_NEW for w in waves for h in w):
+        raise AssertionError(f"{tag}: not every request finished")
+    if {h.host for h in waves[0]} != set(fsrv.servers):
+        raise AssertionError(f"{tag}: round-robin left a host idle")
+    for h, counts in by_host.items():
+        for name in must:
+            if counts[name] <= 0:
+                raise AssertionError(f"{tag}: host {h} launched {name} no "
+                                     "time")
+        for name in never:
+            if counts[name]:
+                raise AssertionError(f"{tag}: host {h} launched {name} "
+                                     f"{counts[name]} times, it must not")
+    if {k: sum(c[k] for c in by_host.values()) for k in launches} != \
+            launches:
+        raise AssertionError(f"{tag}: the hosts' launches {by_host} do not "
+                             f"add up to the run's {launches}")
+    # each host's launches, exactly: per decode step and per bucketed
+    # prefill, one more of each for the warm-up run before its capture
+    per_step, per_prefill = fleet_step_launches(fleet, fsrv, cfg, prompts)
+    for h, srv in fsrv.servers.items():
+        n_b = Counter(srv._bucket_for(len(x.request.prompt))
+                      for w in waves for x in w if x.host == h)
+        want = {k: (srv.decode_ticks + 1) * per_step[h][k]
+                + sum((n + 1) * per_prefill[h][b][k] for b, n in n_b.items())
+                for k in launches}
+        if by_host[h] != want:
+            raise AssertionError(
+                f"{tag}: host {h} launched {by_host[h]} over "
+                f"{srv.decode_ticks} decode steps and prefills {dict(n_b)}; "
+                f"one replayed decode step launches {per_step[h]}, one "
+                f"prefill by bucket {per_prefill[h]}: expected {want}")
+    merged = fleet.merged_registry().snapshot()
+    n = FLEET_WAVES * len(prompts)
+    if merged["counters"]["server.admitted"] != n or \
+            merged["histograms"]["server.ttft_s"]["count"] != n:
+        raise AssertionError(f"{tag}: the merged registry counts "
+                             f"{merged['counters']['server.admitted']} "
+                             f"admissions, {merged['histograms']['server.ttft_s']['count']}"
+                             f" TTFT samples; expected {n}")
+    slos = fsrv.slos()
+
+    # the oracle: per host, one Server on the card fed that host's requests
+    oracle_s = {}
+    for host in fsrv.servers:
+        srv = Server(cfg, params, engine=Engine(dev, noise_seed=0,
+                                                registry=Registry()), **kw)
+        for w in waves:
+            mine = [h for h in w if h.host == host]
+            got = [srv.submit(Request(h.request.prompt,
+                                      max_new_tokens=MAX_NEW)) for h in mine]
+            srv.drain()
+            if [g.tokens for g in got] != [h.tokens for h in mine]:
+                raise AssertionError(f"{tag}: host {host}'s streams differ "
+                                     "from a single-host Server's fed its "
+                                     "requests")
+        oracle_s[host] = slo_summary(srv)
+    # beside it, one Server fed all six requests each wave: the single
+    # host's decode rate in this run (its last wave, from its graphs) and,
+    # with the fabric off, the whole fleet's oracle
+    whole = cfg.imc_fabric is None
+    single = Server(cfg, params, engine=Engine(dev, noise_seed=0,
+                                               registry=Registry()), **kw)
+    for w in waves:
+        single.registry.reset()
+        single.decode_s = 0.0
+        got = [single.submit(Request(p, max_new_tokens=MAX_NEW))
+               for p in prompts]
+        single.drain()
+        if whole and [g.tokens for g in got] != [h.tokens for h in w]:
+            raise AssertionError(f"{tag}: a wave's streams differ from one "
+                                 "Server's fed all six requests")
+    single_s = slo_summary(single)
+    decode_s = {h: srv.decode_s for h, srv in fsrv.servers.items()}
+    toks = merged["counters"]["server.decode_tokens"]
+    fleet_tok_s = toks / fsrv.total_decode_s()
+    wave_tok_s = len(prompts) * MAX_NEW / walls[-1]
+    log(f"[11a] {tag}: {n} requests over {fsrv.n_hosts} hosts on "
+        f"{', '.join(FLEET_DEVICES)} in {FLEET_WAVES} waves ({' '.join(f'{w:.2f}' for w in walls)} s); "
+        f"merged TTFT p50 {slos['ttft_ms']} ms, TPOT p50 {slos['tpot_ms']} "
+        f"ms (n_hosts {slos['n_hosts']}); decode s by host "
+        f"{ {h: round(s, 4) for h, s in decode_s.items()} }; fleet decode "
+        f"{fleet_tok_s:.1f} tok/s (decode tokens over the hosts' summed "
+        f"decode time), wave {FLEET_WAVES} {wave_tok_s:.1f} tok/s wall; one "
+        f"Server fed all six: TPOT p50 {single_s['tpot_ms']['p50']:.2f} ms, "
+        f"decode {single_s['decode_tokens_per_s']:.1f} tok/s; builds + "
+        f"captures by host {fleet.traces_by_host()}; launches by host "
+        f"{ {h: {k: v for k, v in c.items() if v} for h, c in by_host.items()} }"
+        f", exactly the decode steps' and prefills' (a decode step "
+        f"{ {k: v for k, v in per_step[0].items() if v} }); no plain version"
+        "; each host's streams equal its single-host oracle's"
+        + ("; every wave's equal one Server's fed all six" if whole else ""))
+    return {"launches": launches, "by_host": by_host, "slos": slos,
+            "decode_s": decode_s, "fleet_decode_tok_s": fleet_tok_s,
+            "wave_tok_s": wave_tok_s, "wave_wall_s": walls,
+            "single": single_s, "oracle": oracle_s,
+            "per_decode_step": per_step[0],
+            "traces_by_host": fleet.traces_by_host()}
+
+
+def fleet_step_launches(fleet, fsrv, cfg, prompts):
+    """Each host's launches of one decode step and of one prefill of each
+    bucket its requests took, replayed from the host's own graphs after
+    the serve (a replay adds its capture's launches to the counters);
+    neither may build or capture."""
+    import numpy as np
+
+    traces = fleet.traces_by_host()
+    per_step, per_prefill = {}, {}
+    for h, srv in fsrv.servers.items():
+        eng = fleet.engine(h)
+        zero_counts()
+        eng.decode_step(cfg)(
+            (srv.params, srv.cache),
+            {"token": np.zeros((srv.slots, 1), np.int32),
+             "block_table": srv.alloc.table()}, eng.noise_seed(1 << 20))
+        per_step[h] = read_counts()
+        per_prefill[h] = {}
+        for p in prompts:
+            b = srv._bucket_for(len(p))
+            if b in per_prefill[h] or b not in srv._prefills:
+                continue
+            padded = np.zeros((1, b), np.int32)
+            padded[0, :len(p)] = p
+            zero_counts()
+            eng.prefill_step(cfg, 0, b)(
+                (srv.params,), {"tokens": padded, "length": np.int32(len(p))},
+                eng.noise_seed(0, 0))
+            per_prefill[h][b] = read_counts()
+    if fleet.traces_by_host() != traces:
+        raise AssertionError(f"replaying a step built or captured: "
+                             f"{traces} -> {fleet.traces_by_host()}")
+    return per_step, per_prefill
+
+
+def fleet_train(torch, dev):
+    """11b: the straggler drill at phase 8a's shape (full imc-paper-110m,
+    ``exact``, batch 4 x seq 512), 8 steps with ``ckpt_every=2`` through
+    ``train_fleet`` over two hosts on the card; host 1's observed times
+    carry ``FLEET_DELAY_S`` from step ``FLEET_SLOW_FROM`` on.  A single-host
+    ``train`` of the same steps runs first (it also takes the process's
+    one-time costs off the fleet's first steps).  Gates: host 1 removed, one
+    shrink equal to ``shrink_after_failure(plan_for_fleet(...))``,
+    ``fault.resumes`` up by one, one train step built on each host (none on
+    resume), ``imc_mac`` launched 144 times a step run and nothing else, no
+    plain version, and the final params and optimizer state equal the
+    single host's bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train, train_fleet
+    from repro_torch.models.transformer import dense_calls
+    from repro_torch.runtime.elastic import (plan_for_fleet,
+                                             shrink_after_failure)
+    from repro_torch.telemetry import get_registry
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("imc-paper-110m")
+    kw = dict(steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+              seq_len=TRAIN_SEQ, lr=1e-3, seed=0)
+    t0 = time.perf_counter()
+    whole, whole_hist = train(cfg, device=dev, **kw)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single_leaves = [x.cpu() for x in tree_leaves(whole)]  # off the card:
+    del whole  # the fleet's peak memory is its own
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    resumes0 = get_registry().snapshot()["counters"].get("fault.resumes", 0)
+    try:
+        free_device(torch)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with plain_calls() as plain:
+            state, hist, fleet, loop = train_fleet(
+                cfg, n_hosts=2, ckpt_root=root, ckpt_every=2,
+                devices=FLEET_DEVICES,
+                delay=lambda h, s: FLEET_DELAY_S
+                if (h == 1 and s >= FLEET_SLOW_FROM) else 0.0, **kw)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = read_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    resumes = get_registry().snapshot()["counters"]["fault.resumes"]
+    steps = {h: fleet.engine(h).registry.snapshot()["histograms"][
+        "fleet.step_s"] for h in fleet.engines}
+    ran = sum(s["count"] for s in steps.values())
+    per_step = 2 * dense_calls(cfg)  # remat: each forward twice
+    want_plan = shrink_after_failure(
+        plan_for_fleet(2, 1, model_parallel=1, base_batch=TRAIN_BATCH), 1,
+        model_parallel=1)
+    if fleet.removed != [1] or fleet.active_hosts() != [0]:
+        raise AssertionError(f"[11b] removed {fleet.removed}, active "
+                             f"{fleet.active_hosts()}; expected [1], [0]")
+    if loop.shrinks != [want_plan]:
+        raise AssertionError(f"[11b] shrinks {loop.shrinks}; expected "
+                             f"[{want_plan}]")
+    if resumes != resumes0 + 1:
+        raise AssertionError(f"[11b] fault.resumes {resumes0} -> {resumes}")
+    if fleet.traces_by_host() != {0: 1, 1: 1}:
+        raise AssertionError(f"[11b] train steps built by host "
+                             f"{fleet.traces_by_host()}; expected one each")
+    for name, n in launches.items():
+        want = per_step * ran if name in ("imc_mac", "imc_mac_tiled") else 0
+        if n != want:
+            raise AssertionError(f"[11b] {name} launched {n} times in {ran} "
+                                 f"host steps, want {want}")
+    if plain.n:
+        raise AssertionError(f"[11b] {plain.n} calls of plain versions")
+    if len(hist) <= TRAIN_STEPS or steps[0]["count"] != len(hist):
+        raise AssertionError(f"[11b] the controller ran {len(hist)} steps "
+                             f"({steps[0]['count']} timed); a resume "
+                             f"replays past {TRAIN_STEPS}")
+    if [m["loss"] for m in hist[-2:]] != \
+            [m["loss"] for m in whole_hist[-2:]]:
+        raise AssertionError("[11b] the fleet's last losses differ from the "
+                             "single host's")
+    leaves = tree_leaves(state)
+    if len(leaves) != len(single_leaves) or not all(
+            a.dtype == b.dtype and torch.equal(a.cpu(), b)
+            for a, b in zip(leaves, single_leaves)):
+        raise AssertionError("[11b] the fleet's final params and optimizer "
+                             "state differ from the single host's")
+    p50 = {h: 1e3 * s["p50"] for h, s in steps.items()}
+    log(f"[11b] straggler drill: {TRAIN_STEPS} steps (batch {TRAIN_BATCH} "
+        f"x seq {TRAIN_SEQ}) over 2 hosts on {', '.join(FLEET_DEVICES)} in "
+        f"{wall:.2f} s (one host's train {single_s:.2f} s); host 1 removed "
+        f"after {steps[1]['count']} steps, shrink {loop.shrinks[0]}, "
+        f"fault.resumes +1, the controller ran {len(hist)} steps; step p50 "
+        f"by host {', '.join(f'{h}: {v:.2f} ms' for h, v in p50.items())}"
+        f"; peak device memory of the card (both hosts) "
+        f"{peak / 2**30:.2f} GiB; {launches['imc_mac_tiled']} tensor-core "
+        f"imc_mac launches ({per_step} a host step); final state equal to "
+        "the single host's bit for bit")
+    return {"launches": launches, "removed": fleet.removed,
+            "host_steps": {h: s["count"] for h, s in steps.items()},
+            "controller_steps": len(hist), "step_p50_ms": p50,
+            "peak_gib": peak / 2**30, "wall_s": wall,
+            "single_wall_s": single_s}
+
+
+def fleet_distributed(torch):
+    """11c: a one-process NCCL group (``file://`` rendezvous in a temporary
+    directory) through ``DistributedCoordinator``: one tagged snapshot
+    gathered and merged equal to the local merge, and a barrier."""
+    import shutil
+    import tempfile
+
+    from repro_torch.fleet import DistributedCoordinator, merge_registries
+    from repro_torch.telemetry import Registry
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    t0 = time.perf_counter()
+    try:
+        coord = DistributedCoordinator(
+            initialize=True, coordinator_address=f"file://{tmp}/rendezvous",
+            num_processes=1, process_id=0)
+        try:
+            reg = Registry()
+            for i in range(1, 101):
+                reg.histogram("server.tpot_s").observe(i * 1e-4)
+                reg.counter("server.admitted").inc()
+            merged = merge_registries({0: reg}, coord).snapshot()
+            coord.barrier("chip_smoke")
+            host, count = coord.hosts()[0], coord.process_count
+        finally:
+            coord.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if merged != merge_registries({0: reg}).snapshot() or count != 1 or \
+            host.device.type != "cuda":
+        raise AssertionError(f"[11c] the NCCL gather merged {merged}, "
+                             f"{count} processes, host on {host.device}")
+    wall = time.perf_counter() - t0
+    log(f"[11c] DistributedCoordinator: a one-process NCCL group on "
+        f"{host.device} gathered and merged one tagged snapshot (equal to "
+        f"the local merge) and passed a barrier in {wall:.2f} s")
+    return {"wall_s": wall, "device": str(host.device)}
+
+
+def fleet_cli():
+    """11d: ``python -m repro_torch.serve_batched`` as a subprocess with a
+    time limit, single-host and over two hosts on the card."""
+    import tempfile
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
+                                       if env.get("PYTHONPATH") else []))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        runs = {"single": ([], "serve_batched OK"),
+                "fleet": (["--fleet-hosts", "2", "--fleet-devices",
+                           ",".join(FLEET_DEVICES), "--telemetry", "--trace-out", trace],
+                          "serve_batched OK (fleet)")}
+        for name, (args, ok) in runs.items():
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m",
+                                "repro_torch.serve_batched", *args],
+                               cwd=ROOT, env=env, capture_output=True,
+                               text=True, timeout=300)
+            lines = r.stdout.splitlines()
+            if r.returncode or not lines or lines[-1] != ok:
+                raise AssertionError(
+                    f"[11d] serve_batched {' '.join(args)} exited "
+                    f"{r.returncode}:\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+            out[name] = {"wall_s": time.perf_counter() - t0,
+                         "summary": [ln for ln in lines
+                                     if "tok/s" in ln or "SLOs" in ln]}
+            log(f"[11d] python -m repro_torch.serve_batched {' '.join(args)}"
+                f": exit 0 in {out[name]['wall_s']:.2f} s; "
+                + " | ".join(out[name]["summary"]))
+        with open(trace) as f:
+            if not json.load(f)["traceEvents"]:
+                raise AssertionError("[11d] the fleet's trace holds no span")
+    return out
+
+
+def phase_fleet(torch, dev):
+    """Phase 11: the fleet (module docstring)."""
+    import dataclasses
+
+    from repro_torch.core.fabric import FabricSpec
+
+    t0 = time.perf_counter()
+    cfg, params, prompts = served_model(torch, dev)
+    out = {"off": fleet_serve(
+        torch, dev, dataclasses.replace(cfg, fabric=None, imc_mode="off"),
+        params, prompts, "off", must=("paged_attn",),
+        never=("imc_mac", "bitplane_mac", "flash_attn", "bitplane_mac_noisy",
+               "paged_attn_staged"))}
+    out["exact"] = fleet_serve(
+        torch, dev, cfg, params, prompts, "exact",
+        must=("imc_mac", "paged_attn"),
+        never=("bitplane_mac", "flash_attn", "bitplane_mac_noisy",
+               "paged_attn_staged"))
+    sim_cfg = dataclasses.replace(cfg, fabric=FabricSpec(mode="sim"),
+                                  use_flash_kernel=True)
+    out["sim_flash"] = fleet_serve(
+        torch, dev, sim_cfg, params, prompts, "sim+flash",
+        must=("bitplane_mac", "flash_attn", "paged_attn"),
+        never=("imc_mac", "bitplane_mac_noisy", "flash_attn_simt",
+               "paged_attn_staged"))
+    del params
+    out["train"] = fleet_train(torch, dev)
+    out["distributed"] = fleet_distributed(torch)
+    out["cli"] = fleet_cli()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[11] fleet: {out['wall_s']:.1f} s in all")
+    return out
+
+
+def fleet_launches(fl, kernel):
+    """A kernel's launches over phase 11's fleet serves and drill."""
+    return (fl["off"]["launches"][kernel]
+            + fl["exact"]["launches"][kernel]
+            + fl["sim_flash"]["launches"][kernel]
+            + fl["train"]["launches"][kernel])
+
+
 def main() -> int:
     import torch
 
@@ -4604,6 +5078,14 @@ def main() -> int:
         print(json.dumps({"families": out, "kind": kind}))
         print(smi)
         return 0
+    if sys.argv[1:] == ["--fleet"]:
+        from repro_torch.kernels import build
+
+        log(build.build_all(["imc_mac", "paged_attn", "bitplane_mac",
+                             "flash_attn"]))
+        print(json.dumps({"fleet": phase_fleet(torch, dev), "kind": kind}))
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--rbl-phases"]:
         from repro_torch.kernels import build
 
@@ -4641,6 +5123,9 @@ def main() -> int:
     # runs in its own
     recurrent = own_process(torch, ["--families", *RECURRENT_FAMILIES])[
         "families"]["recurrent"]
+    # phase 11 too: two virtual hosts' Engines, graphs and a process group
+    # start from a fresh CUDA context
+    fleet = own_process(torch, ["--fleet"], timeout=600)["fleet"]
     timed = {name: fn(torch, dev) for name, fn in TIMERS.items()}
     for name, row in time_family_rows(torch, dev).items():
         timed[name]["families"] = row
@@ -4718,6 +5203,7 @@ def main() -> int:
     for k in kernels:
         k["launches_families"] = family_launches(families, k["name"])
         k["launches_recurrent"] = recurrent_launches(recurrent, k["name"])
+        k["launches_fleet"] = fleet_launches(fleet, k["name"])
         if k["name"] in fam_rows:  # the phase-9 row's own path
             name, path, key = fam_rows[k["name"]]
             timed[k["name"]]["families"]["launches"] = \
@@ -4779,7 +5265,8 @@ def main() -> int:
         "ms")
     log(f"[summary] build {build_s:.2f} s; served {json.dumps(served)}; "
         f"macro {json.dumps(macro)}; trained {json.dumps(trained)}; "
-        f"families {json.dumps(families)}; recurrent {json.dumps(recurrent)}")
+        f"families {json.dumps(families)}; recurrent {json.dumps(recurrent)}"
+        f"; fleet {json.dumps(fleet)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

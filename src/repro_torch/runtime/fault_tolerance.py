@@ -7,10 +7,11 @@ Wraps any (state, batch, step) -> state step function with:
   * automatic resume from the latest committed step after a crash,
   * a failure-injection hook (tests and chaos drills) that raises at chosen
     steps to prove recovery restores bit-exact state and data cursor,
-  * the straggler monitor, fed the loop's own wall time as host 0 (the
-    reference's per-host ``host_times_fn`` and ``on_straggler`` hooks and
-    its ``metrics_cb`` serve its virtual fleet and come with the fleet's
-    port),
+  * straggler monitor integration — by default the loop feeds its own wall
+    time as host 0; a fleet loop overrides ``host_times_fn`` so the monitor
+    sees REAL per-host entries, and ``on_straggler`` escalates newly flagged
+    hosts to the supervisor (the fleet loop raises there, shrinks the plan,
+    and re-enters ``run`` — which resumes from the latest checkpoint),
   * telemetry: ``fault.failures`` / ``fault.resumes`` counters and a
     ``fault.step_s`` histogram in the global registry.
 
@@ -20,7 +21,7 @@ Wraps any (state, batch, step) -> state step function with:
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.checkpoint.checkpoint import (AsyncCheckpointer, latest_step,
                                                restore)
@@ -41,6 +42,13 @@ class FaultTolerantLoop:
     keep_last: int = 3
     fail_at: Optional[set] = None  # steps at which to inject a crash
     monitor: StragglerMonitor = field(default_factory=StragglerMonitor)
+    # dt -> {host: wall_s}: what the monitor is fed each step.  None keeps
+    # the single-controller default ({0: dt}); fleet loops supply the real
+    # per-host times their step just measured ({} feeds nothing).
+    host_times_fn: Optional[Callable[[float], Dict[int, float]]] = None
+    # called with hosts the monitor NEWLY flagged this step (checkpoints are
+    # flushed first, so the callback may raise to force a resume-from-ckpt)
+    on_straggler: Optional[Callable[[List[int]], None]] = None
 
     def __post_init__(self):
         self._ckpt = AsyncCheckpointer(self.ckpt_root,
@@ -74,7 +82,11 @@ class FaultTolerantLoop:
             state = self.step_fn(state, batch, step)
             dt = clock() - t0
             reg.histogram("fault.step_s").observe(dt)
-            self.monitor.record_step({0: dt})
+            times = self.host_times_fn(dt) if self.host_times_fn else {0: dt}
+            flagged = self.monitor.record_step(times) if times else []
+            if flagged and self.on_straggler:
+                self._ckpt.wait()  # flush so the callback can safely resume
+                self.on_straggler(flagged)
             if (step + 1) % self.ckpt_every == 0 or step == n_steps - 1:
                 self._ckpt.save_async(step, state)
         self._ckpt.wait()

@@ -200,10 +200,6 @@ def test_noise_seed_and_unported_parts():
     assert eng.noise_seed(3, 1) == mix_seed(7, 3, 1)
     assert eng.noise_seed(3, 1) != Engine("cpu", noise_seed=8).noise_seed(3, 1)
     assert not eng.graphs, "the CPU has no CUDA graphs"
-    from repro_torch.launch.train import train_fleet
-
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_fleet(get_config("imc-paper-110m"), n_hosts=2)
 
 
 # ------------------------------------------- engine vs today's eager serving

@@ -346,9 +346,11 @@ def test_train_resumes_bit_for_bit(tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_trainer_entry_points(capsys):
+def test_trainer_entry_points(capsys, tmp_path):
     """``python -m repro_torch.launch.train`` and ``train_tiny_lm`` on the
-    CPU; the loss falls; the fleet is not ported yet."""
+    CPU; the loss falls; a fleet whose devices are not named asks for the
+    card (no fallback to the CPU; ``tests/test_torch_fleet.py`` runs the
+    fleet over CPU hosts)."""
     train_main(["--arch", "imc-paper-110m", "--reduce", "--device", "cpu",
                 "--steps", "3", "--batch", "2", "--seq", "16"])
     assert "final loss" in capsys.readouterr().out
@@ -357,7 +359,9 @@ def test_trainer_entry_points(capsys):
     assert train_tiny_lm.main(["--small", "--device", "cpu", "--steps",
                                "12", "--batch", "4", "--seq", "32"]) == 0
     assert "train_tiny_lm OK" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_main(["--reduce", "--device", "cpu", "--fleet-hosts", "2"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_fleet(treduce(tget("imc-paper-110m")), n_hosts=2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_main(["--reduce", "--device", "cpu", "--fleet-hosts", "2"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_fleet(treduce(tget("imc-paper-110m")), n_hosts=2, steps=1,
+                        global_batch=2, seq_len=16, ckpt_root=str(tmp_path))
