@@ -149,13 +149,15 @@ result:
       and on no served path.
    e. ``qwen2.5-3b`` at full width (d_model 2048, GQA 16 heads over 2 KV
       heads at hd 128, SwiGLU, QKV bias, tied embeddings), its depth cut to
-      ``QWEN_LAYERS`` (2 of 36), random weights from seed 0, served as
-      above in ``exact`` and in ``sim`` with flash prefill: the same turns,
-      captures and drill; 14 split-K ``imc_mac`` (or ``bitplane_mac``)
-      and 2 split ``paged_attn`` launches per decode step, 2 tensor-core
-      ``flash_attn`` launches per prefill; ``sim`` prefill logits equal to
-      ``exact``'s; card logits within 2e-2 of the largest |logit| of the
-      CPU's plain path (with flash attention for ``sim`` + flash).
+      2 of 36 (``FAMILY_LAYERS``), random weights from seed 0, served by
+      ``serve_family`` as 9a serves its configs, in ``exact`` and in
+      ``sim`` with flash prefill: the same turns, captures and drill; 14
+      split-K ``imc_mac`` (or ``bitplane_mac``) and 2 split ``paged_attn``
+      launches per decode step, 14 tensor-core ``imc_mac`` per bucket-32/64
+      prefill, 2 tensor-core ``flash_attn`` launches per prefill; ``sim``
+      prefill logits equal to ``exact``'s; card logits within 2e-2 of the
+      largest |logit| of the CPU's plain path (with flash attention for
+      ``sim`` + flash), end to end and layer by layer.
 7. Each kernel timed at the main path's shapes (CUDA events), beside its
    bound on an H100 SXM (3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16; for
    ``bitplane_mac_noisy`` one Philox4x32-10 for every element a draw can
@@ -261,6 +263,9 @@ result:
       no farther from a float64 witness's than 1.5x the CPU's loss (or
       within 1e-5 of it), each gradient leaf within 5e-2 relative L2 and
       within 1.5x the CPU's distance from the witness.
+   Phase 9 runs in a process of its own (``--families`` with its seven
+   configs), as phases 10-12 do: late in the main process the profiler
+   has missed one kernel of a replayed graph (in phases 9 and 10).
    Phases 3 and 5 here also take phase 10's geometry: rep 16 at hd 256
    (recurrentgemma's 16 heads over one KV head: the staged ``paged_attn``
    kernel, the CUDA-core ``flash_attn`` one), windows 2048 and S 2100
@@ -353,11 +358,60 @@ result:
       --trace-out``: exit 0 and its ``serve_batched OK`` line.
    Phase 11 runs in a process of its own (``--fleet``).
 
-It prints the ``kernels`` JSON line (each kernel also with its launches
-over phase 9, ``launches_families``, over phase 10,
-``launches_recurrent``, and over phase 11's serves and drill,
-``launches_fleet``), the card's name and power limit as nvidia-smi gives
+12. The autotuner (``repro_torch.kernels.autotune``), in a process of its
+    own (``--autotune``), aimed at under 60 s:
+   a. Every candidate of ``SPACES`` for each tuned kernel (``imc_mac``,
+      ``imc_mac_dequant``, ``bitplane_mac``, ``bitplane_mac_noisy``,
+      ``rbl_decode_mac``): its C plan equal to the Python twin's at phase
+      2's, 4's and 4c's shapes and the standard cells (``imc_mac_plan``,
+      ``rbl_decode_mac_plan``, ``bitplane_plan``); at every standard cell
+      (``STANDARD_CELLS``) its output bit for bit the default geometry's
+      and the plain version's (the noisy kernel under calibrated mismatch
+      and one seed).
+   b. ``tune_standard(smoke=True)`` into a fresh cache
+      (``REPRO_TORCH_AUTOTUNE_CACHE`` in a temporary directory): each
+      cell's winner, its µs and the default geometry's µs printed; the cold
+      run counts one ``autotune.trials`` per candidate of every cell, a
+      warm second run none.
+   c. The committed ``tuned.json``: every entry of this card's backend
+      (``cuda-sm90``) a geometry of ``SPACES``; a lookup at every standard
+      cell resolves from it without a trial.
+   d. An ``Engine`` serving imc-paper-110m ``exact`` (phase 6's requests)
+      from a copy of the committed cache, two waves, one ``store()`` of a
+      non-default plan for the decode step's 768 x 768 projections, two
+      more waves: after the store the decode step is a new step captured
+      once (the prefill and admission steps are rebuilt too: the geometry
+      token is global, so the wave captures what the first one did), the
+      streams and launches are the earlier waves', and the further wave
+      builds and captures nothing.
+   Every served phase before it serves from the committed cache.
+
+The main process prints ``[time] phase <n>: <s> s`` after each phase and
+their sum at the end.  It prints the ``kernels`` JSON line (each kernel also
+with its launches over phase 9, ``launches_families``, over phase 10,
+``launches_recurrent``, over phase 11's serves and drill,
+``launches_fleet``, and its phase 12 results, ``autotune``: candidates
+checked, each smoke cell's winner and default µs, the committed geometry at
+each standard cell; None for the attention kernels, which have nothing to
+tune at run time), the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --autotune
+
+runs phase 12 alone and prints one JSON line and the nvidia-smi line.
+
+    python3 chip_smoke.py --tune OUT.json
+
+runs ``tune_standard(smoke=False)`` into a fresh cache at OUT.json stamped
+with the nvidia-smi line (``measured_on``): how the committed ``tuned.json``
+is made (copy OUT.json over it).
+
+    python3 chip_smoke.py --tuned-turns
+
+serves phase 6's three paths from the committed cache and from an empty
+one (the defaults) in turns (committed, empty, empty, committed), each turn
+through fresh graph Engines, and prints one JSON line of graph TPOT p50 per
+path and cache, and the nvidia-smi line.
 
     python3 chip_smoke.py --fleet
 
@@ -453,7 +507,6 @@ MACRO_KERNELS = ("imc_mac_dequant", "rbl_decode_mac")  # no served path
 MACRO_PAIRS = 1 << 22  # uint8 operand pairs of the word-logic checks
 SWEEP_SHIFTS = (0.0, 0.01, 0.05, 0.1, 0.2)  # volts: 6d's threshold study
 MAX_NEW = 16
-QWEN_LAYERS = 2  # 6e: qwen2.5-3b's depth cut from 36, its widths kept
 # bitplane_mac's served-case kernel: every M in {1, 3, 4, 5, 9, 64}, K in
 # {8, 100, 1030, 3072} and N in {1, 31, 129, 768} appears
 R8_SHAPES = ((1, 8, 1), (3, 100, 31), (4, 1030, 129), (5, 3072, 768),
@@ -1595,85 +1648,6 @@ def log_turns(tag, res):
                      f"{fmt(slo['tpot_ms'].get('p95'))} ms, "
                      f"{fmt(slo['decode_tokens_per_s'])} tok/s")
     log(f"[6] {tag} in turns: " + "; ".join(parts))
-
-
-def phase_qwen(torch, dev):
-    """6e: ``qwen2.5-3b`` at full width (d_model 2048, 16 heads over 2 KV
-    heads, hd 128, SwiGLU d_ff 11008, QKV bias, tied embeddings over a
-    151936 vocabulary), depth cut to ``QWEN_LAYERS`` layers, random weights
-    from seed 0, served through the Engine in ``exact`` and in ``sim`` with
-    flash prefill (``serve_path``'s turns, captures and drill); gated as
-    the demonstrator is: launches per step, ``sim`` prefill logits equal to
-    ``exact``'s, card logits within ``LOGIT_RTOL`` of the CPU's plain
-    path."""
-    import dataclasses
-
-    import numpy as np
-
-    from repro_torch.configs import get_config
-    from repro_torch.core.fabric import FabricSpec
-    from repro_torch.models.model import init_params, prefill
-
-    base = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=QWEN_LAYERS)
-    exact_cfg = dataclasses.replace(base, fabric=FabricSpec(mode="exact"))
-    sim_cfg = dataclasses.replace(base, fabric=FabricSpec(mode="sim"),
-                                  use_flash_kernel=True)
-    params = init_params(exact_cfg, torch.Generator(device=dev).manual_seed(
-        0), dev)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, base.vocab_size, n).astype(np.int32)
-               for n in PROMPTS]
-    n, proj = base.n_layers, 7 * base.n_layers  # q k v o gate up down
-    exact, card = serve_path(torch, dev, exact_cfg, params, prompts,
-                             "qwen exact", must=("imc_mac", "paged_attn"),
-                             never=("bitplane_mac", "flash_attn",
-                                    "bitplane_mac_noisy",
-                                    "paged_attn_staged"))
-    log_turns("qwen exact", exact)
-    step = exact["per_decode_step"]
-    if step["imc_mac_split"] != proj or step["imc_mac_tiled"] or \
-            step["paged_attn_split"] != n:
-        raise AssertionError(f"qwen exact: {step} per decode step; expected "
-                             f"{proj} split-K imc_mac and {n} split "
-                             "paged_attn launches")
-    sim, sim_flash = serve_path(
-        torch, dev, sim_cfg, params, prompts, "qwen sim+flash",
-        must=("bitplane_mac", "flash_attn", "paged_attn"),
-        never=("imc_mac", "bitplane_mac_noisy", "flash_attn_simt",
-               "paged_attn_staged"))
-    log_turns("qwen sim+flash", sim)
-    if sim["per_decode_step"]["bitplane_mac"] != proj or \
-            sim["per_decode_step"]["paged_attn_split"] != n or \
-            sim["per_prefill"]["flash_attn_tc"] != n:
-        raise AssertionError(f"qwen sim+flash: {sim['per_decode_step']} per "
-                             f"decode step, {sim['per_prefill']} per prefill")
-    sim_dense = first_prefill(torch, dev, params, dataclasses.replace(
-        sim_cfg, use_flash_kernel=False), prompts[0])
-    if not torch.equal(sim_dense, card):
-        raise AssertionError("qwen: sim prefill logits differ from exact's "
-                             "on the card")
-    with torch.inference_mode():
-        padded = torch.zeros((1, 16), dtype=torch.int32)
-        padded[0, :PROMPTS[0]] = torch.from_numpy(prompts[0])
-        batch = {"tokens": padded, "length": PROMPTS[0]}
-        cpu_params = _to_cpu(params)
-        plain, _ = prefill(cpu_params, batch, exact_cfg)
-        plain_flash, _ = prefill(cpu_params, batch, dataclasses.replace(
-            exact_cfg, use_flash_kernel=True))
-    scale = plain.abs().max().item()
-    err = (card - plain).abs().max().item()
-    flash_err = (sim_flash - plain_flash).abs().max().item()
-    if not (err <= LOGIT_RTOL * scale and flash_err <= LOGIT_RTOL * scale):
-        raise AssertionError(f"qwen prefill logits card vs CPU: max err "
-                             f"{err} (exact), {flash_err} (sim+flash) > "
-                             f"{LOGIT_RTOL} x {scale}")
-    log(f"[6e] qwen2.5-3b ({n} of 36 layers, full width): sim prefill "
-        f"logits bit-identical to exact; card vs CPU plain path max err "
-        f"{err:.3g} (exact), {flash_err:.3g} (sim+flash), largest |logit| "
-        f"{scale:.3g}")
-    exact.update(logit_err=err, logit_scale=scale)
-    sim.update(logit_err=flash_err, logit_scale=scale)
-    return {"exact": exact, "sim_flash": sim}
 
 
 def phase_server(torch, dev):
@@ -2875,6 +2849,7 @@ def rbl_phases(torch, dev):
     volt = physics_voltages(8, dev)
     sweep_thr = [thr + dv for dv in SWEEP_SHIFTS]
     outs = {}
+    geom = (8, 264)  # the default plan's (cluster, target)
 
     def call(fn, a, w, t):
         (m, k), n = a.shape, w.shape[1]
@@ -2883,7 +2858,7 @@ def rbl_phases(torch, dev):
         stream, idx = build.stream_and_device(a)
         build.check_launch("rbl_phases", fn(
             a.data_ptr(), w.data_ptr(), t.data_ptr(), volt.data_ptr(),
-            out.data_ptr(), m, n, k, 8, stream, idx))
+            out.data_ptr(), m, n, k, 8, *geom, stream, idx))
 
     def step(fn, sets):
         for lw in sets:
@@ -3282,12 +3257,14 @@ TIMERS = {"imc_mac": time_imc_mac, "paged_attn": time_paged_attn,
 FAMILY_LAYERS = {"gemma3-12b": 6, "deepseek-coder-33b": 2, "qwen2-72b": 2,
                  "qwen3-moe-30b-a3b": 2, "dbrx-132b": 2,
                  "llava-next-mistral-7b": 2, "musicgen-large": 2,
-                 "mamba2-370m": 24, "recurrentgemma-9b": 5}
+                 "mamba2-370m": 24, "recurrentgemma-9b": 5,
+                 "qwen2.5-3b": 2}  # 6e: 2 of 36 layers
 SERVED_FAMILIES = ("gemma3-12b", "deepseek-coder-33b", "qwen2-72b",
                    "qwen3-moe-30b-a3b", "dbrx-132b")  # 9a: token configs
 RECURRENT_FAMILIES = ("mamba2-370m", "recurrentgemma-9b")  # 10a-10c
 # 9a/10a: sim (with flash prefill where a layer attends) too, and noisy sim
-SIM_FAMILIES = ("gemma3-12b", "qwen3-moe-30b-a3b") + RECURRENT_FAMILIES
+SIM_FAMILIES = ("gemma3-12b", "qwen3-moe-30b-a3b", "qwen2.5-3b") + \
+    RECURRENT_FAMILIES
 NOISY_FAMILIES = ("qwen3-moe-30b-a3b", "mamba2-370m")
 FRONTEND_FAMILIES = ("llava-next-mistral-7b", "musicgen-large")  # 9c
 # 9b/10c: (prompt, new tokens, bucket) of one request past the window
@@ -3327,8 +3304,10 @@ def free_device(torch):
 
 
 def phase_of(name) -> str:
-    """The phase that serves ``name``: 10 for the recurrent families, else
-    9."""
+    """The phase that serves ``name``: 10 for the recurrent families, 6 for
+    qwen2.5-3b (6e), else 9."""
+    if name == "qwen2.5-3b":
+        return "6"
     return "10" if name in RECURRENT_FAMILIES else "9"
 
 
@@ -3467,8 +3446,8 @@ def check_counts(tag, counts, want):
 
 
 def serve_family(torch, dev, name):
-    """9a / 10a: ``name`` served through ``Server`` + ``Engine`` as phase 6
-    serves (``serve_path``): ``exact``; ``sim`` (with flash prefill where
+    """6e / 9a / 10a: ``name`` served through ``Server`` + ``Engine`` as
+    phase 6 serves (``serve_path``): ``exact``; ``sim`` (with flash prefill where
     a layer attends) and noisy ``sim`` where asked.  Launches per decode
     step and per bucketed prefill asserted by kernel name: ``imc_mac`` (or
     ``bitplane_mac``) once per fabric projection (``dense_calls``), the
@@ -3484,6 +3463,7 @@ def serve_family(torch, dev, name):
     from repro_torch.models.transformer import dense_calls
 
     ph = phase_of(name)
+    sa = "6e" if ph == "6" else f"{ph}a"  # the serve's tag
     t0 = time.perf_counter()
     cfg, params, n_params = family_model(torch, dev, name)
     rng = np.random.default_rng(0)
@@ -3523,7 +3503,7 @@ def serve_family(torch, dev, name):
                                           params_cpu, batch)
     exact.update(logit_err=err, logit_scale=scale, cpu_prefill_s=cpu_s,
                  layer_errs=layer_errs, head_err=head_err)
-    log(f"[{ph}a] {name} exact: prefill logits card vs CPU plain path max "
+    log(f"[{sa}] {name} exact: prefill logits card vs CPU plain path max "
         f"err {err:.3g} (largest |logit| {scale:.3g}, CPU {cpu_s:.1f} s); "
         f"layer by layer from the card's inputs {fmt_errs(layer_errs)}, "
         f"head {head_err:.2e} (of each output's largest magnitude); "
@@ -3571,7 +3551,7 @@ def serve_family(torch, dev, name):
                                             batch)
         sim.update(logit_err=ferr, logit_scale=fscale, layer_errs=flayers,
                    head_err=fhead)
-        log(f"[{ph}a] {stag}: sim prefill logits equal exact's bit for bit"
+        log(f"[{sa}] {stag}: sim prefill logits equal exact's bit for bit"
             + ("" if ferr is None else
                f"; card vs CPU plain path (flash) max err {ferr:.3g} "
                f"(largest |logit| {fscale:.3g})")
@@ -3603,7 +3583,7 @@ def serve_family(torch, dev, name):
             torch, dev, cfg, params, *WINDOW_REQUESTS[name], gate=False)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / GiB
     out["wall_s"] = time.perf_counter() - t0
-    log(f"[{ph}a {name}] {out['wall_s']:.1f} s, peak device memory "
+    log(f"[{sa} {name}] {out['wall_s']:.1f} s, peak device memory "
         f"{out['peak_gib']:.2f} GiB")
     del params, params_cpu
     free_device(torch)
@@ -5000,6 +4980,406 @@ def fleet_launches(fl, kernel):
             + fl["train"]["launches"][kernel])
 
 
+# ------------------------------------------------------------- phase 12
+# 12d's store: a split-K plan for the decode step's 768 x 768 projections
+# other than the default's (24 splits of 32 K-rows where the default makes
+# 48 of 16)
+AUTOTUNE_STORE = ("imc_mac", {"m": 4, "k": 768, "n": 768},
+                  {"sk_gmax": 2, "sk_target": 132})
+# 12a: bitplane_mac's phase-4 shapes, for the C plan against its twin
+BITPLANE_PLAN_SHAPES = [(m, k, n, rows) for m in (1, 3, 4, 5, 9, 64)
+                        for k in (8, 100, 1030, 3072)
+                        for n in (1, 31, 129, 768) for rows in (8, 16)]
+
+
+def autotune_operands(torch, dev, kernel, shapes):
+    """(call(geometry), plain()) of ``kernel`` on operands of ``shapes``
+    drawn from seed 12 (``bitplane_mac_noisy`` under calibrated mismatch
+    and one seed-table row)."""
+    from repro_torch.core.fabric import NoiseSpec
+    from repro_torch.kernels.bitplane_mac import ops as bp
+    from repro_torch.kernels.common import seed_row
+    from repro_torch.kernels.imc_mac import ops as imc
+    from repro_torch.kernels.rbl_decode import ops as rbl
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    m, k, n = shapes["m"], shapes["k"], shapes["n"]
+
+    def codes(lo, hi, *shape, dtype=torch.uint8):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    if kernel in ("imc_mac", "imc_mac_dequant"):
+        qa = codes(-128, 128, m, k, dtype=torch.int8)
+        qw = codes(-128, 128, k, n, dtype=torch.int8)
+        if kernel == "imc_mac":
+            return (lambda geom: imc.imc_mac(qa, qw, geometry=geom),
+                    lambda: imc.imc_mac_torch(qa, qw))
+        sa = torch.rand((1,), generator=g, device=dev) * 0.01
+        sw = torch.rand((n,), generator=g, device=dev) * 0.099 + 0.001
+        return (lambda geom: imc.imc_mac_dequant(qa, qw, sa, sw,
+                                                 geometry=geom),
+                lambda: imc.imc_mac_dequant_torch(qa, qw, sa, sw))
+    if kernel == "rbl_decode_mac":
+        a, w = codes(0, 2, m, k), codes(0, 2, k, n)
+        rows = shapes["rows"]
+        return (lambda geom: rbl.rbl_decode_mac(a, w, rows=rows,
+                                                geometry=geom),
+                lambda: rbl.rbl_decode_mac_torch(a, w, rows=rows))
+    kw = dict(bits_a=shapes["ba"], bits_w=shapes["bw"], rows=shapes["rows"])
+    ua, uw = codes(0, 1 << kw["bits_a"], m, k), codes(0, 1 << kw["bits_w"],
+                                                     k, n)
+    if kernel == "bitplane_mac":
+        return (lambda geom: bp.bitplane_mac(ua, uw, geometry=geom, **kw),
+                lambda: bp.bitplane_mac_torch(ua, uw, **kw))
+    seed = seed_row(NOISE_SEED, dev)
+    sigma = NoiseSpec.calibrated().mismatch_sigma
+    return (lambda geom: bp.bitplane_mac_noisy(
+        ua, uw, seed, mismatch_sigma=sigma, geometry=geom, **kw),
+        lambda: bp.bitplane_mac_noisy_torch(ua, uw, seed, mismatch_sigma=sigma,
+                                            **kw))
+
+
+def autotune_candidates(torch, dev):
+    """12a: every candidate of every tuned kernel: its C plan equal to the
+    Python twin's at phase 2's, 4's and 4c's shapes and the standard cells;
+    at each standard cell its output bit for bit the default geometry's and
+    the plain version's.  Returns (plans checked, outputs checked per
+    kernel)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.bitplane_mac import ops as bp
+    from repro_torch.kernels.imc_mac import ops as imc
+    from repro_torch.kernels.rbl_decode import ops as rbl
+
+    cells = autotune.STANDARD_CELLS
+    plans = 0
+    imc_shapes = {(m, k, n) for m, k, n, _, _ in SPLIT_CASES + MMA_CASES}
+    imc_shapes |= {(s["m"], s["k"], s["n"]) for kn, s in cells
+                   if kn.startswith("imc_mac")}
+    for m, k, n in sorted(imc_shapes):
+        for cand in autotune.candidates("imc_mac", {"m": m, "k": k, "n": n}):
+            if imc.compiled_plan(m, n, k, cand) != \
+                    imc.imc_mac_plan(m, n, k, cand):
+                raise AssertionError(
+                    f"imc_mac_plan{(m, n, k)} under {cand}: C "
+                    f"{imc.compiled_plan(m, n, k, cand)} != Python "
+                    f"{imc.imc_mac_plan(m, n, k, cand)}")
+            plans += 1
+    rbl_shapes = {(m, k, n, rows) for m, k, n, rows, _ in RBL_EDGE_CASES}
+    rbl_shapes |= {(s["m"], s["k"], s["n"], s["rows"]) for kn, s in cells
+                   if kn == "rbl_decode_mac"}
+    for m, k, n, rows in sorted(rbl_shapes):
+        for cand in autotune.SPACES["rbl_decode_mac"]:
+            if rbl.compiled_plan(m, n, k, rows, cand) != \
+                    rbl.rbl_decode_mac_plan(m, n, k, rows, cand):
+                raise AssertionError(
+                    f"rbl_decode_mac_plan{(m, n, k, rows)} under {cand}: C "
+                    f"{rbl.compiled_plan(m, n, k, rows, cand)} != Python "
+                    f"{rbl.rbl_decode_mac_plan(m, n, k, rows, cand)}")
+            plans += 1
+    bp_shapes = set(BITPLANE_PLAN_SHAPES) | {
+        (s["m"], s["k"], s["n"], s["rows"]) for kn, s in cells
+        if kn.startswith("bitplane")}
+    for m, k, n, rows in sorted(bp_shapes):
+        for kernel, granule in (("bitplane_mac", 8), ("bitplane_mac_noisy", 1)):
+            for cand in autotune.SPACES[kernel]:
+                args = (m, n, k, rows, cand["target"], granule)
+                if bp.compiled_plan(*args) != bp.bitplane_plan(*args):
+                    raise AssertionError(
+                        f"bitplane_plan{args}: C {bp.compiled_plan(*args)} "
+                        f"!= Python {bp.bitplane_plan(*args)}")
+                plans += 1
+    outputs = {}
+    for kernel, shapes in cells:
+        call, plain = autotune_operands(torch, dev, kernel, shapes)
+        want = plain()
+        default = call(None)
+        if not torch.equal(default, want):
+            raise AssertionError(f"[12a] {kernel} at {shapes}: the default "
+                                 "geometry differs from the plain version")
+        for cand in autotune.candidates(kernel, shapes):
+            got = call(cand)
+            if not (torch.equal(got, default) and torch.equal(got, want)):
+                raise AssertionError(
+                    f"[12a] {kernel} at {shapes} under {cand}: not bit for "
+                    "bit the default geometry's and the plain version's")
+            outputs[kernel] = outputs.get(kernel, 0) + 1
+        torch.cuda.synchronize()
+    log(f"[12a] {plans} C plans equal their Python twins under every "
+        f"candidate; outputs bit for bit the default's and the plain "
+        f"version's at {len(cells)} standard cells: {outputs}")
+    return plans, outputs
+
+
+def autotune_tuning(torch, dev, tmp):
+    """12b: ``tune_standard(smoke=True)`` into a fresh cache: the cold run
+    counts one trial per candidate of every cell, a warm second run none."""
+    from repro_torch.kernels import autotune
+    from repro_torch.telemetry import Registry
+
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(tmp, "smoke.json")
+    autotune.set_cache(None)
+    reg = Registry()
+    t0 = time.perf_counter()
+    rows = autotune.tune_standard(smoke=True, registry=reg, device=dev)
+    cold_s = time.perf_counter() - t0
+    cold = reg.counter("autotune.trials").value
+    want = sum(len(autotune.candidates(k, s))
+               for k, s in autotune.STANDARD_CELLS)
+    if cold != want or reg.histogram("autotune.trial_us").count != want:
+        raise AssertionError(f"[12b] the cold run counted {cold} trials, "
+                             f"expected {want} (the candidates of every cell)")
+    for r in rows:
+        log(f"[12b] {r['kernel']} {r['bucket']}: winner {r['geometry']} "
+            f"{r['us']:.3f} us, default {r['default_us']:.3f} us "
+            f"({r['trials']} trials)")
+    warm = autotune.tune_standard(smoke=True, registry=reg, device=dev)
+    if reg.counter("autotune.trials").value != cold or \
+            any(r["trials"] for r in warm) or \
+            [r["geometry"] for r in warm] != [r["geometry"] for r in rows]:
+        raise AssertionError("[12b] the warm run ran trials or resolved "
+                             "other winners")
+    del os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+    autotune.set_cache(None)
+    log(f"[12b] tune_standard(smoke=True): {cold} trials cold in "
+        f"{cold_s:.2f} s, 0 warm")
+    return {"rows": rows, "trials_cold": cold, "trials_warm": 0,
+            "cold_s": cold_s}
+
+
+def autotune_committed(torch, dev):
+    """12c: the committed ``tuned.json``: every entry of this card's
+    backend names a geometry of ``SPACES``, and a lookup at every standard
+    cell resolves from it without a trial."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.autotune import tuner
+    from repro_torch.telemetry import get_registry
+
+    cache = autotune.get_cache()
+    if cache.path != tuner._COMMITTED:
+        raise AssertionError(f"[12c] the process cache is {cache.path}")
+    backend = autotune.backend_key(dev)
+    ours = {k: e for k, e in cache.entries.items()
+            if k.endswith("|" + backend)}
+    for key, e in ours.items():
+        kernel = key.split("|")[0]
+        if e["geometry"] not in [{**autotune.DEFAULTS[kernel], **c}
+                                 for c in autotune.SPACES[kernel]]:
+            raise AssertionError(f"[12c] {key}: {e['geometry']} is no "
+                                 "candidate of SPACES")
+    trials = get_registry().counter("autotune.trials").value
+    resolved = {}
+    for kernel, shapes in autotune.STANDARD_CELLS:
+        dtype = autotune.KERNEL_DTYPES[kernel]
+        bucket = autotune.shape_bucket(shapes)
+        hit = cache.lookup(kernel, bucket, dtype, backend)
+        if hit is None:
+            raise AssertionError(f"[12c] tuned.json has no {backend} entry "
+                                 f"for {kernel} at {bucket}")
+        got = autotune.lookup(kernel, shapes, dtype=dtype, device=dev)
+        if got != hit:
+            raise AssertionError(f"[12c] {kernel} at {bucket} resolves "
+                                 f"{got}, its entry is {hit}")
+        resolved[f"{kernel}|{bucket}"] = got
+    if get_registry().counter("autotune.trials").value != trials:
+        raise AssertionError("[12c] a lookup ran a trial")
+    log(f"[12c] tuned.json ({cache.measured_on}): {len(ours)} {backend} "
+        f"entries, each a candidate of SPACES; every standard cell resolves "
+        "from it without a trial")
+    return {"measured_on": cache.measured_on, "entries": len(ours),
+            "resolved": resolved}
+
+
+def autotune_engine(torch, dev, tmp):
+    """12d: an Engine serving imc-paper-110m ``exact`` from a copy of the
+    committed cache; one ``store()`` between two waves: the next wave's
+    decode step is a new step captured once (its prefill and admission
+    steps too: the geometry token is global), the streams are the first
+    wave's, and a further wave captures nothing."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.autotune import tuner
+    from repro_torch.launch.engine import Engine
+    from repro_torch.telemetry import Registry
+
+    path = os.path.join(tmp, "engine.json")
+    shutil.copy(tuner._COMMITTED, path)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = path
+    autotune.set_cache(None)
+    cfg, params, prompts = served_model(torch, dev)
+    eng = Engine(dev, registry=Registry())
+    must = ("imc_mac", "paged_attn")
+    never = ("bitplane_mac", "flash_attn", "bitplane_mac_noisy",
+             "paged_attn_staged")
+
+    def wave(tag):
+        steps = dataclasses.replace(eng.stats)
+        _, run = serve_once(torch, dev, eng, cfg, params, prompts,
+                            f"[12d] exact, {tag}", must, never)
+        return run, eng.stats.compiles - steps.compiles
+
+    def decode_steps():
+        return sum(key[1] == "decode" for key in eng._steps)
+
+    first, built = wave("first wave")
+    warm, _ = wave("second wave")
+    d1 = eng.decode_step(cfg)
+    kernel, shapes, geom = AUTOTUNE_STORE
+    bucket = autotune.shape_bucket(shapes)
+    autotune.get_cache().store(kernel, bucket, "int8",
+                               autotune.backend_key(dev),
+                               {**autotune.DEFAULTS[kernel], **geom}, 0.0, 0)
+    resolved = autotune.lookup(kernel, shapes, device=dev)
+    stored, rebuilt = wave("after one store()")
+    d2 = eng.decode_step(cfg)
+    further, again = wave("a further wave")
+    if d2 is d1 or decode_steps() != 2 or len(d2._bindings) != 1 or \
+            eng.decode_step(cfg) is not d2:
+        raise AssertionError("[12d] after the store the decode step was not "
+                             "a new step captured once")
+    if stored["captures"] != first["captures"] or rebuilt != built:
+        raise AssertionError(
+            f"[12d] the store rebuilt {rebuilt} steps with "
+            f"{stored['captures']} captures; a cold Engine built {built} "
+            f"with {first['captures']}")
+    if warm["captures"] or further["captures"] or again:
+        raise AssertionError(f"[12d] a warm wave captured {warm['captures']}"
+                             f" graphs; a further wave built {again} steps "
+                             f"and captured {further['captures']}")
+    # a capturing wave also counts its captures' warm-up launches
+    for tag, run, like in (("second", warm, warm), ("stored", stored, first),
+                           ("further", further, warm)):
+        if run["streams"] != first["streams"] or \
+                run["launches"] != like["launches"]:
+            raise AssertionError(f"[12d] the {tag} wave's streams or launches "
+                                 "differ from the first waves'")
+    del os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+    autotune.set_cache(None)
+    log(f"[12d] one store() of {kernel} at {bucket} ({resolved}): the next "
+        f"wave's decode step a new step captured once ({rebuilt} steps and "
+        f"{stored['captures']} graphs in all, as the first wave's {built} "
+        f"and {first['captures']}), equal streams and launches; a further "
+        "wave 0 steps, 0 captures")
+    return {"captures": [first["captures"], warm["captures"],
+                         stored["captures"], further["captures"]],
+            "steps_built": [built, rebuilt, again], "stored": resolved}
+
+
+def phase_autotune(torch, dev):
+    """Phase 12 (``--autotune``): the autotuner on the card (module
+    docstring)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        plans, outputs = autotune_candidates(torch, dev)
+        tuning = autotune_tuning(torch, dev, tmp)
+        committed = autotune_committed(torch, dev)
+        engine = autotune_engine(torch, dev, tmp)
+    wall = time.perf_counter() - t0
+    log(f"[12] autotune: {wall:.1f} s in all")
+    return {"plans": plans, "outputs": outputs, "tuning": tuning,
+            "committed": committed, "engine": engine, "wall_s": wall}
+
+
+def autotune_row(auto, kernel):
+    """A kernel's part of phase 12 for the ``kernels`` line (None for a
+    kernel with nothing to tune)."""
+    if kernel not in auto["outputs"]:
+        return None
+    return {"candidates_checked": auto["outputs"][kernel],
+            "cells": [{k: r[k] for k in ("bucket", "geometry", "us",
+                                         "default_us")}
+                      for r in auto["tuning"]["rows"]
+                      if r["kernel"] == kernel],
+            "committed": {k.split("|")[1]: g for k, g in
+                          auto["committed"]["resolved"].items()
+                          if k.split("|")[0] == kernel}}
+
+
+def tune_card(out_path, smi):
+    """``--tune OUT``: ``tune_standard(smoke=False)`` into a fresh cache at
+    OUT, stamped with the card's nvidia-smi line (how the committed
+    ``tuned.json`` was made)."""
+    from repro_torch.kernels import autotune
+
+    if os.path.exists(out_path):
+        os.unlink(out_path)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = out_path
+    autotune.set_cache(None)
+    cache = autotune.get_cache()
+    cache.measured_on = smi
+    rows = autotune.tune_standard(smoke=False)
+    cache.save()
+    for r in rows:
+        log(f"[tune] {r['kernel']} {r['bucket']}: winner {r['geometry']} "
+            f"{r['us']:.3f} us, default {r['default_us']:.3f} us")
+    return rows
+
+
+def tuned_turns(torch, dev):
+    """``--tuned-turns``: phase 6's three served paths on full-width
+    imc-paper-110m from the committed cache and from an empty one (the
+    defaults), in turns (committed, empty, empty, committed); each turn a
+    fresh graph Engine per path serves the six requests twice and the
+    second serve, replays only, gives graph TPOT p50.  Streams equal across
+    every turn."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.core.fabric import FabricSpec
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.engine import Engine
+    from repro_torch.telemetry import Registry
+
+    cfg, params, prompts = served_model(torch, dev)
+    sim_cfg = dataclasses.replace(cfg, fabric=FabricSpec(mode="sim"),
+                                  use_flash_kernel=True)
+    paths = {
+        "exact": (cfg, ("imc_mac", "paged_attn"),
+                  ("bitplane_mac", "flash_attn", "bitplane_mac_noisy"), 0),
+        "sim_flash": (sim_cfg, ("bitplane_mac", "flash_attn", "paged_attn"),
+                      ("imc_mac", "bitplane_mac_noisy"), 0),
+        "sim_noise": (noisy_config(cfg), ("bitplane_mac_noisy", "flash_attn",
+                                          "paged_attn"),
+                      ("imc_mac", "bitplane_mac"), NOISE_SEED)}
+    res, streams = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        empty = os.path.join(tmp, "empty.json")
+        open(empty, "w").close()
+        for turn, which in enumerate(("committed", "empty", "empty",
+                                      "committed")):
+            if which == "empty":
+                os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = empty
+            else:
+                os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+            autotune.set_cache(None)
+            for name, (c, must, never, seed) in paths.items():
+                eng = Engine(dev, noise_seed=seed, registry=Registry())
+                tag = f"[turns] {name}, {which} cache, turn {turn}"
+                serve_once(torch, dev, eng, c, params, prompts,
+                           f"{tag}, capturing", must, never)
+                _, run = serve_once(torch, dev, eng, c, params, prompts,
+                                    f"{tag}, replaying", must, never)
+                if run["captures"]:
+                    raise AssertionError(f"{tag}: the second serve captured")
+                if streams.setdefault(name, run["streams"]) != \
+                        run["streams"]:
+                    raise AssertionError(f"{tag}: the streams differ")
+                res.setdefault(name, {}).setdefault(which, []).append(
+                    run["slos"]["tpot_ms"]["p50"])
+                del eng
+                free_device(torch)
+        os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+        autotune.set_cache(None)
+    for name, r in res.items():
+        log(f"[turns] {name}: graph TPOT p50 committed {r['committed']}, "
+            f"empty (defaults) {r['empty']} ms")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -5094,6 +5474,32 @@ def main() -> int:
                           "kind": kind}))
         print(smi)
         return 0
+    if sys.argv[1:] == ["--autotune"]:
+        from repro_torch.kernels import build
+
+        log(build.build_all(["imc_mac", "paged_attn", "bitplane_mac",
+                             "bitplane_mac_noisy", "rbl_decode_mac"]))
+        print(json.dumps({"autotune": phase_autotune(torch, dev),
+                          "kind": kind}))
+        print(smi)
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--tune":
+        from repro_torch.kernels import build
+
+        log(build.build_all(["imc_mac", "bitplane_mac", "bitplane_mac_noisy",
+                             "rbl_decode_mac"]))
+        print(json.dumps({"tuned": tune_card(sys.argv[2], smi),
+                          "kind": kind}))
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--tuned-turns"]:
+        from repro_torch.kernels import build
+
+        log(build.build_all())
+        print(json.dumps({"tuned_turns": tuned_turns(torch, dev),
+                          "kind": kind}))
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--int8-witness"]:
         from repro_torch.kernels import build
 
@@ -5102,34 +5508,50 @@ def main() -> int:
                           "kind": kind}))
         print(smi)
         return 0
-    build_s = phase_build()
-    mac_err = phase_imc_mac(torch, dev)
-    dq_err = phase_imc_mac_dequant(torch, dev)
-    attn_err, attn_worst = phase_paged_attn(torch, dev)
-    bp_err = phase_bitplane_mac(torch, dev)
-    bpn_err = phase_bitplane_mac_noisy(torch, dev)
-    rbl_err = phase_rbl_decode_mac(torch, dev)
-    flash_err, flash_worst = phase_flash_attn(torch, dev)
-    family_attn = phase_family_attn(torch, dev)
-    served = phase_server(torch, dev)
+    seconds = {}
+
+    def phase(label, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[label] = time.perf_counter() - t0
+        log(f"[time] phase {label}: {seconds[label]:.1f} s")
+        return out
+
+    build_s = phase("1", phase_build)
+    mac_err = phase("2", phase_imc_mac, torch, dev)
+    dq_err = phase("2b", phase_imc_mac_dequant, torch, dev)
+    attn_err, attn_worst = phase("3", phase_paged_attn, torch, dev)
+    bp_err = phase("4", phase_bitplane_mac, torch, dev)
+    bpn_err = phase("4b", phase_bitplane_mac_noisy, torch, dev)
+    rbl_err = phase("4c", phase_rbl_decode_mac, torch, dev)
+    flash_err, flash_worst = phase("5", phase_flash_attn, torch, dev)
+    family_attn = phase("3, 5 (9, 10)", phase_family_attn, torch, dev)
+    served = phase("6a-c", phase_server, torch, dev)
     exact, sim = served["exact"], served["sim_flash"]
     noisy = served["sim_noise"]
-    macro = phase_macro(torch, dev)
-    served["qwen"] = phase_qwen(torch, dev)
-    trained = phase_train(torch, dev)
-    families = phase_families(torch, dev)
-    # in this process, after phases 6-9, the profiler has missed one
-    # kernel of a replayed graph that a fresh process counts: phase 10
-    # runs in its own
-    recurrent = own_process(torch, ["--families", *RECURRENT_FAMILIES])[
-        "families"]["recurrent"]
-    # phase 11 too: two virtual hosts' Engines, graphs and a process group
-    # start from a fresh CUDA context
-    fleet = own_process(torch, ["--fleet"], timeout=600)["fleet"]
-    timed = {name: fn(torch, dev) for name, fn in TIMERS.items()}
-    for name, row in time_family_rows(torch, dev).items():
+    macro = phase("6d", phase_macro, torch, dev)
+    served["qwen"] = phase("6e", serve_family, torch, dev, "qwen2.5-3b")
+    trained = phase("8", phase_train, torch, dev)
+    # phases 9 to 12 each in a process of its own, from a fresh CUDA
+    # context, allocator and profiler: late in this process, after phases
+    # 6-8, the profiler has missed one kernel of a replayed graph that a
+    # fresh process counts (in phases 9 and 10); phase 11's two virtual
+    # hosts and its process group, and phase 12's caches, start clean
+    families = phase("9", own_process, torch, [
+        "--families", *SERVED_FAMILIES, *FRONTEND_FAMILIES])[
+        "families"]["families"]
+    recurrent = phase("10", own_process, torch, [
+        "--families", *RECURRENT_FAMILIES])["families"]["recurrent"]
+    fleet = phase("11", own_process, torch, ["--fleet"], timeout=600)[
+        "fleet"]
+    autotuned = phase("12", own_process, torch, ["--autotune"],
+                      timeout=300)["autotune"]
+    timed = phase("7", lambda: {name: fn(torch, dev)
+                                for name, fn in TIMERS.items()})
+    for name, row in phase("7 (9)", time_family_rows, torch, dev).items():
         timed[name]["families"] = row
-    for name, row in time_recurrent_rows(torch, dev).items():
+    for name, row in phase("7 (10)", time_recurrent_rows, torch,
+                           dev).items():
         timed[name]["recurrent"] = row
     timed["bitplane_mac_noisy"]["noise_free_bitplane_mac_ms"] = \
         timed["bitplane_mac"]["ms"]
@@ -5204,6 +5626,7 @@ def main() -> int:
         k["launches_families"] = family_launches(families, k["name"])
         k["launches_recurrent"] = recurrent_launches(recurrent, k["name"])
         k["launches_fleet"] = fleet_launches(fleet, k["name"])
+        k["autotune"] = autotune_row(autotuned, k["name"])
         if k["name"] in fam_rows:  # the phase-9 row's own path
             name, path, key = fam_rows[k["name"]]
             timed[k["name"]]["families"]["launches"] = \
@@ -5266,7 +5689,10 @@ def main() -> int:
     log(f"[summary] build {build_s:.2f} s; served {json.dumps(served)}; "
         f"macro {json.dumps(macro)}; trained {json.dumps(trained)}; "
         f"families {json.dumps(families)}; recurrent {json.dumps(recurrent)}"
-        f"; fleet {json.dumps(fleet)}")
+        f"; fleet {json.dumps(fleet)}; autotune {json.dumps(autotuned)}")
+    log(f"[time] phases {json.dumps(seconds)}; "
+        f"{sum(seconds.values()):.1f} s in all (phase 12's own "
+        f"{autotuned['wall_s']:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

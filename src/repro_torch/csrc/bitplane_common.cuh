@@ -165,6 +165,11 @@ struct Plan {
 
 // Split the ceil(K/rows) K-groups across blocks until the grid has about
 // `target_blocks` blocks; each split takes a multiple of `granule` groups.
+// `target_blocks` is a runtime argument of the entry points (their default
+// in kernels/autotune, which may hold a measured other); any target gives
+// the same sums (integer atomicAdd, exact in any order).
+constexpr int MAX_TARGET = 1 << 20;
+
 inline Plan plan(int M, int N, int K, int rows, int target_blocks,
                  int granule = WARPS) {
   Plan p;
@@ -195,7 +200,7 @@ inline int prepare(void* out, int M, int N, int K, int bits_a, int bits_w,
   *skip = true;
   if (bits_a < 1 || bits_a > MAX_PLANES || bits_w < 1 ||
       bits_w > MAX_PLANES || rows < 1 || rows > MAX_ROWS || M < 0 || N < 0 ||
-      K < 0) {
+      K < 0 || target_blocks < 1 || target_blocks > MAX_TARGET) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0 || N == 0) return 0;

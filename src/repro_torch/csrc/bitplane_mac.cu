@@ -89,8 +89,6 @@ namespace {
 
 using namespace bitplane;
 
-constexpr int TARGET_BLOCKS = 264;  // two per SM on a 132-SM H100
-
 __global__ void __launch_bounds__(THREADS)
 bitplane_mac_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ w,
                     const float* __restrict__ thr, int32_t* __restrict__ out,
@@ -348,18 +346,20 @@ bitplane_mac_r8_kernel(const uint8_t* __restrict__ a,
 }  // namespace
 
 // a: uint8[M,K] row-major, w: uint8[K,N] row-major (offset-binary values; only
-// the low bits_a / bits_w bits are read), thr: float32[rows], out: int32[M,N].
-// Returns a cudaError_t value.
+// the low bits_a / bits_w bits are read), thr: float32[rows], out: int32[M,N];
+// target: the blocks plan() aims at (264 by default: two per SM on a 132-SM
+// H100).  Returns a cudaError_t value.
 extern "C" int bitplane_mac_launch(const void* a, const void* w, const void* thr,
                                    void* out, int M, int N, int K, int bits_a,
-                                   int bits_w, int rows, void* stream, int device) {
+                                   int bits_w, int rows, int target, void* stream,
+                                   int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Plan p;
   bool skip = true;
-  const int rc = prepare(out, M, N, K, bits_a, bits_w, rows, TARGET_BLOCKS, s,
-                         &p, &skip);
+  const int rc = prepare(out, M, N, K, bits_a, bits_w, rows, target, s, &p,
+                         &skip);
   if (skip) return rc;
   const auto* a8 = static_cast<const uint8_t*>(a);
   const auto* w8 = static_cast<const uint8_t*>(w);
@@ -381,4 +381,23 @@ extern "C" int bitplane_mac_launch(const void* a, const void* w, const void* thr
         p.accumulate);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// bitplane_common.cuh's plan() of an M x K x N product of `rows`-row groups
+// aiming at `target` blocks, splits of `granule` groups (8 here, 1 in
+// bitplane_mac_noisy.cu): out[0..2] the grid (column tiles, row tiles, K
+// splits), out[3] the K-groups per split, out[4] whether the splits add into
+// a zeroed output.  Returns 0, or cudaErrorInvalidValue for arguments that
+// prepare() refuses.
+extern "C" int bitplane_plan(int M, int N, int K, int rows, int target,
+                             int granule, int* out) {
+  if (M < 1 || N < 1 || K < 0 || rows < 1 || rows > MAX_ROWS || target < 1 ||
+      target > MAX_TARGET || granule < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Plan p = plan(M, N, K, rows, target, granule);
+  const int v[5] = {static_cast<int>(p.grid.x), static_cast<int>(p.grid.y),
+                    static_cast<int>(p.grid.z), p.per_split, p.accumulate};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
 }

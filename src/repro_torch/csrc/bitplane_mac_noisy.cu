@@ -89,11 +89,11 @@ namespace {
 
 using namespace bitplane;
 
-// A little under one wave of BLOCKS_PER_SM blocks on 132 SMs at the decode
-// step's three shapes (M = 4; K x N = 768 x 768, 768 x 3072, 3072 x 768
-// each give 480 blocks), splitting K one group at a time.
+// The entry point's default target (kernels/autotune: 480): a little under
+// one wave of BLOCKS_PER_SM blocks on 132 SMs at the decode step's three
+// shapes (M = 4; K x N = 768 x 768, 768 x 3072, 3072 x 768 each give 480
+// blocks), splitting K one group at a time.
 constexpr int BLOCKS_PER_SM = 4;
-constexpr int TARGET_BLOCKS = 480;
 constexpr uint32_t FULL = 0xFFFFFFFFu;
 constexpr uint32_t U1_GRID = 1u << 24;  // u1 is the top 24 bits of a word
 constexpr float PAD = 0x1p-20f;         // the band test's margin on V, volts
@@ -580,21 +580,21 @@ bitplane_mac_noisy_kernel(const uint8_t* __restrict__ a, const uint8_t* __restri
 // a: uint8[M,K] row-major, w: uint8[K,N] row-major (offset-binary values; only
 // the low bits_a / bits_w bits are read), thr: float32[rows], out: int32[M,N];
 // seed: device memory holding the two uint32 Philox key words (low, high),
-// read by the kernel; a sigma <= 0 draws nothing.  Returns a cudaError_t
-// value.
+// read by the kernel; a sigma <= 0 draws nothing; target: the blocks plan()
+// aims at.  Returns a cudaError_t value.
 extern "C" int bitplane_mac_noisy_launch(const void* a, const void* w, const void* thr,
                                          void* out, int M, int N, int K, int bits_a,
                                          int bits_w, int rows, const void* seed,
                                          float mismatch_sigma,
-                                         float comparator_sigma, void* stream,
-                                         int device) {
+                                         float comparator_sigma, int target,
+                                         void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Plan p;
   bool skip = true;
-  const int rc = prepare(out, M, N, K, bits_a, bits_w, rows, TARGET_BLOCKS, s,
-                         &p, &skip, 1);
+  const int rc = prepare(out, M, N, K, bits_a, bits_w, rows, target, s, &p,
+                         &skip, 1);
   if (skip) return rc;
   auto kernel = M <= 4 ? bitplane_mac_noisy_kernel<4> : bitplane_mac_noisy_kernel<8>;
   static bool carveout = false;  // all of L1 as shared memory: 4 blocks fit

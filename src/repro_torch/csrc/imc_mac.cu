@@ -36,9 +36,10 @@
 //         so a warp reads 256 contiguous bytes of a K-row with 8-byte loads
 //         (4-byte or byte loads, in the same kernel, when N or the pointer
 //         is not aligned for them);
-//       - K is split over gridDim.y so that a launch has about 264 blocks
-//         (two per SM) where K allows; inside a block the four warps take
-//         disjoint runs of G "quads" (4 K-rows), G <= 4;
+//       - K is split over gridDim.y so that a launch has about sk_target
+//         blocks (264 by default: two per SM) where K allows; inside a block
+//         the four warps take disjoint runs of G "quads" (4 K-rows),
+//         G <= sk_gmax <= 4 (the plan's Geometry, below);
 //       - each lane issues the loads of its whole K-slice (G quads x 4 rows
 //         x 8 bytes, at most 128 bytes in registers) before the block stages
 //         A and meets at its one barrier, so the weights cost one round trip
@@ -71,8 +72,9 @@
 //       - a block keeps a 64 x 32 output tile (16 rows per warp, four 16x8
 //         fragments each) and one K-slice of it; the blocks that share a
 //         tile form one thread-block cluster of `splits` blocks (1, 2, 4 or
-//         8, the portable size), gridDim.y, so that a launch has about 132
-//         to 264 blocks where K allows;
+//         8, the portable size; at most tc_cluster), gridDim.y, so that a
+//         launch has at most tc_target blocks (264 by default) where K
+//         allows;
 //       - each lane issues the weight loads of its share of the slice
 //         (16-byte loads of 4 K-rows x 16 columns; 4-byte or byte loads, in
 //         the same kernel, when N or the pointer is not aligned for them)
@@ -155,17 +157,40 @@ struct Plan {
                // M > 16)
 };
 
-Plan make_plan(int M, int N, int K) {
+// A plan's tunable choices, runtime arguments of the entry points
+// (kernels/autotune in Python holds these defaults and, measured on the
+// card, a cache of others).  Each one only splits K over more or fewer
+// blocks, and integer partial sums meet exactly in any order, so every
+// geometry gives the same output.  Bounds: the split kernel's register
+// array (SK_GMAX quads) and the portable cluster size (TC_MAX_SPLITS).
+constexpr int MAX_TARGET = 1 << 20;
+struct Geometry {
+  int sk_gmax = SK_GMAX;           // quads a split-K lane prefetches, at most
+  int sk_target = SK_TARGET;       // blocks a split-K launch aims at
+  int tc_cluster = TC_MAX_SPLITS;  // tensor-core splits (the cluster), at most
+  int tc_target = TC_TARGET;       // tensor-core blocks a launch aims at
+};
+
+bool geometry_ok(const Geometry& g) {
+  return g.sk_gmax >= 1 && g.sk_gmax <= SK_GMAX && g.sk_target >= 1 &&
+         g.sk_target <= MAX_TARGET && g.tc_cluster >= 1 &&
+         g.tc_cluster <= TC_MAX_SPLITS &&
+         (g.tc_cluster & (g.tc_cluster - 1)) == 0 && g.tc_target >= 1 &&
+         g.tc_target <= MAX_TARGET;
+}
+
+Plan make_plan(int M, int N, int K, const Geometry& geo = Geometry()) {
   if (M > SPLIT_MAX_M) {
-    // 64 x 32 tiles; double the splits (a power of two, at most 8) while the
-    // launch stays within TC_TARGET blocks and K has a 32-deep step for each
-    // split (a last split may still find its slice past K: it adds zeros)
+    // 64 x 32 tiles; double the splits (a power of two, at most tc_cluster)
+    // while the launch stays within tc_target blocks and K has a 32-deep
+    // step for each split (a last split may still find its slice past K: it
+    // adds zeros)
     const int gx = (N + TC_BN - 1) / TC_BN;
     const int gz = (M + TC_BM - 1) / TC_BM;
     const long long tiles = static_cast<long long>(gx) * gz;
     const int steps = (K + 31) / 32;
     int splits = 1;
-    while (splits < TC_MAX_SPLITS && tiles * splits * 2 <= TC_TARGET &&
+    while (splits < geo.tc_cluster && tiles * splits * 2 <= geo.tc_target &&
            steps >= 2 * splits) {
       splits *= 2;
     }
@@ -173,9 +198,9 @@ Plan make_plan(int M, int N, int K) {
   }
   const int tiles = (N + SK_BN - 1) / SK_BN;
   const long long quads = (static_cast<long long>(K) + 3) / 4;
-  long long g = (quads * tiles + SK_WARPS * SK_TARGET - 1) /
-                (SK_WARPS * SK_TARGET);
-  g = g < 1 ? 1 : (g > SK_GMAX ? SK_GMAX : g);
+  const long long per = static_cast<long long>(SK_WARPS) * geo.sk_target;
+  long long g = (quads * tiles + per - 1) / per;
+  g = g < 1 ? 1 : (g > geo.sk_gmax ? geo.sk_gmax : g);
   const int kps = static_cast<int>(4 * SK_WARPS * g);
   const int splits = K > 0 ? (K + kps - 1) / kps : 1;
   return {M <= 4 ? 4 : 16, tiles, splits, 1, splits, kps};
@@ -628,23 +653,31 @@ int launch_mma(const Plan& p, const void* a, const void* b, int32_t* c,
 // The launch plan for an M x K x N product: out[0] the rows a split-K block
 // keeps (4 or 16; 0 means the M > 16 tensor-core kernel), out[1..3] the grid,
 // out[4] the splits of K (for M > 16 the cluster size), out[5] the K-rows per
-// split.  Returns 0.
-extern "C" int imc_mac_plan(int M, int N, int K, int* out) {
-  const Plan p = make_plan(M, N, K);
+// split, under the geometry (sk_gmax, sk_target, tc_cluster, tc_target).
+// Returns 0, or cudaErrorInvalidValue for a geometry out of its bounds.
+extern "C" int imc_mac_plan(int M, int N, int K, int sk_gmax, int sk_target,
+                            int tc_cluster, int tc_target, int* out) {
+  const Geometry g{sk_gmax, sk_target, tc_cluster, tc_target};
+  if (!geometry_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = make_plan(M, N, K, g);
   const int v[6] = {p.rows, p.gx, p.gy, p.gz, p.splits, p.kps};
   for (int i = 0; i < 6; ++i) out[i] = v[i];
   return 0;
 }
 
-// a: int8[M,K], b: int8[K,N] row-major; c: int32[M,N].  Returns a
-// cudaError_t value.
+// a: int8[M,K], b: int8[K,N] row-major; c: int32[M,N]; the plan's geometry
+// as imc_mac_plan takes it.  Returns a cudaError_t value.
 extern "C" int imc_mac_launch(const void* a, const void* b, void* c, int M,
-                              int N, int K, void* stream, int device) {
+                              int N, int K, int sk_gmax, int sk_target,
+                              int tc_cluster, int tc_target, void* stream,
+                              int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const Geometry g{sk_gmax, sk_target, tc_cluster, tc_target};
+  if (!geometry_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  const Plan p = make_plan(M, N, K);
+  const Plan p = make_plan(M, N, K, g);
   auto* c32 = static_cast<int32_t*>(c);
   if (p.rows == 0) {
     return launch_mma<false>(p, a, b, c32, nullptr, nullptr, nullptr, M, N, K,
@@ -661,17 +694,21 @@ extern "C" int imc_mac_launch(const void* a, const void* b, void* c, int M,
 // As imc_mac_launch, plus scale_a: float32[1] and scale_w: float32[N] in
 // device memory; c: float32[M,N].  scratch: int32, at least M*N + plan
 // grid x values when a split-K plan (M <= 16) splits K (zeroed here), else
-// unused.
+// unused: sized by the plan of the same geometry.
 extern "C" int imc_mac_dequant_launch(const void* a, const void* b,
                                       const void* scale_a, const void* scale_w,
                                       void* c, void* scratch,
                                       long long scratch_ints, int M, int N,
-                                      int K, void* stream, int device) {
+                                      int K, int sk_gmax, int sk_target,
+                                      int tc_cluster, int tc_target,
+                                      void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const Geometry g{sk_gmax, sk_target, tc_cluster, tc_target};
+  if (!geometry_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  const Plan p = make_plan(M, N, K);
+  const Plan p = make_plan(M, N, K, g);
   const auto* sa = static_cast<const float*>(scale_a);
   const auto* sw = static_cast<const float*>(scale_w);
   auto* out = static_cast<float*>(c);

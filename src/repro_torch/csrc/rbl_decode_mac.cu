@@ -53,7 +53,9 @@
 //     (8-32 lanes on 64-256 columns); above 8 rows the 4 warps take 8 rows
 //     each of a 32-row tile and 256 columns, sharing the staged W.  K is
 //     split over a thread-block cluster of 1-8 blocks (gridDim.y), ~96-264
-//     blocks a launch;
+//     blocks a launch (the plan's Geometry: at most `cluster` splits and
+//     `target` blocks, 8 and 264 by default; kernels/autotune may pick
+//     others, all of which give the same sums);
 //   * the splits meet without a memset or output atomics: each block sums
 //     its K-partitions (shuffles inside a warp, then integer atomicAdd in
 //     its own shared memory, exact in any order), the cluster meets at
@@ -95,7 +97,23 @@ struct Plan {
   int cg;          // K-groups per staging of A and W
 };
 
-Plan make_plan(int M, int N, int K, int rows) {
+// A plan's tunable choices, runtime arguments of the entry points: the
+// splits (the cluster) at most, within the portable size MAX_SPLITS that
+// sizes the reduction's registers, and the blocks a launch aims at.
+constexpr int MAX_TARGET = 1 << 20;
+struct Geometry {
+  int cluster = MAX_SPLITS;
+  int target = TARGET;
+};
+
+bool geometry_ok(const Geometry& g) {
+  return g.cluster >= 1 && g.cluster <= MAX_SPLITS &&
+         (g.cluster & (g.cluster - 1)) == 0 && g.target >= 1 &&
+         g.target <= MAX_TARGET;
+}
+
+Plan make_plan(int M, int N, int K, int rows,
+               const Geometry& geo = Geometry()) {
   Plan p;
   const long long groups = K > 0 ? (static_cast<long long>(K) + rows - 1) / rows
                                   : 0;
@@ -108,13 +126,13 @@ Plan make_plan(int M, int N, int K, int rows) {
   p.ln = 32;
   while (p.wm == 1 && p.ln > 8 &&
          static_cast<long long>((N + COLS * p.ln - 1) / (COLS * p.ln)) * p.gz *
-                 MAX_SPLITS < WAVE) {
+                 geo.cluster < WAVE) {
     p.ln /= 2;
   }
   p.gx = (N + COLS * p.ln - 1) / (COLS * p.ln);
   const long long tiles = static_cast<long long>(p.gx) * p.gz;
   int splits = 1;
-  while (splits < MAX_SPLITS && tiles * splits * 2 <= TARGET &&
+  while (splits < geo.cluster && tiles * splits * 2 <= geo.target &&
          groups >= 2 * splits) {
     splits *= 2;
   }
@@ -517,12 +535,15 @@ cudaError_t launch(const Plan& p, cudaLaunchConfig_t* cfg, const void* a,
 // rows a thread keeps, out[1] the warps along M, out[2] the lanes along N,
 // out[3..5] the grid (x: column tiles, y: K splits = the cluster size, z:
 // row tiles), out[6] the K-groups per split, out[7] the K-groups per staging
-// of A and W.  Returns 0, or cudaErrorInvalidValue for rows outside 2-32.
-extern "C" int rbl_decode_mac_plan(int M, int N, int K, int rows, int* out) {
-  if (rows < 2 || rows > MAX_ROWS) {
+// of A and W, under the geometry (cluster, target).  Returns 0, or
+// cudaErrorInvalidValue for rows outside 2-32 or a geometry out of bounds.
+extern "C" int rbl_decode_mac_plan(int M, int N, int K, int rows, int cluster,
+                                   int target, int* out) {
+  const Geometry g{cluster, target};
+  if (rows < 2 || rows > MAX_ROWS || !geometry_ok(g)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Plan p = make_plan(M, N, K, rows);
+  const Plan p = make_plan(M, N, K, rows, g);
   const int v[8] = {p.rm, p.wm, p.ln, p.gx, p.gy, p.gz, p.gps, p.cg};
   for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
@@ -530,30 +551,33 @@ extern "C" int rbl_decode_mac_plan(int M, int N, int K, int rows, int* out) {
 
 // a: bytes [M,K] row-major, w: bytes [K,N] row-major (bit 0 of each byte is
 // the operand bit), thr: float32[rows], volt: float32[rows + 1], the physics
-// RBL voltage V(k) of each count k, out: int32[M,N].  Returns a cudaError_t
-// value.
+// RBL voltage V(k) of each count k, out: int32[M,N]; the plan's geometry as
+// rbl_decode_mac_plan takes it.  Returns a cudaError_t value.
 extern "C" int rbl_decode_mac_launch(const void* a, const void* w,
                                      const void* thr, const void* volt,
                                      void* out, int M, int N, int K, int rows,
-                                     void* stream, int device) {
+                                     int cluster, int target, void* stream,
+                                     int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows < 2 || rows > MAX_ROWS || M < 0 || N < 0 || K < 0) {
+  const Geometry g{cluster, target};
+  if (rows < 2 || rows > MAX_ROWS || M < 0 || N < 0 || K < 0 ||
+      !geometry_ok(g)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0 || N == 0) return 0;
-  const Plan p = make_plan(M, N, K, rows);
+  const Plan p = make_plan(M, N, K, rows, g);
   if (p.gz > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = 1;
-  cluster.val.clusterDim.y = p.gy;
-  cluster.val.clusterDim.z = 1;
+  cudaLaunchAttribute dims;
+  dims.id = cudaLaunchAttributeClusterDimension;
+  dims.val.clusterDim.x = 1;
+  dims.val.clusterDim.y = p.gy;
+  dims.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.gx, p.gy, p.gz);
   cfg.blockDim = dim3(THREADS);
   cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = &cluster;
+  cfg.attrs = &dims;
   cfg.numAttrs = 1;
   const uintptr_t pa = reinterpret_cast<uintptr_t>(a);
   const uintptr_t pw = reinterpret_cast<uintptr_t>(w);

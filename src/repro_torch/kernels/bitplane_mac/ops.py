@@ -29,11 +29,20 @@ in the kernel alike (:func:`bitplane_mac_noisy_torch` is the plain version).
 Its stream is not the reference's (that one is keyed by the TPU's grid
 steps), so it agrees with the reference in distribution only.
 ``bitplane_mac_noisy.launches`` counts its launches.
+
+Both kernels split K over blocks until a launch has about ``target``
+blocks (``bitplane_common.cuh``'s ``plan()``; its twin :func:`bitplane_plan`),
+a runtime argument: on a CUDA tensor each wrapper resolves it at call time
+with ``autotune.lookup`` (264 and 480 by default, the measured cache, a
+pin), and an explicit ``geometry=`` beats the tuner.  Any target gives the
+same output (split sums meet by integer atomics).  The CPU path ignores
+geometry.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -41,18 +50,76 @@ from repro_torch.core import constants as C
 from repro_torch.core.bitserial import count_at_or_above, decoded_pyramid
 from repro_torch.core.decoder import thresholds
 from repro_torch.core.rbl import rbl_voltage_physics
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.common import (U1_GRID, decode_counts_noisy,
                                         element_normals, key_words, radius,
                                         seed_row)
 
 MAX_ROWS = 32  # the kernel packs one K-group of one plane into a 32-bit word
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p,
+_BM, _BN = 8, 32  # bitplane_common.cuh: a block's output tile
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p,
                                                           ctypes.c_int]
 _NOISY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-    [ctypes.c_void_p] + [ctypes.c_float] * 2 + [ctypes.c_void_p,
-                                                ctypes.c_int]
+    [ctypes.c_void_p] + [ctypes.c_float] * 2 + [ctypes.c_int] + \
+    [ctypes.c_void_p, ctypes.c_int]
+_PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _FNS = {}
+
+
+class Plan(NamedTuple):
+    """A launch: the grid (column tiles, row tiles, K splits), the K-groups
+    per split and whether the splits add into a zeroed output."""
+    grid_x: int
+    grid_y: int
+    grid_z: int
+    per_split: int
+    accumulate: int
+
+
+@functools.lru_cache(maxsize=None)
+def bitplane_plan(m: int, n: int, k: int, rows: int, target: int,
+                  granule: int) -> Plan:
+    """The launch of an ``m x k x n`` product of ``rows``-row groups, as
+    ``bitplane_common.cuh``'s ``plan()`` computes it (the C
+    ``bitplane_plan``; ``chip_smoke.py`` phase 12 holds the two equal):
+    8 x 32 output tiles, K's groups split until the grid has about
+    ``target`` blocks, each split a multiple of ``granule`` groups (8 for
+    ``bitplane_mac``, 1 for the noisy kernel)."""
+    groups = -(-k // rows)
+    tiles_n, tiles_m = -(-n // _BN), -(-m // _BM)
+    splits = max(-(-target // (tiles_n * tiles_m)), 1)
+    splits = max(min(splits, -(-groups // granule)), 1)
+    per = -(-groups // splits)
+    per = -(-per // granule) * granule
+    splits = 1 if groups == 0 else -(-groups // per)
+    return Plan(tiles_n, tiles_m, splits, per,
+                int(splits > 1 or groups == 0))
+
+
+def compiled_plan(m: int, n: int, k: int, rows: int, target: int,
+                  granule: int) -> Plan:
+    """The C ``bitplane_plan`` of the built ``bitplane_mac`` library (needs
+    ``nvcc``)."""
+    fn = _FNS.get("plan")
+    if fn is None:
+        fn = build.load("bitplane_mac").bitplane_plan
+        fn.argtypes, fn.restype = _PLAN_ARGTYPES, ctypes.c_int
+        _FNS["plan"] = fn
+    out = (ctypes.c_int * 5)()
+    build.check_launch("bitplane_plan", fn(m, n, k, rows, target, granule,
+                                           ctypes.addressof(out)))
+    return Plan(*out)
+
+
+def _target(name: str, m, n, k, bits_a, bits_w, rows, geometry, device):
+    """The target of a launch: the tuner's lookup, then ``geometry``."""
+    geom = autotune.lookup(name, {"m": m, "k": k, "n": n, "ba": bits_a,
+                                  "bw": bits_w, "rows": rows},
+                           dtype=autotune.KERNEL_DTYPES[name], device=device)
+    if geometry:
+        geom.update(autotune.check_geometry(name, dict(geometry),
+                                            f"{name}(geometry=...)"))
+    return geom["target"]
 
 
 def _entry(name: str, argtypes):
@@ -148,12 +215,14 @@ def _operands(name, u_a, u_w, thr, bits_a, bits_w, rows):
 
 def bitplane_mac(u_a: torch.Tensor, u_w: torch.Tensor,
                  thr: torch.Tensor | None = None, *, bits_a: int = 8,
-                 bits_w: int = 8, rows: int = C.ROWS) -> torch.Tensor:
+                 bits_w: int = 8, rows: int = C.ROWS,
+                 geometry=None) -> torch.Tensor:
     """Fused full-pyramid bit-serial matmul for arbitrary shapes.
 
     u_a: int[..., K]; u_w: int[K, N]; leading batch dims of ``u_a`` flatten
     into M.  ``thr`` (float[rows], descending) defaults to the
-    physics-model references for ``rows``.  Returns int32[..., N].
+    physics-model references for ``rows``.  ``geometry`` (``{"target":
+    blocks}``) beats the tuner's.  Returns int32[..., N].
     """
     if _on_cpu(u_a, u_w, thr):
         return bitplane_mac_torch(u_a, u_w, thr, bits_a=bits_a,
@@ -161,11 +230,13 @@ def bitplane_mac(u_a: torch.Tensor, u_w: torch.Tensor,
     a, w, t, out, batch = _operands("bitplane_mac", u_a, u_w, thr, bits_a,
                                     bits_w, rows)
     (m, k), n = a.shape, w.shape[1]
+    target = _target("bitplane_mac", m, n, k, bits_a, bits_w, rows, geometry,
+                     a.device)
     fn = _entry("bitplane_mac", _ARGTYPES)
     stream, dev = build.stream_and_device(a)
     build.check_launch("bitplane_mac", fn(
         a.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(), m, n, k,
-        bits_a, bits_w, rows, stream, dev))
+        bits_a, bits_w, rows, target, stream, dev))
     bitplane_mac.launches += 1
     return out.reshape(batch + (n,))
 
@@ -232,8 +303,8 @@ def bitplane_mac_noisy(u_a: torch.Tensor, u_w: torch.Tensor, seed,
                        thr: torch.Tensor | None = None, *, bits_a: int = 8,
                        bits_w: int = 8, rows: int = C.ROWS,
                        mismatch_sigma: float | None = None,
-                       comparator_offset_sigma: float | None = None
-                       ) -> torch.Tensor:
+                       comparator_offset_sigma: float | None = None,
+                       geometry=None) -> torch.Tensor:
     """Fused full-pyramid bit-serial matmul with the NoiseSpec Monte-Carlo
     in the kernel.
 
@@ -245,7 +316,8 @@ def bitplane_mac_noisy(u_a: torch.Tensor, u_w: torch.Tensor, seed,
     or a 64-bit integer, which the wrapper copies to the card first (a
     CUDA graph captures a row's address, and the words written there before
     each replay key that replay's stream).  Same seed -> identical outputs.
-    Returns int32[..., N].
+    ``geometry`` (``{"target": blocks}``) beats the tuner's.  Returns
+    int32[..., N].
     """
     if _on_cpu(u_a, u_w, thr):
         return bitplane_mac_noisy_torch(
@@ -262,12 +334,14 @@ def bitplane_mac_noisy(u_a: torch.Tensor, u_w: torch.Tensor, seed,
         raise ValueError(f"bitplane_mac_noisy: a seed row is a contiguous "
                          f"int32 (2,) tensor on {a.device}, got "
                          f"{seed.dtype}{list(seed.shape)} on {seed.device}")
+    target = _target("bitplane_mac_noisy", m, n, k, bits_a, bits_w, rows,
+                     geometry, a.device)
     fn = _entry("bitplane_mac_noisy", _NOISY_ARGTYPES)
     stream, dev = build.stream_and_device(a)
     build.check_launch("bitplane_mac_noisy", fn(
         a.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(), m, n, k,
         bits_a, bits_w, rows, seed.data_ptr(), float(mismatch_sigma or 0.0),
-        float(comparator_offset_sigma or 0.0), stream, dev))
+        float(comparator_offset_sigma or 0.0), target, stream, dev))
     bitplane_mac_noisy.launches += 1
     return out.reshape(batch + (n,))
 

@@ -17,6 +17,14 @@ decode's few rows; M > 16 (the bucket-32/64 prefills) the tensor-core kernel
 (int8 ``mma.sync``, K split over a thread-block cluster).  Each wrapper
 counts them apart, as ``split_launches`` and ``tiled_launches`` (the M > 16
 kernel); ``launches`` is their total.
+
+The plan's tunable choices, its geometry (``sk_gmax``, ``sk_target``,
+``tc_cluster``, ``tc_target``: :mod:`repro_torch.kernels.autotune`), are
+runtime arguments of the C entry points.  On a CUDA tensor each wrapper
+resolves them at call time with ``autotune.lookup`` (the defaults, the
+measured cache, a pin), and an explicit ``geometry=`` beats the tuner
+parameter by parameter; every geometry gives the same output.  The CPU path
+ignores geometry.
 """
 from __future__ import annotations
 
@@ -27,23 +35,20 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 
 SPLIT_MAX_M = 16
 _MMA_BM = 64         # the M > 16 kernel's output tile: 64 rows ...
 _MMA_BN = 32         # ... by 32 columns
-_MMA_MAX_SPLITS = 8  # its cluster size, at most (the portable size)
-_MMA_TARGET = 264    # blocks a launch aims at, at most
 _SPLIT_WARPS = 4     # the split kernel's block: 4 warps on one column tile
 _SPLIT_BN = 256      # its columns, 8 per lane
-_SPLIT_GMAX = 4      # quads (4 K-rows) a lane prefetches, at most
-_SPLIT_TARGET = 264  # blocks a launch aims at: two per SM of an H100
+_GEOMETRY = ("sk_gmax", "sk_target", "tc_cluster", "tc_target")  # C order
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p,
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p,
                                                           ctypes.c_int]
 _DEQUANT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + \
-    [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
-_PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int]
+_PLAN_ARGTYPES = [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _FNS = {}
 
 
@@ -59,38 +64,67 @@ class Plan(NamedTuple):
     k_per_split: int
 
 
-@functools.lru_cache(maxsize=None)
-def imc_mac_plan(m: int, n: int, k: int) -> Plan:
-    """The launch of an ``m x k x n`` product, as ``csrc/imc_mac.cu``'s
-    ``imc_mac_plan`` computes it (``chip_smoke.py`` phase 2 holds the two
-    together).  The split kernel's K-slice is a whole number of quads for
-    each of its 4 warps, at most 4 quads a warp, and a launch aims at ~264
+def _geometry_args(geom) -> tuple:
+    """The C arguments of a geometry (None: the defaults), merged over the
+    defaults and checked against the sources' bounds."""
+    g = autotune.DEFAULTS["imc_mac"] if geom is None else \
+        autotune.check_geometry("imc_mac", {**autotune.DEFAULTS["imc_mac"],
+                                            **geom}, "imc_mac geometry")
+    return tuple(g[p] for p in _GEOMETRY)
+
+
+def imc_mac_plan(m: int, n: int, k: int, geom=None) -> Plan:
+    """The launch of an ``m x k x n`` product under the geometry ``geom``
+    (None: the defaults), as ``csrc/imc_mac.cu``'s ``imc_mac_plan`` computes
+    it (``chip_smoke.py`` phases 2 and 12 hold the two together).  The split
+    kernel's K-slice is a whole number of quads for each of its 4 warps, at
+    most ``sk_gmax`` quads a warp, and a launch aims at ~``sk_target``
     blocks; K = 0 is one split that adds nothing.  Above M = 16: 64 x 32
     output tiles (``grid_x`` over N, ``grid_z`` over M) and the splits
-    doubled, up to 8, while the launch stays within ~264 blocks and K has a
-    32-deep step for each split; each split takes a whole number of steps."""
+    doubled, up to ``tc_cluster``, while the launch stays within
+    ``tc_target`` blocks and K has a 32-deep step for each split; each
+    split takes a whole number of steps."""
+    return _plan(m, n, k, *_geometry_args(geom))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(m: int, n: int, k: int, sk_gmax: int, sk_target: int,
+          tc_cluster: int, tc_target: int) -> Plan:
     if m > SPLIT_MAX_M:
         gx, gz = -(-n // _MMA_BN), -(-m // _MMA_BM)
         steps = -(-k // 32)
         splits = 1
-        while (splits < _MMA_MAX_SPLITS and gx * gz * splits * 2 <= _MMA_TARGET
+        while (splits < tc_cluster and gx * gz * splits * 2 <= tc_target
                and steps >= 2 * splits):
             splits *= 2
         return Plan(0, gx, splits, gz, splits, 32 * -(-steps // splits))
     tiles = -(-n // _SPLIT_BN)
     quads = -(-k // 4)
-    g = -(-quads * tiles // (_SPLIT_WARPS * _SPLIT_TARGET))
-    g = min(max(g, 1), _SPLIT_GMAX)
+    g = -(-quads * tiles // (_SPLIT_WARPS * sk_target))
+    g = min(max(g, 1), sk_gmax)
     kps = 4 * _SPLIT_WARPS * g
     splits = -(-k // kps) if k > 0 else 1
     return Plan(4 if m <= 4 else 16, tiles, splits, 1, splits, kps)
 
 
-def compiled_plan(m: int, n: int, k: int) -> Plan:
-    """The C ``imc_mac_plan`` of the built library (needs ``nvcc``)."""
+def compiled_plan(m: int, n: int, k: int, geom=None) -> Plan:
+    """The C ``imc_mac_plan`` of the built library under ``geom`` (needs
+    ``nvcc``)."""
     out = (ctypes.c_int * 6)()
-    _entry("imc_mac_plan", _PLAN_ARGTYPES)(m, n, k, ctypes.addressof(out))
+    build.check_launch("imc_mac_plan", _entry("imc_mac_plan", _PLAN_ARGTYPES)(
+        m, n, k, *_geometry_args(geom), ctypes.addressof(out)))
     return Plan(*out)
+
+
+def _resolve(name: str, m: int, n: int, k: int, geometry, device) -> tuple:
+    """The C geometry arguments of a launch: the tuner's lookup, then the
+    caller's ``geometry`` parameter by parameter."""
+    geom = autotune.lookup(name, {"m": m, "k": k, "n": n},
+                           dtype=autotune.KERNEL_DTYPES[name], device=device)
+    if geometry:
+        geom.update(autotune.check_geometry(name, dict(geometry),
+                                            f"{name}(geometry=...)"))
+    return tuple(geom[p] for p in _GEOMETRY)
 
 
 def _entry(name: str, argtypes):
@@ -135,11 +169,13 @@ def imc_mac_torch(qa: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
     return out.reshape(*batch, qw.shape[1])
 
 
-def imc_mac(qa: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+def imc_mac(qa: torch.Tensor, qw: torch.Tensor, *,
+            geometry=None) -> torch.Tensor:
     """int8[..., K] x int8[K, N] -> int32[..., N]; any (ragged) shape.
 
     Leading batch dims of ``qa`` flatten into M.  CPU tensors run
-    :func:`imc_mac_torch`; CUDA tensors launch the kernel.
+    :func:`imc_mac_torch`; CUDA tensors launch the kernel under the tuned
+    geometry (``geometry``: parameters that beat the tuner's).
     """
     if qa.device.type == "cpu" and qw.device.type == "cpu":
         return imc_mac_torch(qa, qw)
@@ -157,10 +193,12 @@ def imc_mac(qa: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.int32, device=a2.device)
     if m == 0 or n == 0:
         return out.reshape(*batch, n)
-    plan = imc_mac_plan(m, n, k)
+    geom = _resolve("imc_mac", m, n, k, geometry, a2.device)
+    plan = _plan(m, n, k, *geom)
     stream, dev = build.stream_and_device(a2)
     build.check_launch("imc_mac", _entry("imc_mac_launch", _ARGTYPES)(
-        a2.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream, dev))
+        a2.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, *geom, stream,
+        dev))
     _count(imc_mac, plan)
     return out.reshape(*batch, n)
 
@@ -180,14 +218,14 @@ def imc_mac_dequant_torch(qa: torch.Tensor, qw: torch.Tensor, scale_a,
 
 
 def imc_mac_dequant(qa: torch.Tensor, qw: torch.Tensor, scale_a,
-                    scale_w) -> torch.Tensor:
+                    scale_w, *, geometry=None) -> torch.Tensor:
     """Fused int8 GEMM + per-channel dequant -> float32[..., N].
 
     ``scale_a``: the per-tensor activation scale, one float32 value;
     ``scale_w``: float32[N] per-output-channel scales.  On the card both
     are float32 tensors on the operands' device (``scale_a`` is read there
     by the kernel: no host copy, no sync).  Leading batch dims of ``qa``
-    flatten into M.
+    flatten into M.  ``geometry`` as :func:`imc_mac`'s.
     """
     if all(not isinstance(t, torch.Tensor) or t.device.type == "cpu"
            for t in (qa, qw, scale_a, scale_w)):
@@ -216,7 +254,8 @@ def imc_mac_dequant(qa: torch.Tensor, qw: torch.Tensor, scale_a,
     out = torch.empty((m, n), dtype=torch.float32, device=a2.device)
     if m == 0 or n == 0:
         return out.reshape(*batch, n)
-    plan = imc_mac_plan(m, n, k)
+    geom = _resolve("imc_mac_dequant", m, n, k, geometry, a2.device)
+    plan = _plan(m, n, k, *geom)  # the plan the C launch makes of geom
     # split K: the blocks' sums and one arrival counter per column tile,
     # zeroed by the launcher on the launch's stream
     scratch_ints = m * n + plan.grid_x if plan.rows and plan.splits > 1 \
@@ -228,7 +267,7 @@ def imc_mac_dequant(qa: torch.Tensor, qw: torch.Tensor, scale_a,
         "imc_mac_dequant_launch", _DEQUANT_ARGTYPES)(
         a2.data_ptr(), b.data_ptr(), sa.data_ptr(), sw.data_ptr(),
         out.data_ptr(), scratch.data_ptr() if scratch_ints else None,
-        scratch_ints, m, n, k, stream, dev))
+        scratch_ints, m, n, k, *geom, stream, dev))
     _count(imc_mac_dequant, plan)
     return out.reshape(*batch, n)
 

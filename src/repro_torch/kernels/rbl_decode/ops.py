@@ -25,7 +25,12 @@ counts kernel launches and nothing else.
 
 The kernel's launch (rows a thread keeps, tile, K split over a thread-block
 cluster) follows one rule, :func:`rbl_decode_mac_plan`, the twin of the C
-``rbl_decode_mac_plan`` (``chip_smoke.py`` phase 4c holds the two equal).
+``rbl_decode_mac_plan`` (``chip_smoke.py`` phases 4c and 12 hold the two
+equal).  Its geometry (``cluster``, the splits at most, and ``target``, the
+blocks a launch aims at) is a runtime argument: on a CUDA tensor the wrapper
+resolves it at call time with ``autotune.lookup`` (8 and 264 by default, the
+measured cache, a pin), and an explicit ``geometry=`` beats the tuner.  Every
+geometry gives the same output.  The CPU path ignores geometry.
 """
 from __future__ import annotations
 
@@ -38,17 +43,15 @@ import torch
 from repro_torch.core import constants as C
 from repro_torch.core.bitserial import group_counts
 from repro_torch.core.rbl import rbl_voltage_physics
-from repro_torch.kernels import build
+from repro_torch.kernels import autotune, build
 from repro_torch.kernels.bitplane_mac.ops import (MAX_ROWS, decode_counts,
                                                   physics_thresholds)
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p,
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p,
                                                           ctypes.c_int]
-_PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BYTES = (torch.int8, torch.uint8)
 _COLS = 8          # columns a lane keeps: 8 bytes of a W row
-_MAX_SPLITS = 8    # the cluster size, at most (the portable size)
-_TARGET = 264      # blocks a launch aims at, at most
 _WAVE = 132        # SMs of an H100
 _SM_BYTES = 45056  # a block's shared bytes for a chunk of A's bits and W
 _FNS = {}
@@ -69,26 +72,44 @@ class Plan(NamedTuple):
     groups_per_chunk: int
 
 
-@functools.lru_cache(maxsize=None)
-def rbl_decode_mac_plan(m: int, n: int, k: int, rows: int) -> Plan:
-    """The launch of an ``m x k x n`` product of ``rows``-row groups, as
+def _geometry_args(geom) -> tuple:
+    """(cluster, target) of a geometry (None: the defaults), merged over the
+    defaults and checked against the source's bounds."""
+    g = autotune.DEFAULTS["rbl_decode_mac"] if geom is None else \
+        autotune.check_geometry(
+            "rbl_decode_mac", {**autotune.DEFAULTS["rbl_decode_mac"], **geom},
+            "rbl_decode_mac geometry")
+    return g["cluster"], g["target"]
+
+
+def rbl_decode_mac_plan(m: int, n: int, k: int, rows: int,
+                        geom=None) -> Plan:
+    """The launch of an ``m x k x n`` product of ``rows``-row groups under
+    the geometry ``geom`` (None: the defaults), as
     ``csrc/rbl_decode_mac.cu``'s ``rbl_decode_mac_plan`` computes it.  M <= 4
     keeps 4 rows a thread and M 5-8 keeps 8, with the 4 warps on K; above 8
     the warps take 8 rows each of a 32-row tile.  Tiles are 8 columns a lane:
-    256 columns, narrowed to 128 or 64 (M <= 8) until the tiles at 8 splits
-    fill the 132 SMs.  The splits double, up to 8, while the launch stays
-    within 264 blocks and each split has two groups; K = 0 is one split."""
+    256 columns, narrowed to 128 or 64 (M <= 8) until the tiles at
+    ``cluster`` splits fill the 132 SMs.  The splits double, up to
+    ``cluster``, while the launch stays within ``target`` blocks and each
+    split has two groups; K = 0 is one split."""
+    return _plan(m, n, k, rows, *_geometry_args(geom))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(m: int, n: int, k: int, rows: int, cluster: int,
+          target: int) -> Plan:
     groups = -(-k // rows) if k > 0 else 0
     rm = 4 if m <= 4 else 8
     wm = 1 if m <= 8 else 4
     gz = -(-m // (rm * wm))
     ln = 32
     while wm == 1 and ln > 8 and \
-            -(-n // (_COLS * ln)) * gz * _MAX_SPLITS < _WAVE:
+            -(-n // (_COLS * ln)) * gz * cluster < _WAVE:
         ln //= 2
     gx = -(-n // (_COLS * ln))
     splits = 1
-    while splits < _MAX_SPLITS and gx * gz * splits * 2 <= _TARGET and \
+    while splits < cluster and gx * gz * splits * 2 <= target and \
             groups >= 2 * splits:
         splits *= 2
     return Plan(rm, wm, ln, gx, splits, gz, -(-groups // splits),
@@ -105,12 +126,13 @@ def physics_voltages(rows: int, device) -> torch.Tensor:
                                             device=device), rows=rows)
 
 
-def compiled_plan(m: int, n: int, k: int, rows: int) -> Plan:
-    """The C ``rbl_decode_mac_plan`` of the built library (needs ``nvcc``)."""
+def compiled_plan(m: int, n: int, k: int, rows: int, geom=None) -> Plan:
+    """The C ``rbl_decode_mac_plan`` of the built library under ``geom``
+    (needs ``nvcc``)."""
     out = (ctypes.c_int * 8)()
     build.check_launch("rbl_decode_mac_plan", _entry(
-        "rbl_decode_mac_plan", _PLAN_ARGTYPES)(m, n, k, rows,
-                                               ctypes.addressof(out)))
+        "rbl_decode_mac_plan", _PLAN_ARGTYPES)(
+        m, n, k, rows, *_geometry_args(geom), ctypes.addressof(out)))
     return Plan(*out)
 
 
@@ -161,13 +183,14 @@ def rbl_decode_mac_torch(a_bits: torch.Tensor, w_bits: torch.Tensor,
 
 def rbl_decode_mac(a_bits: torch.Tensor, w_bits: torch.Tensor,
                    thr: torch.Tensor | None = None, *,
-                   rows: int = C.ROWS) -> torch.Tensor:
+                   rows: int = C.ROWS, geometry=None) -> torch.Tensor:
     """Grouped analog-decode binary MAC for arbitrary shapes.
 
     a_bits: {0,1}[..., K]; w_bits: {0,1}[K, N]; leading batch dims of
     ``a_bits`` flatten into M.  ``thr`` (float32[rows], descending) defaults
     to the physics-model references for ``rows`` (re-tunable, §IV-C).
-    Returns int32[..., N].
+    ``geometry`` (``cluster``, ``target``) beats the tuner's.  Returns
+    int32[..., N].
     """
     if all(t is None or t.device.type == "cpu" for t in (a_bits, w_bits,
                                                          thr)):
@@ -191,12 +214,19 @@ def rbl_decode_mac(a_bits: torch.Tensor, w_bits: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:
         return out.reshape(batch + (n,))
+    geom = autotune.lookup("rbl_decode_mac", {"m": m, "k": k, "n": n,
+                                              "rows": rows},
+                           dtype=autotune.KERNEL_DTYPES["rbl_decode_mac"],
+                           device=a.device)
+    if geometry:
+        geom.update(autotune.check_geometry(
+            "rbl_decode_mac", dict(geometry), "rbl_decode_mac(geometry=...)"))
     stream, dev = build.stream_and_device(a)
     build.check_launch("rbl_decode_mac", _entry(
         "rbl_decode_mac_launch", _ARGTYPES)(
         a.data_ptr(), w.data_ptr(), t.data_ptr(),
         physics_voltages(rows, a.device).data_ptr(), out.data_ptr(), m, n, k,
-        rows, stream, dev))
+        rows, geom["cluster"], geom["target"], stream, dev))
     rbl_decode_mac.launches += 1
     return out.reshape(batch + (n,))
 

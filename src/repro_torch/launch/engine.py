@@ -7,8 +7,12 @@ keys; the port's owns what running one H100 needs:
   * **step cache** — :meth:`Engine.prefill_step` (one per prefill bucket),
     :meth:`Engine.decode_step`, :meth:`Engine.admit_step` and
     :meth:`Engine.train_step` (one per ``AdamWConfig``) are memoized on
-    ``(ModelConfig, kind, extras, FabricSpec)``: equal keys return the same
-    step.  :attr:`Engine.stats` counts cache hits and distinct steps
+    ``(ModelConfig, kind, extras, FabricSpec, autotune.geometry_token())``:
+    equal keys return the same step.  The token moves when the kernels'
+    launch plans could (a cache store or load, a pin change:
+    :mod:`repro_torch.kernels.autotune`), so a graph that captured one plan
+    is never replayed under another: the next step asked for is a new one,
+    captured anew once.  :attr:`Engine.stats` counts cache hits and distinct steps
     (``compiles``).  The train step runs eagerly (a captured train step is
     ROADMAP work); the serving steps are :class:`Step` objects.
   * **CUDA graphs** — a :class:`Step` binds its inputs to static buffers
@@ -62,7 +66,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels import launches
+from repro_torch.kernels import autotune, launches
 from repro_torch.kernels.common import mix_seed, seed_table
 from repro_torch.launch import steps
 from repro_torch.models.transformer import dense_calls
@@ -300,7 +304,7 @@ class Engine:
     # ----------------------------------------------------------- step cache
     def _cached_step(self, cfg: ModelConfig, kind: str, extras: Tuple,
                      build: Callable[[], Callable]) -> Callable:
-        key = (cfg, kind, extras, cfg.imc_fabric)
+        key = (cfg, kind, extras, cfg.imc_fabric, autotune.geometry_token())
         step = self._steps.get(key)
         if step is None:
             step = self._steps[key] = build()
