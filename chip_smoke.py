@@ -31,11 +31,17 @@ result:
       split-K and tensor-core cases, graph replays and plans.
 3. ``paged_attn`` against its plain version on the card: f32, bf16 and int8
    pools, window 0 and 16, rep 1 (the demonstrator) and rep 8 (qwen2.5-3b)
-   on the split kernel, hd 24 on the staged kernel (which kernel ran is
-   asserted), positions 5/47/100 and 0/15/16/127 (at pos 0, and at 127
-   under the window, whole warps of the split kernel see no key), sentinel
-   blocks and an inactive slot that must flush zeros; bounds f32 5e-6,
-   bf16 1.6e-2 (one output ulp), int8 1e-2.  int8 at hd 24 is not in the
+   on the split kernel, hd 24 on the staged kernel, rep 16 at hd 256
+   (recurrentgemma-9b) on the context-split kernel and its merge over bf16
+   and int8 pools (f32: the staged one), at positions 0/63/64/127/3
+   (chunk edges) and 2100/700/64/0 under windows 0 and 2048 (which kernels
+   ran is asserted by counter; int8 there within one bf16 ulp of the
+   largest |out|, or of a float64 witness where the plain version's bf16
+   roundings part it farther, as phase 9's cases), positions 5/47/100 and
+   0/15/16/127 (at pos 0, and at 127 under the window, whole warps of the
+   split kernel see no key), sentinel blocks and an inactive slot that
+   must flush zeros; bounds f32 5e-6, bf16 1.6e-2 (one output ulp), int8
+   1e-2.  int8 at hd 24 is not in the
    case list: the 1e-2 bound is below one bf16 output ulp at |out| >= 2,
    where a kernel that keeps K, V and P in f32 can land one ulp from the
    plain version, which rounds them to bf16 (``--int8-witness`` below);
@@ -76,9 +82,9 @@ result:
       holds ``PRMT`` and no ``POPC`` (``cuobjdump``).
 5. ``flash_attn`` against its plain version on the card: f32 and bf16,
    window 0 and 16, rep 1 and 8 at hd 64 and 128, rep 2 at hd 32 and 24,
-   S in {1, 15, 16, 17, 40, 64, 100}; bf16 at hd 32-128 must take the
-   tensor-core kernel, f32 and hd 24 the CUDA-core kernel; bounds f32 3e-6,
-   bf16 2e-2.
+   rep 16 at hd 256, S in {1, 15, 16, 17, 40, 64, 100}; bf16 at hd 32-128
+   and 256 must take the tensor-core kernel (two warps a 16-row group at
+   hd 256), f32 and hd 24 the CUDA-core kernel; bounds f32 3e-6, bf16 2e-2.
 6. The served paths, each on full-width ``imc-paper-110m`` (random weights
    from a fixed seed), 4 slots, paged KV, block 16, buckets (16, 32, 64),
    six requests of 7/16/33/12/5/40 prompt tokens and 16 new tokens each,
@@ -113,9 +119,8 @@ result:
       ``flash_attn`` and ``paged_attn`` must launch, ``imc_mac`` never;
       the tensor-core ``flash_attn`` kernel 12 times per bucketed prefill
       and the split ``paged_attn`` kernel 12 times per decode step, the
-      CUDA-core flash and staged paged kernels never (on any of phase
-      6's paths; recurrentgemma's rep 16 takes the staged one in phase
-      10).
+      CUDA-core flash and staged paged kernels never (on any served path:
+      recurrentgemma's rep 16 takes the context-split one in phase 10).
       On the card, ``sim`` prefill logits (flash off) must equal ``exact``'s
       bit for bit.  ``sim`` + flash must lie within 2e-2 of the largest
       |logit| of the plain path on the CPU with flash attention, and give
@@ -228,8 +233,8 @@ result:
    fabric unless noted.  Before it, phases 3 and 5 at their geometries:
    ``paged_attn`` at rep 2, 4, 6 and 7, hd 128 and 256, over bf16, f32
    and int8 pools, windows 0, 1024 and 4096, positions 5/1100/4200 and an
-   empty table; ``flash_attn`` at hd 256 (the CUDA-core kernel asserted)
-   and rep 6 and 7, S up to 100 (and 1100 under window 1024).
+   empty table; ``flash_attn`` at hd 256 (the tensor-core kernel asserted
+   for bf16) and rep 6 and 7, S up to 100 (and 1100 under window 1024).
    a. gemma3-12b, deepseek-coder-33b, qwen2-72b, qwen3-moe-30b-a3b and
       dbrx-132b served through ``Server`` + ``Engine`` as phase 6 serves
       (``serve_path``: eager, graphs, graphs, eager; equal streams, 5
@@ -240,8 +245,8 @@ result:
       tensor-core ``imc_mac`` once per projection; the first request's
       prefill logits within 2e-2 of the largest |logit| of the plain path
       on the CPU.  gemma3 and qwen3-moe also in ``sim`` + flash (the
-      CUDA-core flash kernel at gemma3's hd 256, the tensor-core one at
-      128, once per layer per prefill; ``sim`` prefill logits equal
+      tensor-core flash kernel at gemma3's hd 256 and at 128, once per
+      layer per prefill; ``sim`` prefill logits equal
       ``exact``'s; card vs the CPU's plain flash path), qwen3-moe in noisy
       ``sim`` under ``NOISE_SEED``.
    b. gemma3: a 1000-token prompt in a 1024 bucket and 48 new tokens,
@@ -266,12 +271,14 @@ result:
    Phase 9 runs in a process of its own (``--families`` with its seven
    configs), as phases 10-12 do: late in the main process the profiler
    has missed one kernel of a replayed graph (in phases 9 and 10).
-   Phases 3 and 5 here also take phase 10's geometry: rep 16 at hd 256
-   (recurrentgemma's 16 heads over one KV head: the staged ``paged_attn``
-   kernel, the CUDA-core ``flash_attn`` one), windows 2048 and S 2100
-   under it.
+   Phases 3 and 5 here also take phase 10's geometry: rep 16 (and 12) at
+   hd 256 (recurrentgemma's 16 heads over one KV head: the context-split
+   ``paged_attn`` kernel over bf16 and int8 pools, the staged one over f32;
+   the tensor-core ``flash_attn`` kernel for bf16), windows 2048 and S 2100
+   under it; which kernels ran is asserted by counter.
    Phase 7 adds three rows: ``flash_attn`` over gemma3's six layers at
-   S = 64 (hd 256) beside SDPA, ``paged_attn`` over its decode step, and
+   S = 64 (hd 256, the tensor-core kernel) beside SDPA, ``paged_attn`` over
+   its decode step, and
    ``imc_mac`` over one qwen2-72b decode layer (878 MB of int8 weights).
 
 10. The recurrent families at full width, random weights from seed 0,
@@ -283,14 +290,15 @@ result:
    a. Served as 9a serves (``serve_family``): per decode step the split-K
       ``imc_mac`` once per fabric projection (``dense_calls``: 2 an SSD
       layer, 3 + 3 an RG-LRU one, whose gates ``w_a``/``w_i`` stay off
-      the fabric, 7 a local one) and, per local layer, the staged
-      ``paged_attn`` kernel (rep 16); mamba2 launches no attention kernel.
+      the fabric, 7 a local one) and, per local layer, the context-split
+      ``paged_attn`` kernel and its merge (rep 16), the staged kernel
+      never; mamba2 launches no attention kernel.
       Per bucket-32/64 prefill the tensor-core ``imc_mac`` once per
       projection.  Prefill logits layer by layer against the CPU's plain
       path.  mamba2 also in ``sim`` (96 ``bitplane_mac`` a step) and noisy
-      ``sim``; recurrentgemma in ``sim`` + flash (the CUDA-core flash
-      kernel once per local layer per prefill); ``sim`` prefill logits
-      equal ``exact``'s.
+      ``sim``; recurrentgemma in ``sim`` + flash (the tensor-core flash
+      kernel once per local layer per prefill, the CUDA-core one never);
+      ``sim`` prefill logits equal ``exact``'s.
    b. The state at the prompt's length, fabric off: a 37-token prompt
       prefilled in a 64 bucket and at its own length (mamba2 also 200
       tokens in a 256 bucket: two SSD chunks of 128 and the recurrence
@@ -316,7 +324,8 @@ result:
    recurrentgemma-9b``), with a fresh CUDA context, allocator and profiler.
    Phase 7 adds two rows: ``paged_attn`` over one recurrentgemma decode
    step at full depth (12 local layers, positions to 2047 under its
-   window) beside SDPA, and ``imc_mac`` over one mamba2 decode step (96
+   window; the context-split kernel and its merge, 24 launches) beside
+   SDPA, and ``imc_mac`` over one mamba2 decode step (96
    launches at N = 4384 and 1024) beside ``torch._int_mm``.
 
 11. The fleet (``repro_torch.fleet``): two virtual hosts on the one card
@@ -468,6 +477,17 @@ weights, in turns, and prints one JSON line and the nvidia-smi line: where
 the kernel's time goes, phase by phase (the variants' results are wrong on
 purpose).
 
+    python3 chip_smoke.py --attn-variants
+
+times variants of the two tensor-core attention kernels, each a text patch
+of its source built into its own library, in turns from graphs, their
+outputs bit for bit equal (``flash_attn`` at hd 256 with 4, 2 or 1
+sixteen-row groups a block, at gemma3's and recurrentgemma's prefills and
+at S 1024 and 2048; the context-split ``paged_attn`` merge's sum unrolled
+16 or 4 times, at phase 7's recurrentgemma step), then profiles phase 7's
+two rows and their SDPA calls, kernel by kernel, and prints one JSON line
+and the nvidia-smi line (``ATTN_VARIANTS``, ``attn_variants``).
+
     python3 chip_smoke.py --int8-witness
 
 runs ``paged_attn`` (whichever kernel the tree's wrapper picks) on two int8
@@ -501,6 +521,77 @@ STRESS = dict(mismatch_sigma=0.3, comparator_offset_sigma=0.03)
 NOISE_SEED = 7
 ATTN_ATOL = {"f32": 5e-6, "bf16": 1.6e-2, "int8": 1e-2}
 FLASH_ATOL = {"f32": 3e-6, "bf16": 2e-2}
+PAGED_VARIANTS = ("paged_attn_split", "paged_attn_ctx", "paged_attn_merge",
+                  "paged_attn_staged")
+
+
+def paged_variant(dtype, rep, hd):
+    """The ``paged_attn`` kernel a call takes by the rules of
+    ``kernels/paged_attn/ops.py`` (aligned operands): the split kernel at
+    rep 1-8 where a row is 1-32 lanes, a power of two, of 4 (f32) or 8
+    elements; the context-split kernel at rep 9-16 over bf16 and int8 pools
+    (bf16 queries), hd % 16 == 0 and hd <= 256; the staged kernel
+    otherwise."""
+    lanes, e = divmod(hd, 4 if dtype == "f32" else 8)
+    if rep <= 8 and not e and lanes <= 32 and lanes & (lanes - 1) == 0:
+        return "paged_attn_split"
+    if 9 <= rep <= 16 and dtype != "f32" and hd % 16 == 0 and hd <= 256:
+        return "paged_attn_ctx"
+    return "paged_attn_staged"
+
+
+def paged_counts(variant, n=1):
+    """The ``paged_attn`` counters (``read_counts`` keys) that ``n`` calls
+    taking ``variant`` tick: a context-split call launches its kernel and
+    its merge."""
+    out = dict.fromkeys(("paged_attn",) + PAGED_VARIANTS, 0)
+    out.update({"paged_attn": n, variant: n})
+    if variant == "paged_attn_ctx":
+        out.update(paged_attn=2 * n, paged_attn_merge=n)
+    return out
+
+
+def flash_variant(dtype, hd):
+    """The ``flash_attn`` kernel a call takes (``takes_tensor_cores``,
+    aligned operands): the tensor-core kernel for bf16 at hd % 16 == 0 and
+    hd <= 128, or hd 256; the CUDA-core kernel otherwise."""
+    tc = dtype == "bf16" and hd % 16 == 0 and (hd <= 128 or hd == 256)
+    return "flash_attn_tc" if tc else "flash_attn_simt"
+
+
+def int8_gate(out, ref, exact, tol, where):
+    """The int8 gate of the context-split kernel's cases: within ``tol``
+    (1e-2, or one bf16 ulp at the largest |out|) of the plain version or,
+    where the plain version's bf16 roundings of the dequantized K, V and P
+    put it farther, within ``tol`` of the float64 witness ``exact`` and no
+    farther from it than the plain version (the kernel keeps them in f32;
+    ``--int8-witness``).  Returns (kernel vs plain, kernel vs witness,
+    plain vs witness) over the live slots; the last two None when the
+    first holds."""
+    err = (out.float() - ref.float()).abs().max().item()
+    if err <= tol:
+        return err, None, None
+    e_k = (out.cpu().double() - exact).abs().max().item()
+    e_p = (ref.cpu().double() - exact).abs().max().item()
+    if not e_k <= min(tol, e_p):
+        raise AssertionError(f"{where}: max err {err} > {tol} from the plain "
+                             f"version, {e_k} from the float64 witness "
+                             f"(plain {e_p})")
+    return err, e_k, e_p
+
+
+def check_attn_dispatch(before, want, where):
+    """Raise unless the attention counters rose from ``before`` (a
+    ``read_counts()``) by exactly ``want`` (the others by 0)."""
+    now = read_counts()
+    keys = ("paged_attn", "flash_attn", "flash_attn_tc",
+            "flash_attn_simt") + PAGED_VARIANTS
+    got = {k: now[k] - before[k] for k in keys}
+    full = dict.fromkeys(keys, 0)
+    full.update(want)
+    if got != full:
+        raise AssertionError(f"{where}: launches {got}, the dispatch rules "
+                             f"want {full}")
 LOGIT_RTOL = 2e-2
 PROMPTS = (7, 16, 33, 12, 5, 40)
 MACRO_KERNELS = ("imc_mac_dequant", "rbl_decode_mac")  # no served path
@@ -845,9 +936,16 @@ def _paged_cases():
             for geom in ((4, 12, 12, 64), (3, 16, 2, 128), (3, 4, 2, 24))]
     old = [c for c in grid if len(c[0]) == 4 and c[3][3] != 24]
     new = [c for c in grid if c not in old]
-    return [(n,) + c for n, c in list(enumerate(old)) +
+    # recurrentgemma-9b's rep 16 at hd 256: the context-split kernel (f32:
+    # the staged one), chunk edges and positions past a window of 2048
+    ctx = [(pos, dtype, window, (len(pos), 16, 1, 256), mb)
+           for pos, windows, mb in (([0, 63, 64, 127, 3], (0, 16), 9),
+                                    ([2100, 700, 64, 0], (0, 2048), 136))
+           for dtype in ("f32", "bf16", "int8") for window in windows]
+    return [(n,) + c + (8,) for n, c in list(enumerate(old)) +
             list(enumerate(new, 100)) if not (c[1] == "int8" and
-                                              c[3][3] == 24)]
+                                              c[3][3] == 24)] + \
+        [(n,) + c for n, c in enumerate(ctx, 300)]
 
 
 PAGED_CASES = _paged_cases()
@@ -858,17 +956,17 @@ def phase_paged_attn(torch, dev):
                                                     paged_decode_torch)
 
     worst = {}
-    for n, pos, dtype, window, (B, H, KV, hd) in PAGED_CASES:
+    for n, pos, dtype, window, (B, H, KV, hd), mb in PAGED_CASES:
         B = B if len(pos) == 4 else len(pos)
         q, k, v, tbl, p, kw = attn_inputs(torch, dev, dtype, B, H, KV, hd,
-                                          pos[:B], seed=n, inactive_last=True)
-        split = paged_attention.split_launches
+                                          pos[:B], mb=mb, seed=n,
+                                          inactive_last=True)
+        variant = paged_variant(dtype, H // KV, hd)
+        before = read_counts()
         out = paged_attention(q, k, v, tbl, p, window=window, **kw)
         torch.cuda.synchronize()
-        if paged_attention.split_launches != split + (hd != 24):
-            raise AssertionError(f"paged_attn hd={hd}: the split kernel must "
-                                 "run at hd 64 and 128, the staged kernel at "
-                                 "hd 24")
+        check_attn_dispatch(before, paged_counts(variant),
+                            f"[3] paged_attn {dtype} rep={H // KV} hd={hd}")
         ref = paged_decode_torch(q, k, v, tbl, p, window=window, **kw)
         if not bool(torch.isfinite(out).all()) or \
                 bool((out[B - 1] != 0).any()):
@@ -876,10 +974,24 @@ def phase_paged_attn(torch, dev):
                                  "empty table did not flush zeros")
         err = (out[:B - 1].float() - ref[:B - 1].float()).abs().max().item()
         worst[dtype] = max(worst.get(dtype, 0.0), err)
-        if err > ATTN_ATOL[dtype]:
+        tol = ATTN_ATOL[dtype]
+        if dtype == "int8" and variant == "paged_attn_ctx":
+            # phase 9's int8 rule (one bf16 ulp) and ``int8_gate``
+            tol = max(tol, bf16_ulp(ref[:B - 1].float().abs().max().item()))
+            exact = paged_decode_f64(q, k, v, tbl, p, kw["k_scale"],
+                                     kw["v_scale"], window)[:B - 1]
+            _, e_k, e_p = int8_gate(out[:B - 1], ref[:B - 1], exact, tol,
+                                    f"[3] paged_attn int8 window={window} "
+                                    f"rep={H // KV} hd={hd}")
+            if e_k is not None:
+                log(f"[3] paged_attn int8 window={window} rep={H // KV} "
+                    f"hd={hd}: {err} from the plain version; from the "
+                    f"float64 witness {e_k} (plain {e_p})")
+            continue
+        if err > tol:
             raise AssertionError(
                 f"paged_attn {dtype} window={window} rep={H // KV} hd={hd} "
-                f"pos={pos[:B]}: max err {err} > {ATTN_ATOL[dtype]}")
+                f"pos={pos[:B]}: max err {err} > {tol}")
     log(f"[3] paged_attn within bounds on {len(PAGED_CASES)} cases; worst "
         f"{worst}")
     return max(worst.values()), worst
@@ -1336,20 +1448,17 @@ def phase_flash_attn(torch, dev):
         dt = torch.float32 if dtype == "f32" else torch.bfloat16
         for window in (0, 16):
             for H, KV, hd in ((12, 12, 64), (16, 2, 128), (4, 2, 32),
-                              (4, 2, 24)):
+                              (4, 2, 24), (16, 1, 256)):
                 for S in (16, 40, 64, 1, 15, 17, 100):
                     q, k, v = (torch.randn((1, S, h, hd), generator=g,
                                            device=dev).to(dt)
                                for h in (H, KV, KV))
-                    tc = flash_attention.tc_launches
+                    before = read_counts()
                     out = flash_attention(q, k, v, window=window)
                     torch.cuda.synchronize()
-                    if flash_attention.tc_launches != tc + (
-                            dtype == "bf16" and hd != 24):
-                        raise AssertionError(
-                            f"flash_attn {dtype} hd={hd}: the tensor-core "
-                            "kernel must run for bf16 at hd 32, 64 and 128, "
-                            "the CUDA-core kernel otherwise")
+                    check_attn_dispatch(before, {
+                        "flash_attn": 1, flash_variant(dtype, hd): 1},
+                        f"[5] flash_attn {dtype} hd={hd}")
                     ref = flash_attention_torch(q, k, v, window=window)
                     if not bool(torch.isfinite(out).all()):
                         raise AssertionError("flash_attn output is not finite")
@@ -3428,14 +3537,13 @@ def end_to_end(tag, cfg, card, plain):
 
 
 def attn_layers(cfg):
-    """(attention layers of ``cfg``, the ``paged_attn`` kernel they take:
-    the split kernel at rep 1-8, the staged one above, as
-    ``kernels/paged_attn/ops.py::takes_split`` rules)."""
+    """(attention layers of ``cfg``, the ``paged_attn`` kernel they take by
+    ``paged_variant``: bf16 queries over its ``kv_dtype`` pools)."""
     from repro_torch.models.transformer import ATTN_KINDS, layer_kinds
 
     n = sum(k in ATTN_KINDS for k in layer_kinds(cfg))
     rep = cfg.n_heads // cfg.n_kv_heads
-    return n, ("paged_attn_split" if rep <= 8 else "paged_attn_staged")
+    return n, paged_variant(cfg.kv_dtype, rep, cfg.hd)
 
 
 def check_counts(tag, counts, want):
@@ -3471,10 +3579,11 @@ def serve_family(torch, dev, name):
                for n in PROMPTS]
     layers, calls = cfg.n_layers, dense_calls(cfg)
     attn, paged = attn_layers(cfg)
-    other_paged = ({"paged_attn_split", "paged_attn_staged"} - {paged}).pop()
+    step_paged = paged_counts(paged, attn)
+    other_paged = tuple(k for k in PAGED_VARIANTS if not step_paged[k])
     # kernels an attention layer must launch, and what no layer may
     attn_must = ("paged_attn",) if attn else ()
-    attn_never = (other_paged,) if attn else ("paged_attn",)
+    attn_never = other_paged if attn else ("paged_attn",)
     out = {"layers": layers, "params": n_params, "dense_calls": calls,
            "attn_layers": attn}
     exact, card = serve_path(torch, dev, cfg, params, prompts,
@@ -3483,8 +3592,7 @@ def serve_family(torch, dev, name):
                                     "bitplane_mac_noisy") + attn_never)
     log_turns(f"{name} exact", exact)
     check_counts(f"{name} exact, a decode step", exact["per_decode_step"],
-                 {"imc_mac_split": calls, "imc_mac_tiled": 0,
-                  "paged_attn": attn, paged: attn})
+                 {"imc_mac_split": calls, "imc_mac_tiled": 0, **step_paged})
     for bucket, prompt in ((32, prompts[5][:20]), (64, prompts[2])):
         zero_counts()
         first_prefill(torch, dev, params, cfg, prompt, bucket=bucket)
@@ -3508,14 +3616,15 @@ def serve_family(torch, dev, name):
         f"layer by layer from the card's inputs {fmt_errs(layer_errs)}, "
         f"head {head_err:.2e} (of each output's largest magnitude); "
         f"{calls} split-K imc_mac and {attn} {paged} launches a decode "
-        f"step, {calls} tensor-core imc_mac a bucket-32/64 prefill")
+        f"step (and as many merges at rep 9-16), {calls} tensor-core "
+        "imc_mac a bucket-32/64 prefill")
     out["exact"] = exact
-    kernel = "flash_attn_simt" if cfg.hd > 128 else "flash_attn_tc"
-    other = "flash_attn_tc" if cfg.hd > 128 else "flash_attn_simt"
+    kernel = flash_variant("bf16", cfg.hd)
+    other = ({"flash_attn_tc", "flash_attn_simt"} - {kernel}).pop()
     # a path with flash prefill: what its attention layers must and must
     # not launch
     flash_must = ("flash_attn", "paged_attn") if attn else ()
-    flash_never = ((other, other_paged) if attn
+    flash_never = ((other,) + other_paged if attn
                    else ("flash_attn", "paged_attn"))
     if name in SIM_FAMILIES:
         sim_cfg = dataclasses.replace(cfg, fabric=FabricSpec(mode="sim"),
@@ -3527,8 +3636,7 @@ def serve_family(torch, dev, name):
             never=("imc_mac", "bitplane_mac_noisy") + flash_never)
         log_turns(stag, sim)
         check_counts(f"{stag}, a decode step", sim["per_decode_step"],
-                     {"bitplane_mac": calls, "paged_attn": attn,
-                      paged: attn})
+                     {"bitplane_mac": calls, **step_paged})
         check_counts(f"{stag}, a prefill", sim["per_prefill"],
                      {"flash_attn": attn, kernel: attn})
         sim_dense = first_prefill(torch, dev, params, dataclasses.replace(
@@ -3744,7 +3852,7 @@ def window_request(torch, dev, cfg, params, prompt_len, new, bucket,
     steps = new - 1 + warm
     calls = dense_calls(cfg) if cfg.imc_fabric is not None else 0
     attn, paged = attn_layers(cfg)
-    want = {"paged_attn": steps * attn, paged: steps * attn,
+    want = {**paged_counts(paged, steps * attn),
             "imc_mac_split": steps * calls,
             "imc_mac_tiled": (1 + warm) * calls}
     if not h.done or len(served) != new or any(
@@ -4235,16 +4343,17 @@ def family_launches(fam, kernel):
 
 # phase 3 at the families' geometries: (H, KV, hd) of gemma3 (rep 2, hd
 # 256), llava (rep 4), dbrx (rep 6), deepseek (rep 7) and recurrentgemma
-# (rep 16, hd 256: the staged kernel); positions past windows of 1024, 2048
-# and 4096; the last slot's table is empty
+# (rep 16, hd 256: the context-split kernel; and rep 12); positions past
+# windows of 1024, 2048 and 4096; the last slot's table is empty
 FAMILY_PAGED_GEOMS = ((16, 8, 256), (32, 8, 128), (48, 8, 128), (56, 8, 128),
-                      (16, 1, 256))
+                      (16, 1, 256), (12, 1, 256))
 FAMILY_PAGED_WINDOWS = (0, 1024, 2048, 4096)
 FAMILY_PAGED_POS = [5, 1100, 4200, 0]
 FAMILY_PAGED_MB = 264  # table blocks of 16: position 4200 needs 263
-# phase 5 at the families' geometries: gemma3's hd 256 (the CUDA-core
-# kernel), dbrx's rep 6, deepseek's rep 7 and recurrentgemma's rep 16 at hd
-# 256; S 1100 under window 1024 (gemma3) and 2100 under 2048 (recurrentgemma)
+# phase 5 at the families' geometries: gemma3's hd 256 (the tensor-core
+# kernel's two-warp instance), dbrx's rep 6, deepseek's rep 7 and
+# recurrentgemma's rep 16 at hd 256; S 1100 under window 1024 (gemma3) and
+# 2100 under 2048 (recurrentgemma)
 FAMILY_FLASH_GEOMS = ((16, 8, 256), (48, 8, 128), (56, 8, 128), (16, 1, 256))
 FAMILY_FLASH_LONG = ((1024, (16, 8, 256), 1100), (2048, (16, 1, 256), 2100))
 
@@ -4262,6 +4371,7 @@ def phase_family_attn(torch, dev):
                                                     flash_attention_torch)
     from repro_torch.kernels.paged_attn.ops import (paged_attention,
                                                     paged_decode_torch,
+                                                    takes_ctx_split,
                                                     takes_split)
 
     worst, n = {}, 0
@@ -4272,17 +4382,21 @@ def phase_family_attn(torch, dev):
                 q, k, v, tbl, p, kw = attn_inputs(
                     torch, dev, dtype, B, H, KV, hd, FAMILY_PAGED_POS,
                     mb=FAMILY_PAGED_MB, seed=200 + n, inactive_last=True)
-                split = takes_split(H // KV, k, v)
-                if split != (H // KV <= 8 and (dtype != "f32" or hd <= 128)):
+                variant = paged_variant(dtype, H // KV, hd)
+                rules = ("paged_attn_split" if takes_split(H // KV, k, v)
+                         else "paged_attn_ctx" if takes_ctx_split(
+                             H // KV, q, k, v, tbl.shape[1])
+                         else "paged_attn_staged")
+                if rules != variant:
                     raise AssertionError(f"paged_attn {dtype} rep={H // KV} "
-                                         f"hd={hd}: the dispatch rule "
-                                         "changed")
-                before = paged_attention.split_launches
+                                         f"hd={hd}: the dispatch rules give "
+                                         f"{rules}, expected {variant}")
+                before = read_counts()
                 out = paged_attention(q, k, v, tbl, p, window=window, **kw)
                 torch.cuda.synchronize()
-                if paged_attention.split_launches != before + split:
-                    raise AssertionError(f"paged_attn {dtype} hd={hd}: the "
-                                         "wrong kernel ran")
+                check_attn_dispatch(before, paged_counts(variant),
+                                    f"[3] paged_attn {dtype} rep={H // KV} "
+                                    f"hd={hd}")
                 ref = paged_decode_torch(q, k, v, tbl, p, window=window, **kw)
                 if not bool(torch.isfinite(out).all()) or \
                         bool((out[B - 1] != 0).any()):
@@ -4299,7 +4413,19 @@ def phase_family_attn(torch, dev):
                 tol = ATTN_ATOL[dtype] if dtype != "int8" else max(
                     ATTN_ATOL[dtype], bf16_ulp(ref[:B - 1].float().abs()
                                                .max().item()))
-                if err > tol:
+                if dtype == "int8" and variant == "paged_attn_ctx":
+                    exact = paged_decode_f64(q, k, v, tbl, p, kw["k_scale"],
+                                             kw["v_scale"], window)[:B - 1]
+                    _, e_k, e_p = int8_gate(
+                        out[:B - 1], ref[:B - 1], exact, tol,
+                        f"[3] paged_attn int8 window={window} "
+                        f"rep={H // KV} hd={hd}")
+                    if e_k is not None:
+                        log(f"[3] paged_attn int8 window={window} rep="
+                            f"{H // KV} hd={hd}: {err} from the plain "
+                            f"version; from the float64 witness {e_k} "
+                            f"(plain {e_p})")
+                elif err > tol:
                     raise AssertionError(
                         f"paged_attn {dtype} window={window} rep={H // KV} "
                         f"hd={hd}: max err {err} > {tol}")
@@ -4314,13 +4440,12 @@ def phase_family_attn(torch, dev):
         dt = torch.float32 if dtype == "f32" else torch.bfloat16
         q, k, v = (torch.randn((1, S, h, hd), generator=g, device=dev).to(dt)
                    for h in (H, KV, KV))
-        tc = flash_attention.tc_launches
+        before = read_counts()
         out = flash_attention(q, k, v, window=window)
         torch.cuda.synchronize()
-        if flash_attention.tc_launches != tc + (dtype == "bf16" and
-                                                hd <= 128):
-            raise AssertionError(f"flash_attn {dtype} hd={hd}: the wrong "
-                                 "kernel ran")
+        check_attn_dispatch(before, {"flash_attn": 1,
+                                     flash_variant(dtype, hd): 1},
+                            f"[5] flash_attn {dtype} hd={hd}")
         ref = flash_attention_torch(q, k, v, window=window)
         err = (out.float() - ref.float()).abs().max().item()
         worst[f"flash {dtype}"] = max(worst.get(f"flash {dtype}", 0), err)
@@ -4330,14 +4455,15 @@ def phase_family_attn(torch, dev):
                                  f"{err} > {FLASH_ATOL[dtype]}")
         n += 1
     log(f"[3, 5] paged_attn and flash_attn at the families' geometries "
-        f"(rep 2/4/6/7/16, hd 128/256, windows 1024/2048/4096) within bounds "
+        f"(rep 2/4/6/7/12/16, hd 128/256, windows 1024/2048/4096) within "
+        f"bounds "
         f"on {n} cases; worst {worst}")
     return worst
 
 
 def time_family_rows(torch, dev):
     """Phase 7's rows at phase 9's geometries: ``flash_attn`` over one
-    bucket-64 prefill of gemma3's six layers (hd 256, the CUDA-core
+    bucket-64 prefill of gemma3's six layers (hd 256, the tensor-core
     kernel), ``paged_attn`` over one of its decode steps, and ``imc_mac``
     over one qwen2-72b decode layer; each beside its bound, plain version
     and library call."""
@@ -4374,7 +4500,8 @@ def time_family_rows(torch, dev):
         library_ms=cuda_ms(torch, sdpa, iters=30),
         library_graph_ms=graph_ms(torch, sdpa), bound_ms=b_ms, bound_by=by,
         shape="gemma3-12b, one bucket-64 prefill: 6 layers x (B=1, S=64, "
-              "H=16, KV=8, hd=256, bf16, causal; the CUDA-core kernel); "
+              "H=16, KV=8, hd=256, bf16, causal; the tensor-core kernel, two "
+              "warps a 16-row group); "
               "library: F.scaled_dot_product_attention(is_causal=True, "
               "enable_gqa=True)")
 
@@ -4458,7 +4585,8 @@ def time_family_rows(torch, dev):
 def time_recurrent_rows(torch, dev):
     """Phase 7's rows at phase 10's geometries: ``paged_attn`` over one
     recurrentgemma decode step at its full depth (12 local layers, rep 16,
-    hd 256: the staged kernel), long contexts under its window of 2048, and
+    hd 256: the context-split kernel and its merge), long contexts under
+    its window of 2048, and
     ``imc_mac`` over one mamba2 decode step (96 projections at M = 4);
     each beside its bound, plain version and library call."""
     import torch.nn.functional as F
@@ -4511,9 +4639,10 @@ def time_recurrent_rows(torch, dev):
         bound_by=by,
         shape="recurrentgemma-9b, one decode step at full depth: 12 local "
               "layers x (B=4, H=16, KV=1, hd=256, bf16 pools, block 16, "
-              "window 2048, positions 2047/1500/700/100; the staged "
-              "kernel); library: F.scaled_dot_product_attention over the "
-              "gathered span (enable_gqa)")
+              "window 2048, positions 2047/1500/700/100; the context-split "
+              "kernel and its merge, 24 launches); library: "
+              "F.scaled_dot_product_attention over the gathered span "
+              "(enable_gqa)")
 
     m, d, d_in, n_in, depth = 4, 1024, 2048, 4384, 48
     shapes = [(d, n_in), (d_in, d)] * depth
@@ -4549,6 +4678,196 @@ def time_recurrent_rows(torch, dev):
             f"{r['library_ms']:.4f} ms, {r['library_graph_ms']:.4f} ms from "
             "a graph)")
     return rows
+
+
+# --attn-variants: text patches of the two tensor-core attention sources,
+# each its own library: flash_attn's hd-256 instance at 4, 2 (the source's)
+# and 1 sixteen-row groups a block; the paged merge's sum unrolled 16 (the
+# source's) and 4 times
+ATTN_VARIANTS = {
+    "flash_attn": ("case 256: return launch<256, 2, 2>(",
+                   {f"rg{rg}": f"case 256: return launch<256, 2, {rg}>("
+                    for rg in (4, 2, 1)}),
+    "paged_attn": ("#pragma unroll 16", {f"unroll{u}": f"#pragma unroll {u}"
+                                         for u in (16, 4)}),
+}
+
+
+def attn_variants(torch, dev):
+    """``--attn-variants``: where the two new attention kernels' time goes.
+    (a) Each variant of ``ATTN_VARIANTS`` built by nvcc into the build
+    directory, called through ctypes, its output bit for bit the first
+    variant's, and timed from a graph in turns (in order, reversed, in
+    order): flash at gemma3's bucket-64 prefill (6 layers, S 64, H 16, KV
+    8), recurrentgemma's (1 layer, KV 1) and S 1024 / 2048 under windows of
+    1024 / 2048; paged at phase 7's recurrentgemma full-depth step.  (b)
+    The device time of each kernel of phase 7's two rows and of their SDPA
+    calls, from ``torch.profiler`` over 20 replays of each one's graph.
+    Returns {"turns": {case: {variant: [ms, ...]}}, "kernels": {row:
+    {"graph_ms", "kernels": {name: [launches a replay, µs each]}}}}."""
+    import ctypes
+
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn.ops import (_ARGTYPES as F_ARGS,
+                                                    flash_attention)
+    from repro_torch.kernels.paged_attn.ops import (_ARGTYPES as P_ARGS,
+                                                    CTX_ROWS, ctx_chunks,
+                                                    paged_attention)
+
+    out_dir = build.build_dir() / "attn_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for kernel, (anchor, subs) in ATTN_VARIANTS.items():
+        src = (build.CSRC / f"{kernel}.cu").read_text()
+        if src.count(anchor) != 1:
+            raise AssertionError(f"attn_variants: {anchor!r} not in {kernel}")
+        for name, text in subs.items():
+            path = out_dir / f"{kernel}_{name}.cu"
+            path.write_text(src.replace(anchor, text))
+            procs[kernel, name] = subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, f"-I{build.CSRC}",
+                 "-o", str(path.with_suffix(".so")), str(path)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for (kernel, name), proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"attn_variants {kernel} {name}: nvcc "
+                                 f"failed\n{text}")
+        lib = ctypes.CDLL(str(out_dir / f"{kernel}_{name}.so"))
+        entry = ("flash_attn_tc_launch" if kernel == "flash_attn"
+                 else "paged_attn_ctx_launch")
+        fn = getattr(lib, entry)
+        fn.argtypes = (F_ARGS if kernel == "flash_attn" else P_ARGS)[entry]
+        fn.restype = ctypes.c_int
+        fns.setdefault(kernel, {})[name] = fn
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    hd = 256
+
+    def flash_case(layers, S, H, KV, window):
+        ins = [tuple(torch.randn((1, S, h, hd), generator=g, device=dev).to(
+            torch.bfloat16) for h in (H, KV, KV)) for _ in range(layers)]
+        outs = [torch.empty_like(q) for q, _, _ in ins]
+
+        def run(fn):
+            for (q, k, v), o in zip(ins, outs):
+                stream, idx = build.stream_and_device(q)
+                build.check_launch("attn_variants", fn(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    1, S, H, KV, hd, hd ** -0.5, window, stream, idx))
+            return outs
+        return run
+
+    H, KV, B, bs, mb, window = 16, 1, 4, 16, 132, 2048
+    pos = [2047, 1500, 700, 100]
+    pins = [attn_inputs(torch, dev, "bf16", B, H, KV, hd, pos, bs=bs, mb=mb,
+                        seed=400 + i) for i in range(12)]
+    c = ctx_chunks(mb, bs)
+    part_acc = torch.empty((B * KV, c, CTX_ROWS, hd), device=dev)
+    part_ml = torch.empty((B * KV, c, 2, CTX_ROWS), device=dev)
+    pouts = [torch.empty((B, KV, H // KV, hd), dtype=torch.bfloat16,
+                         device=dev) for _ in pins]
+
+    def paged_run(fn):
+        for (q, k, v, t, p, _), o in zip(pins, pouts):
+            stream, idx = build.stream_and_device(q)
+            build.check_launch("attn_variants", fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
+                t.data_ptr(), p.data_ptr(), o.data_ptr(), part_acc.data_ptr(),
+                part_ml.data_ptr(), B, KV, H // KV, hd, bs, mb, c,
+                hd ** -0.5, window, 1, 1, stream, idx))
+        return pouts
+
+    cases = {
+        "flash gemma3 bucket-64 prefill, 6 layers": (
+            "flash_attn", flash_case(6, 64, 16, 8, 0)),
+        "flash recurrentgemma bucket-64 prefill, 1 layer": (
+            "flash_attn", flash_case(1, 64, 16, 1, 0)),
+        "flash gemma3 S 1024, window 1024": (
+            "flash_attn", flash_case(1, 1024, 16, 8, 1024)),
+        "flash recurrentgemma S 2048, window 2048": (
+            "flash_attn", flash_case(1, 2048, 16, 1, 2048)),
+        "paged recurrentgemma full-depth step, 12 layers": (
+            "paged_attn", paged_run),
+    }
+    turns = {}
+    for case, (kernel, run) in cases.items():
+        names = list(fns[kernel])
+        first = None
+        for name in names:
+            got = [o.clone() for o in run(fns[kernel][name])]
+            torch.cuda.synchronize()
+            first = first or got
+            if not all(torch.equal(a, b) for a, b in zip(got, first)):
+                raise AssertionError(f"attn_variants {case}: {name}'s "
+                                     "output differs from the first's")
+        turns[case] = {name: [] for name in names}
+        for name in names + names[::-1] + names:
+            turns[case][name].append(graph_ms(
+                torch, lambda: run(fns[kernel][name]), iters=50))
+        log(f"[attn variants] {case}: " + "; ".join(
+            f"{n} " + "/".join(f"{t:.4f}" for t in ts)
+            for n, ts in turns[case].items()) + " ms from a graph")
+
+    dense = []
+    for q, k, v, tbl, p, _ in pins:
+        ctx = torch.arange(mb * bs, device=dev)
+        gidx = torch.where(tbl < 0, 0, tbl).long()[:, ctx // bs] * bs + \
+            ctx % bs
+        valid = ((ctx[None] <= p.long()[:, None])
+                 & (ctx[None] > p.long()[:, None] - window)
+                 & (tbl[:, ctx // bs] >= 0))
+        kd = k.reshape(-1, KV, hd)[gidx].permute(0, 2, 1, 3).contiguous()
+        vd = v.reshape(-1, KV, hd)[gidx].permute(0, 2, 1, 3).contiguous()
+        dense.append((q.permute(0, 2, 1, 3).contiguous(), kd, vd,
+                      valid[:, None, None, :]))
+    fins = [tuple(torch.randn((1, 64, h, hd), generator=g, device=dev).to(
+        torch.bfloat16) for h in (16, 8, 8)) for _ in range(6)]
+    lins = [tuple(t.transpose(1, 2).contiguous() for t in x) for x in fins]
+    rows = {
+        "paged_attn, recurrentgemma full-depth step": lambda: [
+            paged_attention(q, k, v, t, p, window=window)
+            for q, k, v, t, p, _ in pins],
+        "SDPA over the gathered span, 12 layers": lambda: [
+            F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                           enable_gqa=True)
+            for q, k, v, m in dense],
+        "flash_attn, gemma3 bucket-64 prefill": lambda: [
+            flash_attention(q, k, v) for q, k, v in fins],
+        "SDPA is_causal, 6 layers": lambda: [
+            F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           enable_gqa=True)
+            for q, k, v in lins],
+    }
+    kernels = {}
+    for row, fn in rows.items():
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        replays = 20
+        ms = cuda_ms(torch, graph.replay, 50)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(replays):
+                graph.replay()
+            torch.cuda.synchronize()
+        times = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.count:
+                times[e.key[:100]] = [e.count / replays,
+                                      e.device_time_total / e.count]
+        kernels[row] = dict(graph_ms=ms, kernels=times)
+        log(f"[attn variants] {row}: {ms:.4f} ms from a graph; " + "; ".join(
+            f"{n[:60]} x{k:g} {us:.2f} us" for n, (k, us) in times.items()))
+    del pins, dense, fins, lins
+    free_device(torch)
+    return dict(turns=turns, kernels=kernels)
 
 
 # ---------------------------------------------------------- phase 11
@@ -5466,6 +5785,14 @@ def main() -> int:
         print(json.dumps({"fleet": phase_fleet(torch, dev), "kind": kind}))
         print(smi)
         return 0
+    if sys.argv[1:] == ["--attn-variants"]:
+        from repro_torch.kernels import build
+
+        log(build.build_all(["paged_attn", "flash_attn"]))
+        print(json.dumps({"attn_variants": attn_variants(torch, dev),
+                          "kind": kind}))
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--rbl-phases"]:
         from repro_torch.kernels import build
 
@@ -5573,6 +5900,8 @@ def main() -> int:
              launches_per_decode_step=exact["per_decode_step"]["paged_attn"],
              launches_per_prefill=exact["per_prefill"]["paged_attn"],
              launches_split=exact["launches"]["paged_attn_split"],
+             launches_ctx=exact["launches"]["paged_attn_ctx"],
+             launches_merge=exact["launches"]["paged_attn_merge"],
              launches_staged=exact["launches"]["paged_attn_staged"],
              max_abs_err=attn_err, max_abs_err_by_dtype=attn_worst),
         dict(name="bitplane_mac",
@@ -5622,9 +5951,19 @@ def main() -> int:
                 "flash_attn": ("gemma3-12b", "sim_flash", "flash_attn")}
     rec_rows = {"imc_mac": ("mamba2-370m", "exact", "imc_mac"),
                 "paged_attn": ("recurrentgemma-9b", "exact", "paged_attn")}
+    from repro_torch.kernels.launches import KERNELS, variants
+
     for k in kernels:
         k["launches_families"] = family_launches(families, k["name"])
         k["launches_recurrent"] = recurrent_launches(recurrent, k["name"])
+        # each __global__ function of the kernel (the context-split
+        # paged_attn and its merge among them), with its launches in
+        # phases 9 and 10
+        k["global_functions"] = {
+            v: dict(functions=list(KERNELS[name][2][attr]),
+                    launches_families=family_launches(families, v),
+                    launches_recurrent=recurrent_launches(recurrent, v))
+            for v, (name, attr) in variants().items() if name == k["name"]}
         k["launches_fleet"] = fleet_launches(fleet, k["name"])
         k["autotune"] = autotune_row(autotuned, k["name"])
         if k["name"] in fam_rows:  # the phase-9 row's own path

@@ -27,12 +27,12 @@
 //
 // Two kernels, chosen by flash_attn_tc_launch's caller (the wrapper's rule):
 //
-// * flash_attn_tc_kernel (bf16, hd % 16 == 0, hd <= 128): each warp owns 16
-//   query rows, held in registers as mma A-fragments (ldmatrix from a
-//   cp.async-staged copy).  Key tiles of 32 rows of K and V are staged into
-//   shared memory with 16-byte cp.async, double-buffered, rows padded by 16
-//   bytes so that ldmatrix (.trans for V) reads them without bank
-//   conflicts.  S = Q K^T runs on mma.sync m16n8k16 bf16 with an f32
+// * flash_attn_tc_kernel (bf16, hd % 16 == 0 and hd <= 128, or hd 256):
+//   each warp owns 16 query rows, held in registers as mma A-fragments
+//   (ldmatrix from a cp.async-staged copy).  Key tiles of 32 rows of K and
+//   V are staged into shared memory with 16-byte cp.async, double-buffered,
+//   rows padded by 16 bytes so that ldmatrix (.trans for V) reads them
+//   without bank conflicts.  S = Q K^T runs on mma.sync m16n8k16 bf16 with an f32
 //   accumulator; masks, row max (shuffles within the quad of lanes that
 //   shares a row) and the online softmax stay in registers.  P.V keeps the
 //   accuracy of an f32 P by splitting P into P_hi = bf16(P) and
@@ -42,6 +42,24 @@
 //   WARPS = 4 warps per block share one head's K/V tiles (on the H100 this
 //   was 0.5-3% faster than one warp per block loading its own causal
 //   prefix; PERF.md).
+//   hd 256 (gemma3-12b, recurrentgemma-9b) is the instance <256, 2, 2>.
+//   Held as above, a warp's Q fragments (64 registers a lane) and its
+//   16 x 256 f32 output (128) leave no room under the 255-register cap for
+//   S, P and addresses, and the kernel would spill.  So two warps share
+//   each 16-row group: each reads Q's A-fragment from shared memory
+//   by ldmatrix at each k16 step instead of holding it, computes the whole
+//   S = Q K^T tile, and keeps the online softmax and the output for its 128
+//   of the 256 columns (64 accumulator registers).  Both warps of a pair run
+//   the same instructions on the same tiles, so their m and l are equal bit
+//   for bit and no P crosses shared memory: the pair meets at no barrier
+//   beyond the block's two a tile.  The price is S computed twice (64 more
+//   mma a 32-key tile per warp, against the 128 of its half of P.V).  The
+//   other way, each warp of the pair scoring half of hd and the two
+//   exchanging partial S through shared memory, adds a barrier a tile.
+//   A block holds two such groups (32 rows, 4 warps): on the H100 that was
+//   9-13% faster than four groups (8 warps sharing a tensor core two by
+//   two) from S 64 to 2048, and than one group past S 1024, where more
+//   blocks read each K/V tile again (PERF.md).
 // * flash_attn_kernel (f32, and bf16 at any other hd; CUDA cores): one 128-thread
 //   block per (query tile of 16 rows, head, batch); each key tile of 32 rows
 //   is staged as f32 in shared memory (K rows padded by one float), scored
@@ -51,6 +69,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attn_mma.cuh"
 
 namespace {
 
@@ -201,79 +221,40 @@ namespace tc {
 
 constexpr int BQ = 16;  // query rows per warp: one m16 tile
 constexpr int BK = 32;  // keys per tile: four n8 tiles of S, two k16 of P.V
-constexpr int WARPS = 4;  // warps per block, sharing one head's K/V tiles
+constexpr int WARPS = 4;  // 16-row groups a block (default), sharing one head's K/V tiles
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using namespace attn_mma;
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !in (rows
-// past S: src is then only a valid address, no byte of it is read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices; lane i gives the row address of matrix i / 8.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), c 16x8 f32.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// P = hi + lo to ~2^-18 relative: hi = bf16(p), lo = bf16(p - hi).  Packs
-// the pair (p0, p1) of neighbouring columns as one A-fragment register.
-__device__ __forceinline__ void split2(float p0, float p1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat16 h0 = __float2bfloat16(p0), h1 = __float2bfloat16(p1);
-  hi = pack(h0, h1);
-  lo = pack(__float2bfloat16(p0 - __bfloat162float(h0)),
-            __float2bfloat16(p1 - __bfloat162float(h1)));
-}
-
-// Shared layout (bf16, rows padded to LD = HD + 8): q[WARPS*BQ][LD] |
+// Shared layout (bf16, rows padded to LD = HD + 8): q[RG*BQ][LD] |
 // k[2][BK][LD] | v[2][BK][LD].  The 16-byte pad puts the 8 rows that one
 // ldmatrix reads on 8 distinct 4-bank groups.
-template <int HD>
-__global__ void __launch_bounds__(WARPS * 32)
+//
+// RG 16-row groups a block (WARPS at hd <= 128, 2 at hd 256); HS warps
+// share each group (HS = 1 at hd <= 128, 2 at hd 256): warp
+// `half` of a group computes the whole S = Q K^T tile and writes output
+// columns [half * HD / HS, (half + 1) * HD / HS).  At HS = 1 a warp holds
+// its Q as KS A-fragments, loaded once; at HS = 2 it reads each k16 step's
+// A-fragment from q_s by ldmatrix where it uses it (module header).
+template <int HD, int HS, int RG>
+__global__ void __launch_bounds__(RG * HS * 32)
 flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                      int S, int H, int KV, float scale, int window) {
   constexpr int LD = HD + 8;
   constexpr int CH = HD / 8;   // 16-byte chunks per row
   constexpr int KS = HD / 16;  // k16 steps of Q K^T
-  constexpr int NT = HD / 8;   // n8 tiles of the output
-  constexpr int THREADS = WARPS * 32;
+  constexpr int OD = HD / HS;  // output columns per warp
+  constexpr int NT = OD / 8;   // n8 tiles of the warp's output
+  constexpr int THREADS = RG * HS * 32;
+  static_assert(OD % 16 == 0, "a warp's output is whole k16 column pairs");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + WARPS * BQ * LD;
+  __nv_bfloat16* k_s = q_s + RG * BQ * LD;
   __nv_bfloat16* v_s = k_s + 2 * BK * LD;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int warp = (tid >> 5) / HS;  // the warp's 16-row group
+  const int half = (tid >> 5) % HS;  // which OD columns of the output it writes
   const int lane = tid & 31;
   const int g = lane >> 2;  // the fragment row (and row + 8) this lane holds
   const int tg = lane & 3;  // its column pair within an n8 tile
@@ -281,7 +262,7 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int qb0 = blockIdx.x * WARPS * BQ;  // the block's first row
+  const int qb0 = blockIdx.x * RG * BQ;  // the block's first row
   const int q0 = qb0 + warp * BQ;           // the warp's first row
   // q / out: (B, S, H, HD); k / v: (B, S, KV, HD), all contiguous
   const size_t q_row = static_cast<size_t>(H) * HD;
@@ -291,7 +272,7 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const __nv_bfloat16* vg = v + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(kvh) * HD;
 
   // Key tiles any row of the block can see: [t_first, t_end).
-  const int kb_hi = min(S, qb0 + WARPS * BQ);
+  const int kb_hi = min(S, qb0 + RG * BQ);
   const int kb_lo = window ? max(0, qb0 - window + 1) : 0;
   const int t_first = kb_lo / BK;
   const int t_end = (kb_hi + BK - 1) / BK;
@@ -299,7 +280,7 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int kw_hi = min(S, q0 + BQ);
   const int kw_lo = window ? max(0, q0 - window + 1) : 0;
 
-  for (int i = tid; i < WARPS * BQ * CH; i += THREADS) {
+  for (int i = tid; i < RG * BQ * CH; i += THREADS) {
     const int r = i / CH, c = i % CH;
     const bool in = qb0 + r < S;
     cp_async16(q_s + r * LD + c * 8, in ? qg + (qb0 + r) * q_row + c * 8 : qg, in);
@@ -321,7 +302,7 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   auto visible = [&](int key, int row) {
     return key <= row && key < S && (window == 0 || key > row - window);
   };
-  uint32_t qf[KS][4];
+  uint32_t qf[HS == 1 ? KS : 1][4];  // HS = 1: the warp's Q, held
   float o[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -337,10 +318,12 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       cp_wait<0>();
     }
     __syncthreads();  // every thread's copies of tile t (and Q) have landed
-    if (t == t_first) {
+    if constexpr (HS == 1) {
+      if (t == t_first) {
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        ldsm4(qf[ks], q_s + (warp * BQ + (mi & 1) * 8 + (lane & 7)) * LD + ks * 16 + (mi >> 1) * 8);
+        for (int ks = 0; ks < KS; ++ks) {
+          ldsm4(qf[ks], q_s + (warp * BQ + (mi & 1) * 8 + (lane & 7)) * LD + ks * 16 + (mi >> 1) * 8);
+        }
       }
     }
     const int j0 = t * BK;
@@ -350,14 +333,29 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       float s[BK / 8][4];
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      if constexpr (HS == 1) {
 #pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {  // 16 keys: two n8 tiles
+        for (int np = 0; np < BK / 16; ++np) {  // 16 keys: two n8 tiles
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            uint32_t kb[4];
+            ldsm4(kb, kt + (np * 16 + (mi >> 1) * 8 + (lane & 7)) * LD + ks * 16 + (mi & 1) * 8);
+            mma(s[2 * np], qf[ks], kb[0], kb[1]);
+            mma(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+          }
+        }
+      } else {  // each k16 step's Q fragment read where it is used
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
-          uint32_t kb[4];
-          ldsm4(kb, kt + (np * 16 + (mi >> 1) * 8 + (lane & 7)) * LD + ks * 16 + (mi & 1) * 8);
-          mma(s[2 * np], qf[ks], kb[0], kb[1]);
-          mma(s[2 * np + 1], qf[ks], kb[2], kb[3]);
+          uint32_t qa[4];
+          ldsm4(qa, q_s + (warp * BQ + (mi & 1) * 8 + (lane & 7)) * LD + ks * 16 + (mi >> 1) * 8);
+#pragma unroll
+          for (int np = 0; np < BK / 16; ++np) {
+            uint32_t kb[4];
+            ldsm4(kb, kt + (np * 16 + (mi >> 1) * 8 + (lane & 7)) * LD + ks * 16 + (mi & 1) * 8);
+            mma(s[2 * np], qa, kb[0], kb[1]);
+            mma(s[2 * np + 1], qa, kb[2], kb[3]);
+          }
         }
       }
       float mx0 = NEG_INF, mx1 = NEG_INF;
@@ -411,9 +409,10 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
         split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
-        for (int np = 0; np < HD / 16; ++np) {
+        for (int np = 0; np < OD / 16; ++np) {
           uint32_t vb[4];
-          ldsm4_t(vb, vt + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LD + np * 16 + (mi >> 1) * 8);
+          ldsm4_t(vb, vt + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LD + half * OD + np * 16 +
+                          (mi >> 1) * 8);
           mma(o[2 * np], ph, vb[0], vb[1]);
           mma(o[2 * np], pl, vb[0], vb[1]);
           mma(o[2 * np + 1], ph, vb[2], vb[3]);
@@ -433,7 +432,7 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   __nv_bfloat16* ob = out + static_cast<size_t>(b) * S * q_row + static_cast<size_t>(h) * HD;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
-    const int col = n * 8 + tg * 2;
+    const int col = half * OD + n * 8 + tg * 2;
     if (r0 < S) {
       *reinterpret_cast<uint32_t*>(ob + r0 * q_row + col) =
           pack(__float2bfloat16(o[n][0] / d0), __float2bfloat16(o[n][1] / d0));
@@ -445,18 +444,18 @@ flash_attn_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
-template <int HD>
+template <int HD, int HS = 1, int RG = WARPS>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
            int KV, float scale, int window, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * (WARPS * BQ + 4 * BK) * (HD + 8);
-  auto kernel = flash_attn_tc_kernel<HD>;
+  const size_t smem = sizeof(__nv_bfloat16) * (RG * BQ + 4 * BK) * (HD + 8);
+  auto kernel = flash_attn_tc_kernel<HD, HS, RG>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dim3 grid((S + WARPS * BQ - 1) / (WARPS * BQ), H, B);
-  kernel<<<grid, WARPS * 32, smem, stream>>>(
+  dim3 grid((S + RG * BQ - 1) / (RG * BQ), H, B);
+  kernel<<<grid, RG * HS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, H, KV, scale,
       window);
@@ -474,6 +473,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int
     case 96: return launch<96>(q, k, v, out, B, S, H, KV, scale, window, s);
     case 112: return launch<112>(q, k, v, out, B, S, H, KV, scale, window, s);
     case 128: return launch<128>(q, k, v, out, B, S, H, KV, scale, window, s);
+    case 256: return launch<256, 2, 2>(q, k, v, out, B, S, H, KV, scale, window, s);
     default: return -1;
   }
 }
@@ -504,7 +504,8 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
 }
 
 // The tensor-core kernel.  q, out: (B, S, H, hd); k, v: (B, S, KV, hd); all
-// contiguous bf16 with 16-byte aligned pointers; hd in {16, 32, ..., 128}.
+// contiguous bf16 with 16-byte aligned pointers; hd in {16, 32, ..., 128,
+// 256}.
 // H must be a multiple of KV.  Returns a cudaError_t value, or -1 for an hd
 // the kernel does not take.
 extern "C" int flash_attn_tc_launch(const void* q, const void* k, const void* v,

@@ -10,10 +10,12 @@ memory), or raises on a build failure, a refused launch, a wrong dtype,
 device or shape; a CPU tensor takes the plain version
 :func:`flash_attention_torch`.
 
-Which kernel, by a fixed rule: bf16 q/k/v with ``hd % 16 == 0``,
-``hd <= 128`` and 16-byte aligned pointers take the tensor-core kernel
-(``flash_attn_tc_launch``, 4 warps per block); f32, and bf16 at
-any other hd, take the CUDA-core kernel (``flash_attn_launch``).  Counters:
+Which kernel, by a fixed rule (:func:`takes_tensor_cores`): bf16 q/k/v
+with ``hd % 16 == 0`` and ``hd <= 128``, or hd 256, and 16-byte aligned
+pointers take the tensor-core kernel (``flash_attn_tc_launch``, 4 warps per
+block; at hd 256 two warps share each 16 query rows, 32 rows a block); f32,
+and bf16 at any other hd (hd 144-240, or not a multiple of 16), take the
+CUDA-core kernel (``flash_attn_launch``).  Counters:
 ``flash_attention.launches`` counts every kernel launch and nothing else,
 ``tc_launches`` and ``simt_launches`` those of each kernel.
 """
@@ -52,7 +54,8 @@ def takes_tensor_cores(q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor) -> bool:
     """The dispatch rule: does this call take the tensor-core kernel?"""
     hd = q.shape[-1]
-    return (q.dtype == torch.bfloat16 and hd % 16 == 0 and hd <= 128
+    return (q.dtype == torch.bfloat16 and hd % 16 == 0
+            and (hd <= 128 or hd == 256)
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 

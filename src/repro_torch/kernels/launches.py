@@ -1,6 +1,8 @@
 """Every kernel wrapper's launch counters, read and written together.
 
-A wrapper adds one to its counter in Python where it launches its kernel.
+A wrapper adds one to its counter in Python where it launches its kernel
+(``paged_attention``'s context-split path launches two, the kernel and its
+merge, and counts each).
 A CUDA graph replays launches without running that Python, so
 :class:`~repro_torch.launch.engine.Engine` takes the counters' difference
 over a capture (:func:`snapshot`), takes it back (:func:`restore`: a capture
@@ -37,6 +39,8 @@ KERNELS = {
         "imc_mac_dequant_torch"),
     "paged_attn": ("paged_attn.ops", "paged_attention", {
         "split_launches": ("paged_split_kernel",),
+        "ctx_launches": ("paged_ctx_kernel",),
+        "merge_launches": ("paged_ctx_merge_kernel",),
         "staged_launches": ("paged_decode_kernel",)},
         "paged_decode_torch"),
     "bitplane_mac": ("bitplane_mac.ops", "bitplane_mac", {

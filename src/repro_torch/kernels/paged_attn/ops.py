@@ -9,14 +9,30 @@ with head ``h = kvh * rep + r``, so K/V are never repeated); a CPU tensor
 takes the plain dense-gather version :func:`paged_decode_torch`.
 ``impl="cuda"`` on a CPU tensor and ``impl="torch"`` on a CUDA tensor raise.
 
-Which kernel, by a fixed rule (:func:`takes_split`): rep 1 to 8, rows of
-``hd`` elements that split into a power of two of lanes, 1 to 32, of E
-elements each (E = 4 for f32, 8 for bf16 and int8: one 16-byte load, 8
-bytes for int8), and pools aligned to that load, take the split kernel
-(``paged_attn_split_launch``); every other geometry takes the staged kernel
-(``paged_attn_launch``).  Counters: ``paged_attention.launches`` counts
-every kernel launch and nothing else, ``split_launches`` and
-``staged_launches`` those of each kernel.
+Which kernel, by fixed rules, in order:
+
+* :func:`takes_split`: rep 1 to 8, rows of ``hd`` elements that split into
+  a power of two of lanes, 1 to 32, of E elements each (E = 4 for f32, 8
+  for bf16 and int8: one 16-byte load, 8 bytes for int8), and pools aligned
+  to that load, take the split kernel (``paged_attn_split_launch``).
+* :func:`takes_ctx_split`: rep 9 to 16, bf16 queries over bf16 or int8
+  pools, ``hd % 16 == 0`` and ``hd <= 256``, a table of at most 1024
+  chunks (65,536 keys), q and the pools 16-byte aligned, take the
+  context-split tensor-core kernel and its merge (``paged_attn_ctx_launch``:
+  two launches, over :func:`ctx_chunks` chunks of 64 keys fixed by the
+  table's shape; the partials' scratch is allocated here, uninitialized).
+* Every other geometry takes the staged kernel (``paged_attn_launch``):
+  f32 pools at rep > 8, or at rep <= 8 past 32 lanes (f32 at hd 256); f32
+  queries over int8 pools at rep > 8; rep > 16; lane groups that are not a
+  power of two (hd 24); hd past 256 or not a multiple of 16, or tables
+  past 65,536 keys, at rep 9-16; pointers the other kernels cannot load
+  from.
+
+Counters: ``paged_attention.launches`` counts every kernel launch and
+nothing else (2 for a context-split call: the kernel and its merge);
+``split_launches``, ``ctx_launches`` (the context-split kernel),
+``merge_launches`` (its merge) and ``staged_launches`` those of each
+kernel.
 """
 from __future__ import annotations
 
@@ -30,9 +46,17 @@ ATTN_IMPLS = ("auto", "torch", "cuda")
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _CHUNK = {torch.float32: 4, torch.bfloat16: 8, torch.int8: 8}  # E
-# both entry points take the same arguments
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int])
+CTX_KEYS = 64  # keys of a context-split chunk (csrc's ctx::TK)
+CTX_ROWS = 16  # rows of its m16 tile: rep <= 16 query heads (ctx::MR)
+CTX_MAX_CHUNKS = 1024  # chunks a slot's table may span (ctx::MAX_CHUNKS)
+# the split and staged entry points take the same arguments; the
+# context-split one adds the two scratch pointers and the chunk count
+_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
+         + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int])
+_ARGTYPES = {"paged_attn_launch": _ARGS, "paged_attn_split_launch": _ARGS,
+             "paged_attn_ctx_launch": [ctypes.c_void_p] * 10
+             + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 3
+             + [ctypes.c_void_p, ctypes.c_int]}
 _FNS = {}
 
 
@@ -42,7 +66,7 @@ def _entry(name: str):
     fn = _FNS.get(name)
     if fn is None:
         fn = getattr(build.load("paged_attn"), name)
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
         _FNS[name] = fn
     return fn
 
@@ -57,6 +81,25 @@ def takes_split(rep: int, k_pool: torch.Tensor, v_pool: torch.Tensor) -> bool:
             and lanes & (lanes - 1) == 0
             and k_pool.data_ptr() % align == 0
             and v_pool.data_ptr() % align == 0)
+
+
+def takes_ctx_split(rep: int, q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, mb: int) -> bool:
+    """The dispatch rule: does a call that the split kernel does not take
+    take the context-split kernel?  ``mb``: the block table's width."""
+    hd = k_pool.shape[-1]
+    return (9 <= rep <= CTX_ROWS and q.dtype == torch.bfloat16
+            and k_pool.dtype in (torch.bfloat16, torch.int8)
+            and hd % 16 == 0 and hd <= 256
+            and ctx_chunks(mb, k_pool.shape[1]) <= CTX_MAX_CHUNKS
+            and all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)))
+
+
+def ctx_chunks(mb: int, bs: int) -> int:
+    """The context-split kernel's chunks a slot: ``ceil(mb * bs / 64)``,
+    from the block table's shape alone, so that a graph captured at one
+    ``pos`` replays at every other."""
+    return -(-mb * bs // CTX_KEYS)
 
 
 def paged_decode_torch(q, k_pool, v_pool, block_table, pos, *, k_scale=None,
@@ -142,10 +185,23 @@ def _launch(q, k_pool, v_pool, block_table, pos, k_scale, v_scale,
             tbl.data_ptr(), ps.data_ptr(), out.data_ptr(),
             b, kv, h // kv, hd, bs, mb, hd ** -0.5, int(window),
             _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], stream, dev)
-    if takes_split(h // kv, kp, vp):
+    rep = h // kv
+    if takes_split(rep, kp, vp):
         build.check_launch("paged_attn_split",
                            _entry("paged_attn_split_launch")(*args))
         paged_attention.split_launches += 1
+    elif takes_ctx_split(rep, qg, kp, vp, mb):
+        c = ctx_chunks(mb, bs)
+        part_acc = torch.empty((b * kv, c, CTX_ROWS, hd), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b * kv, c, 2, CTX_ROWS), dtype=torch.float32,
+                              device=q.device)
+        build.check_launch("paged_attn_ctx", _entry("paged_attn_ctx_launch")(
+            *args[:8], part_acc.data_ptr(), part_ml.data_ptr(),
+            *args[8:14], c, *args[14:]))
+        paged_attention.ctx_launches += 1
+        paged_attention.merge_launches += 1
+        paged_attention.launches += 1  # the merge; the kernel's below
     else:
         build.check_launch("paged_attn", _entry("paged_attn_launch")(*args))
         paged_attention.staged_launches += 1
@@ -181,4 +237,6 @@ def paged_attention(q, k_pool, v_pool, block_table, pos, *, k_scale=None,
 
 paged_attention.launches = 0
 paged_attention.split_launches = 0
+paged_attention.ctx_launches = 0
+paged_attention.merge_launches = 0
 paged_attention.staged_launches = 0

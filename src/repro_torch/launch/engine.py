@@ -58,6 +58,7 @@ lowering; one H100 runs none of them.
 """
 from __future__ import annotations
 
+import gc
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -159,8 +160,18 @@ class _Binding:
         cur.wait_stream(side)
         before = launches.snapshot()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = self.call(self.refs)
+        # No cyclic garbage collection inside the capture: an earlier
+        # Engine's graph or event collected there frees CUDA resources
+        # mid-capture, which invalidates it (CUDA error 901 at the next
+        # launch; seen in gemma3-12b's 9b capture after 9a's serves).
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out = self.call(self.refs)
+        finally:
+            if collecting:
+                gc.enable()
         self.delta = launches.diff(launches.snapshot(), before)
         launches.restore(before)
         self.graph, self.outputs = graph, out

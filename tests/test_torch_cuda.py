@@ -19,13 +19,14 @@ count's band, mismatch 1.0, rows 16 and 3),
 ``paged_attn`` at the
 bounds of ``tests/test_paged_attn.py`` (f32 5e-6, bf16 1.6e-2 = one output
 ulp, int8 1e-2), ``flash_attn`` at those of ``tests/test_flash_attn.py``
-(f32 3e-6, bf16 2e-2); for these two, each case asserts which kernel ran
-(the split or the staged paged kernel, the tensor-core or the CUDA-core flash
-kernel; for ``imc_mac`` and ``imc_mac_dequant``, the split-K kernel at
-M <= 16 or the tensor-core one above, also on N not a multiple of 8,
-weights at a byte offset, K = 0 and -128 operands, and after two replays of
-a CUDA graph that captured one launch).  Every launch bumps the wrapper's
-counter exactly once; wrong dtypes and devices raise.  The ``Fabric``
+(f32 3e-6, bf16 2e-2); for these two, each case asserts which kernel ran (the
+split, the context-split (rep 9-16) or the staged paged kernel, the tensor-core
+(hd <= 128 and 256) or the CUDA-core flash kernel; for ``imc_mac`` and
+``imc_mac_dequant``, the split-K kernel at M <= 16 or the tensor-core one
+above, also on N not a multiple of 8, weights at a byte offset, K = 0 and
+-128 operands, and after two replays of a CUDA graph that captured one
+launch).  Every kernel launch bumps the wrapper's counter exactly once (a
+context-split call launches two); wrong dtypes and devices raise.  The ``Fabric``
 facade's word logic, adder and matmul on the card equal the CPU's.
 ``bitplane_mac_noisy`` reads its seed words from device memory (a captured
 launch replays the seed written before the replay), and the ``Engine``
@@ -213,17 +214,31 @@ def _ragged(rng, pos, mb, nb, bs):
     return tbl
 
 
+def _paged_kernel(dtype, rep, hd):
+    """The counter the dispatch rules must tick (``takes_split``, then
+    ``takes_ctx_split``, else the staged kernel)."""
+    if rep <= 8 and hd != 24:
+        return "split_launches"
+    if 9 <= rep <= 16 and dtype != "f32" and hd % 16 == 0:
+        return "ctx_launches"
+    return "staged_launches"
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("window", [0, 16])
 @pytest.mark.parametrize("geom", [(4, 12, 12, 64), (3, 16, 2, 128),
-                                  (3, 4, 2, 24)])
+                                  (3, 4, 2, 24), (3, 16, 1, 256),
+                                  (3, 24, 2, 256)])
 @pytest.mark.parametrize("positions", [None, (0, 15, 16, 127, 3)],
                          ids=["pos5-17-40", "pos0-15-16-127"])
 def test_paged_attn_matches_plain(hopper, dtype, window, geom, positions):
     """Demonstrator (MHA, hd 64) and qwen2.5-3b (rep 8, hd 128) geometries
-    take the split kernel, hd 24 the staged kernel; ragged tables with
-    sentinels, the last slot inactive.  At pos 0, and at pos 127 under a
-    window of 16, whole warps of the split kernel see no key."""
+    take the split kernel, hd 24 the staged kernel; recurrentgemma-9b's rep
+    16 (and rep 12) at hd 256 the context-split kernel over bf16 and int8
+    pools, the staged one over f32; ragged tables with sentinels, the last
+    slot inactive.  At pos 0, and at pos 127 under a window of 16, whole
+    warps of the split kernel, and whole chunks of the context-split one,
+    see no key."""
     B, H, KV, hd = geom
     pos = [5, 17, 40, 0][:B] if positions is None else list(positions)
     B = len(pos)
@@ -247,16 +262,65 @@ def test_paged_attn_matches_plain(hopper, dtype, window, geom, positions):
     tbl = torch.tensor(tbl, device=hopper)
     p = torch.tensor(pos, dtype=torch.int32, device=hopper)
     before = paged_attention.launches
-    split = paged_attention.split_launches
+    kernel = _paged_kernel(dtype, H // KV, hd)
+    counts = {c: getattr(paged_attention, c) for c in (
+        "split_launches", "ctx_launches", "merge_launches",
+        "staged_launches")}
     out = paged_attention(q, k, v, tbl, p, window=window, **kw)
     torch.cuda.synchronize()
-    assert paged_attention.launches == before + 1
-    assert paged_attention.split_launches == split + (hd != 24)
+    ctx = kernel == "ctx_launches"  # the kernel and its merge
+    assert paged_attention.launches == before + 1 + ctx
+    assert {c: getattr(paged_attention, c) - n for c, n in counts.items()} \
+        == {c: int(c == kernel or (ctx and c == "merge_launches"))
+            for c in counts}
     ref = paged_decode_torch(q, k, v, tbl, p, window=window, **kw)
     assert bool(torch.isfinite(out).all())
     assert bool((out[B - 1] == 0).all()), "an empty table flushes zeros"
     err = (out[:B - 1].float() - ref[:B - 1].float()).abs().max().item()
+    if dtype == "int8" and ctx:
+        # the context-split kernel keeps the dequantized K, V and P in f32
+        # where the plain version rounds them to bf16: within one bf16 ulp
+        # at the largest |out| of the plain version (as chip_smoke.py's
+        # int8 cases at hd 256) or, farther, within that of a float64
+        # witness and no farther from it than the plain version
+        tol = max(ATOL[dtype], _bf16_ulp(ref[:B - 1].float().abs().max()
+                                         .item()))
+        if err > tol:
+            exact = _paged_f64(q, k, v, tbl, p, window, **kw)[:B - 1]
+            e_k = (out[:B - 1].cpu().double() - exact).abs().max().item()
+            e_p = (ref[:B - 1].cpu().double() - exact).abs().max().item()
+            assert e_k <= min(tol, e_p), (err, e_k, e_p)
+        return
     assert err <= ATOL[dtype], err
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at magnitude ``x``."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7) if x > 0 else 0.0
+
+
+def _paged_f64(q, k, v, tbl, pos, window, k_scale, v_scale):
+    """Paged decode in float64 on the CPU, int8 pools dequantized against
+    their scales and P kept exact."""
+    q, k, v, tbl, pos = (t.cpu() for t in (q, k, v, tbl, pos))
+    kd = k.double() * k_scale.cpu().double()[..., None]
+    vd = v.double() * v_scale.cpu().double()[..., None]
+    b_, _, h, hd = q.shape
+    bs, kvh = k.shape[1], k.shape[2]
+    out = torch.zeros(q.shape, dtype=torch.float64)
+    for b in range(b_):
+        p = int(pos[b])
+        keys = [t for t in range(p + 1) if int(tbl[b, t // bs]) >= 0
+                and (not window or t > p - window)]
+        if not keys:
+            continue
+        blk = [int(tbl[b, t // bs]) for t in keys]
+        off = [t % bs for t in keys]
+        qg = q[b, 0].double().reshape(kvh, h // kvh, hd)
+        sc = (qg @ kd[blk, off].permute(1, 2, 0)) * hd ** -0.5
+        out[b, 0] = (sc.softmax(-1) @ vd[blk, off].transpose(0, 1)
+                     ).reshape(h, hd)
+    return out
 
 
 def test_paged_attn_rejects_bad_operands(hopper):
@@ -268,6 +332,22 @@ def test_paged_attn_rejects_bad_operands(hopper):
         paged_attention(q, k, k, tbl, p)  # f32 pools need f32 queries
     with pytest.raises(ValueError, match="plain version"):
         paged_attention(q, k.bfloat16(), k.bfloat16(), tbl, p, impl="torch")
+    # the context-split kernel's geometry (rep 16, hd 256): the same checks
+    # run before any kernel is chosen, and nothing launches
+    q16 = torch.zeros((1, 1, 16, 256), dtype=torch.bfloat16, device=hopper)
+    k8 = torch.zeros((2, 4, 1, 256), dtype=torch.int8, device=hopper)
+    sc = torch.ones((2, 4, 1), dtype=torch.float16, device=hopper)
+    before = paged_attention.launches
+    with pytest.raises(ValueError, match="k_scale"):
+        paged_attention(q16, k8, k8, tbl, p)  # int8 pools need scales
+    with pytest.raises(ValueError, match="f16"):
+        paged_attention(q16, k8, k8, tbl, p, k_scale=sc.float(),
+                        v_scale=sc.float())
+    with pytest.raises(TypeError):  # bf16 pools need bf16 queries
+        paged_attention(q16.float(), k8.bfloat16(), k8.bfloat16(), tbl, p)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        paged_attention(q16, k8, k8, tbl.cpu(), p, k_scale=sc, v_scale=sc)
+    assert paged_attention.launches == before
 
 
 # the served-case kernel (rows 8, 8x8 bits): every M in {1, 3, 4, 5, 9, 64},
@@ -524,23 +604,26 @@ def test_noisy_sim_fabric_on_the_card(hopper):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("window", [0, 16])
 @pytest.mark.parametrize("geom", [(1, 12, 12, 64), (2, 16, 2, 128),
-                                  (1, 4, 2, 32), (1, 4, 2, 24)])
+                                  (1, 4, 2, 32), (1, 4, 2, 24),
+                                  (1, 16, 8, 256), (1, 16, 1, 256)])
 @pytest.mark.parametrize("s", [16, 40, 64, 130, 1, 15, 17, 100])
 def test_flash_attn_matches_plain(hopper, dtype, window, geom, s):
-    """bf16 at hd 32, 64 and 128 takes the tensor-core kernel; f32, and
-    bf16 at hd 24, the CUDA-core kernel."""
+    """bf16 at hd 32, 64, 128 and 256 (gemma3-12b's rep 2,
+    recurrentgemma-9b's rep 16: two warps a 16-row group) takes the
+    tensor-core kernel; f32, and bf16 at hd 24, the CUDA-core kernel."""
     B, H, KV, hd = geom
     dt = torch.float32 if dtype == "f32" else torch.bfloat16
     g = torch.Generator(device=hopper).manual_seed(s + window + H)
     q, k, v = (torch.randn((B, s, h, hd), generator=g, device=hopper).to(dt)
                for h in (H, KV, KV))
     before = flash_attention.launches
-    tc = flash_attention.tc_launches
+    tc, simt = flash_attention.tc_launches, flash_attention.simt_launches
     out = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    assert flash_attention.tc_launches == tc + (dtype == "bf16" and
-                                                hd != 24)
+    on_tc = dtype == "bf16" and hd != 24
+    assert flash_attention.tc_launches == tc + on_tc
+    assert flash_attention.simt_launches == simt + (not on_tc)
     assert out.dtype == dt and out.shape == q.shape
     ref = flash_attention_torch(q, k, v, window=window)
     err = (out.float() - ref.float()).abs().max().item()
