@@ -47,12 +47,18 @@ result:
    plain version, which rounds them to bf16 (``--int8-witness`` below);
    ``tests/test_torch_cuda.py`` holds that geometry.
 4. ``bitplane_mac`` against its plain version on the card, bit for bit,
-   one launch per call: the demonstrator's shapes at M in {4, 64}; the
-   served-case kernel (rows 8, 8x8 bits) at every M in {1, 3, 4, 5, 9, 64},
-   K in {8, 100, 1030, 3072} and N in {1, 31, 129, 768} and on all-255
-   operands; a ragged shape; the generic kernel at bits 4x8, 6x6, 3x5 and
-   rows 16; detuned (2x2 and 8x8 bits) and random (8x8) ``thr``, equal to
-   the plain version and different from the calibrated result.
+   one launch per call, which of its three kernels ran asserted each time
+   by counter (the wrapper counts the kernel the C launcher reports it
+   launched, held against the Python twin of the rule): the demonstrator's shapes at M in {4, 64}; the served case
+   (rows 8, 8x8 bits: the r8 kernel at M <= 8, the tensor-core kernel
+   above) at every M in {1, 3, 4, 5, 9, 64}, K in {8, 100, 1030, 3072} and
+   N in {1, 31, 129, 768} and on all-255 operands; a ragged shape; the
+   generic kernel at bits 4x8, 6x6, 3x5 and rows 16; detuned (2x2 and 8x8
+   bits) and random (8x8) ``thr``, equal to the plain version and
+   different from the calibrated result; then the tensor-core kernel at M
+   in {16, 17, 32, 33, 64, 65, 512} (``MMA_SHAPES``) under the calibrated,
+   the detuned and a random table, on random and all-255 operands, and its
+   C ``bitplane_mma_plan`` equal to ``ops.bitplane_mma_plan``.
    b. ``bitplane_mac_noisy`` against its plain version on the card, bit for
       bit (both draw one Philox stream with the same float32 arithmetic):
       the demonstrator's shapes at M in {4, 64}, ragged 33x1030x129, bits
@@ -117,6 +123,10 @@ result:
       the largest |logit|).
    b. the paper's ``sim`` fabric with flash prefill: ``bitplane_mac``,
       ``flash_attn`` and ``paged_attn`` must launch, ``imc_mac`` never;
+      ``bitplane_mac``'s tensor-core kernel 72 times per prefill (the
+      replayed bucket-16 and bucket-64 graphs, counted on the device, and
+      eager bucket-32 and bucket-64 prefills) and never in a decode step,
+      whose 72 launches are the r8 kernel's;
       the tensor-core ``flash_attn`` kernel 12 times per bucketed prefill
       and the split ``paged_attn`` kernel 12 times per decode step, the
       CUDA-core flash and staged paged kernels never (on any served path:
@@ -183,6 +193,15 @@ result:
    ``imc_mac`` adds rows for one bucket-64 and one bucket-32 prefill's 72
    projections (M = 64 and 32, on the tensor-core kernel) beside
    ``torch._int_mm``, and ``imc_mac_dequant`` one for a bucket-64 prefill;
+   ``bitplane_mac`` rows for one bucket-16, -32 and -64 prefill's 72
+   projections and one training forward's (M = 512), its tensor-core
+   kernel, each also from a graph under the detuned table and with the
+   decode bound of its group counts (one integer instruction a count at 64
+   an SM a clock) beside the int8 bound, one (768, 3072) projection of the
+   bucket-64 prefill and of the training forward beside its plain version
+   (the first is the ``bitplane_mac_mma`` entry of the ``kernels`` line),
+   and ``bitplane_mac_noisy`` rows for a bucket-64 prefill and the training
+   forward, from graphs;
    the bucket-64 ``imc_mac`` row is also timed over one layer's weights
    alone (7.1 MB, resident in L2), the kernels without device-memory
    traffic.
@@ -207,8 +226,9 @@ result:
       it along train()'s own 8-step schedule); one step profiled; the
       kernels that the deterministic-algorithms mode swaps are named.
    b. ``sim`` and noisy ``sim`` (``NoiseSpec.calibrated()``), full width, 2
-      layers, batch 4 x seq 128, 3 steps each: 24 ``bitplane_mac`` /
-      ``bitplane_mac_noisy`` launches a step; noisy, one step seed twice
+      layers, batch 4 x seq 128, 3 steps each: 24 ``bitplane_mac`` (all
+      on its tensor-core kernel, M = 512) / ``bitplane_mac_noisy``
+      launches a step; noisy, one step seed twice
       gives the same loss and gradients bit for bit, another step's seed
       another loss.
    c. The card against the CPU's plain path, same params and batch, 2
@@ -221,11 +241,11 @@ result:
       ``exact`` bit for bit at seq 128.
    d. The three kernels at the training shapes against their plain
       versions, bit for bit: ``imc_mac`` at M = 2048 and 2047,
-      ``bitplane_mac`` and ``bitplane_mac_noisy`` (a seed-table row) at
-      M = 512.
+      ``bitplane_mac`` (its tensor-core kernel, by counter) and
+      ``bitplane_mac_noisy`` (a seed-table row) at M = 512.
    Phase 7 adds the training shapes: ``imc_mac`` over one training
    forward's 72 projections at M = 2048 (beside ``torch._int_mm``), and
-   ``bitplane_mac`` at M = 512.
+   ``bitplane_mac`` at M = 512 (with its prefill rows, below).
 
 9. The seven attention-only families (``FAMILY_LAYERS``), each at full
    width, its depth cut to its pattern period and at least 2 layers
@@ -488,6 +508,18 @@ at S 1024 and 2048; the context-split ``paged_attn`` merge's sum unrolled
 two rows and their SDPA calls, kernel by kernel, and prints one JSON line
 and the nvidia-smi line (``ATTN_VARIANTS``, ``attn_variants``).
 
+    python3 chip_smoke.py --bitplane-variants
+
+times ``bitplane_mac`` built from text patches of its source, in turns from
+graphs, on one step's 72 projections at M in {4, 8, 9, 16, 17, 32, 64,
+512}: the source, the r8 kernel at every M (the rule before the
+tensor-core kernel), the tensor-core kernel at every M, its plan's target
+at 264 and 792 blocks, and, results wrong on purpose, the tensor-core
+kernel without its mma, without its prmt decode and with an add in place
+of its dp4a (``BITPLANE_VARIANTS``); prints one JSON line and the
+nvidia-smi line: where the kernel rule's threshold and the plan's target
+come from, and where the kernel's time goes.
+
     python3 chip_smoke.py --int8-witness
 
 runs ``paged_attn`` (whichever kernel the tree's wrapper picks) on two int8
@@ -598,12 +630,20 @@ MACRO_KERNELS = ("imc_mac_dequant", "rbl_decode_mac")  # no served path
 MACRO_PAIRS = 1 << 22  # uint8 operand pairs of the word-logic checks
 SWEEP_SHIFTS = (0.0, 0.01, 0.05, 0.1, 0.2)  # volts: 6d's threshold study
 MAX_NEW = 16
-# bitplane_mac's served-case kernel: every M in {1, 3, 4, 5, 9, 64}, K in
+# bitplane_mac's served case (rows 8, 8x8 bits; the r8 kernel at M <= 8,
+# the tensor-core kernel above): every M in {1, 3, 4, 5, 9, 64}, K in
 # {8, 100, 1030, 3072} and N in {1, 31, 129, 768} appears
 R8_SHAPES = ((1, 8, 1), (3, 100, 31), (4, 1030, 129), (5, 3072, 768),
              (9, 8, 768), (64, 100, 129), (1, 3072, 31), (3, 1030, 1),
              (4, 8, 31), (5, 100, 1), (9, 1030, 768), (64, 3072, 129))
 R8_ODD_SHAPES = ((3, 100, 31), (4, 1030, 129), (4, 768, 768), (9, 8, 1))
+# the tensor-core kernel's cases, each under the calibrated, the detuned
+# and a random table: M in {16, 17, 32, 33, 64, 65, 512}, K in {8, 100,
+# 768, 1030, 3072}, N in {1, 31, 129, 200, 768, 3072}, the prefill buckets'
+# projections and the training forward's M
+MMA_SHAPES = ((16, 768, 768), (17, 1030, 129), (32, 768, 3072),
+              (33, 100, 31), (64, 3072, 768), (65, 8, 1), (512, 768, 200),
+              (512, 1030, 129), (17, 3072, 31))
 
 
 def log(*a):
@@ -625,10 +665,11 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(torch, fn, iters: int = 20) -> float:
+def graph_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn``'s launches replayed from one CUDA graph,
     in ms: the kernels back to back, without the host's launch gaps
-    (``cuda_ms`` of a host-bound loop measures the host)."""
+    (``cuda_ms`` of a host-bound loop measures the host), after ``warmup``
+    replays."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -637,7 +678,7 @@ def graph_ms(torch, fn, iters: int = 20) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
-    return cuda_ms(torch, graph.replay, iters)
+    return cuda_ms(torch, graph.replay, iters, warmup)
 
 
 def floor_graph_ms(torch, dev, launches: int = 12) -> float:
@@ -1062,18 +1103,32 @@ def phase_bitplane_mac(torch, dev):
                                                       bitplane_mac_torch,
                                                       physics_thresholds)
 
+    from repro_torch.kernels.bitplane_mac.ops import (bitplane_kernel,
+                                                      bitplane_mma_plan,
+                                                      compiled_mma_plan)
+
     g = torch.Generator(device=dev).manual_seed(3)
     worst = 0
+    mma = 0
 
     def check(ua, uw, thr, ba, bw, rows):
-        nonlocal worst
+        nonlocal worst, mma
         before = bitplane_mac.launches
+        before_mma = bitplane_mac.mma_launches
         out = bitplane_mac(ua, uw, thr, bits_a=ba, bits_w=bw, rows=rows)
         torch.cuda.synchronize()
         where = (tuple(ua.shape), tuple(uw.shape), ba, bw, rows)
         if bitplane_mac.launches != before + 1:
             raise AssertionError(f"bitplane_mac launched "
                                  f"{bitplane_mac.launches - before} times")
+        tc = bitplane_kernel(ua.shape[0], ba, bw, rows) == \
+            "bitplane_mac_mma_kernel"
+        ran = bitplane_mac.mma_launches - before_mma
+        if ran != int(tc):
+            raise AssertionError(f"bitplane_mac at {where}: the tensor-core "
+                                 f"kernel ran {ran} times, expected "
+                                 f"{int(tc)}")
+        mma += int(tc)
         plain = bitplane_mac_torch(ua, uw, thr, bits_a=ba, bits_w=bw,
                                    rows=rows)
         worst = max(worst, (out - plain).abs().max().item())
@@ -1130,8 +1185,29 @@ def phase_bitplane_mac(torch, dev):
                                  "decode: the kernel ignores thr")
     ua, uw = draw(4, 1030, 129, 8, 8, 255)
     check(ua, uw, detuned, 8, 8, 8)
-    log(f"[4] bitplane_mac bit-exact on {len(cases) + len(odd) + 1} cases "
-        f"({len(odd) + 1} with detuned or random thresholds)")
+    # the tensor-core kernel under the three tables, on random and all-255
+    # operands; its C plan equal to the Python twin
+    for m, k, n in MMA_SHAPES:
+        if tuple(compiled_mma_plan(m, n, k)) != bitplane_mma_plan(m, n, k):
+            raise AssertionError(
+                f"bitplane_mma_plan{(m, n, k)}: C {compiled_mma_plan(m, n, k)}"
+                f" != Python {bitplane_mma_plan(m, n, k)}")
+        for thr in (good, detuned, rand):
+            for fill in (None, 255):
+                ua, uw = draw(m, k, n, 8, 8, fill)
+                out = check(ua, uw, thr, 8, 8, 8)
+                if thr is good and not torch.equal(
+                        out, (ua.double() @ uw.double()).to(torch.int32)):
+                    raise AssertionError(f"bitplane_mac noise-free is not "
+                                         f"u_a @ u_w at {(m, k, n)}")
+    n_mma = 6 * len(MMA_SHAPES)
+    log(f"[4] bitplane_mac bit-exact on "
+        f"{len(cases) + len(odd) + 1 + n_mma} cases ({len(odd) + 1} with "
+        f"detuned or random thresholds, and {n_mma} of the tensor-core "
+        f"kernel under the calibrated, detuned and random tables); "
+        f"{mma} launches of the tensor-core kernel")
+    if mma < n_mma:
+        raise AssertionError(f"[4] the tensor-core kernel ran {mma} times")
     return float(worst)
 
 
@@ -1578,7 +1654,7 @@ def serve_once(torch, dev, engine, cfg, params, prompts, tag, must,
 
 
 def serve_path(torch, dev, cfg, params, prompts, tag, must, never=(),
-               noise_seed=0):
+               noise_seed=0, prefill64=False):
     """Serve the six requests four times, in turns: through an
     ``Engine(graphs=False)`` (eager steps, the oracle), an ``Engine``
     (CUDA graphs), the graph engine again and the eager one again.  The
@@ -1592,7 +1668,8 @@ def serve_path(torch, dev, cfg, params, prompts, tag, must, never=(),
     ``torch.profiler``: the port's kernels the device ran, counted by name,
     must equal the launches the graphs' captures recorded (which every
     replay adds to the counters), so a kernel missing from a graph or in it
-    twice fails here."""
+    twice fails here.  ``prefill64``: a bucket-64 prefill (the third
+    prompt's) is replayed and counted the same way."""
     import numpy as np
 
     from repro_torch.kernels.common import mix_seed
@@ -1656,6 +1733,12 @@ def serve_path(torch, dev, cfg, params, prompts, tag, must, never=(),
         "prefill": lambda: graph.prefill_step(cfg, 0, 16)((params,), {
             "tokens": padded, "length": np.int32(len(prompts[0]))},
             graph.noise_seed(0, 0))[0].float().cpu()}
+    if prefill64:
+        padded64 = np.zeros((1, 64), np.int32)
+        padded64[0, :len(prompts[2])] = prompts[2]
+        replays["bucket-64 prefill"] = lambda: graph.prefill_step(
+            cfg, 0, 64)((params,), {"tokens": padded64, "length": np.int32(
+                len(prompts[2]))}, graph.noise_seed(0, 2))[0].float().cpu()
     counted = {}
     for what, fn in replays.items():
         # a graph launches the same kernels on every replay: up to three
@@ -1694,6 +1777,7 @@ def serve_path(torch, dev, cfg, params, prompts, tag, must, never=(),
     return {"launches": runs["graph2"]["launches"],
             "launches_eager": runs["eager"]["launches"],
             "per_decode_step": per_step, "per_prefill": per_prefill,
+            "per_prefill_64": counted.get("bucket-64 prefill"),
             "slos": {k: r["slos"] for k, r in runs.items()},
             "wall_s": {k: r["wall_s"] for k, r in runs.items()},
             "captures": runs["graph"]["captures"],
@@ -1815,10 +1899,33 @@ def phase_server(torch, dev):
                                   use_flash_kernel=True)
     sim, sim_flash = serve_path(
         torch, dev, sim_cfg, params, prompts, "sim+flash",
-        must=("bitplane_mac", "flash_attn", "paged_attn"),
+        must=("bitplane_mac", "bitplane_mac_mma", "flash_attn", "paged_attn"),
         never=("imc_mac", "bitplane_mac_noisy", "flash_attn_simt",
-               "paged_attn_staged"))
+               "paged_attn_staged"), prefill64=True)
     log_turns("sim+flash", sim)
+    # bitplane_mac: the prefills (M = bucket > 8) take the tensor-core
+    # kernel, 72 launches each, counted from the replayed bucket-16 and
+    # bucket-64 graphs on the device and from eager bucket-32 and -64
+    # prefills; the decode step (M = 4) the r8 kernel alone
+    n_proj = 6 * cfg.n_layers
+    step = sim["per_decode_step"]
+    if step["bitplane_mac"] != n_proj or step["bitplane_mac_mma"]:
+        raise AssertionError(f"sim+flash: {step['bitplane_mac']} bitplane_mac"
+                             f" launches per decode step, "
+                             f"{step['bitplane_mac_mma']} of the tensor-core "
+                             f"kernel; expected {n_proj} and 0")
+    for bucket, prompt in ((32, prompts[5][:20]), (64, prompts[2])):
+        zero_counts()
+        first_prefill(torch, dev, params, sim_cfg, prompt, bucket=bucket)
+        sim[f"per_prefill_{bucket}_eager"] = read_counts()
+    for what in ("per_prefill", "per_prefill_64", "per_prefill_32_eager",
+                 "per_prefill_64_eager"):
+        c = sim[what]
+        if c["bitplane_mac_mma"] != n_proj or c["bitplane_mac"] != n_proj:
+            raise AssertionError(
+                f"sim+flash: {what} launched {c['bitplane_mac']} bitplane_mac,"
+                f" {c['bitplane_mac_mma']} of the tensor-core kernel; "
+                f"expected {n_proj} of it and nothing else")
     # the redesigned kernels carry the served path: 12 layers, 12 launches
     # of each per bucketed prefill and per decode step
     for per, new, old in (("per_prefill", "flash_attn_tc", "flash_attn_simt"),
@@ -2460,13 +2567,17 @@ def phase_train(torch, dev):
     small = dataclasses.replace(cfg, n_layers=TRAIN_SIM_LAYERS)
     per_step = 2 * dense_calls(small)
     noisy_spec = FabricSpec(mode="sim", noise=NoiseSpec.calibrated())
-    for tag, spec, kernel in (
-            ("sim", FabricSpec(mode="sim"), "bitplane_mac"),
-            ("noisy", noisy_spec, "bitplane_mac_noisy")):
+    # (M = batch x seq = 512: sim's projections take bitplane_mac's
+    # tensor-core kernel)
+    for tag, spec, must in (
+            ("sim", FabricSpec(mode="sim"),
+             ("bitplane_mac", "bitplane_mac_mma")),
+            ("noisy", noisy_spec, ("bitplane_mac_noisy",))):
+        kernel = must[0]
         c = dataclasses.replace(small, fabric=spec)
         t0 = time.perf_counter()
         _, hist, launches = train_run(
-            torch, c, f"[8b] {tag}", (kernel,), per_step, TRAIN_SIM_STEPS,
+            torch, c, f"[8b] {tag}", must, per_step, TRAIN_SIM_STEPS,
             TRAIN_BATCH, TRAIN_SIM_SEQ, eng, log_every=TRAIN_SIM_STEPS)
         wall = time.perf_counter() - t0
         losses = [m["loss"] for m in hist]
@@ -2477,7 +2588,8 @@ def phase_train(torch, dev):
             f"{' '.join(f'{x:.1f}' for x in step_ms)}; {launches[kernel]} "
             f"{kernel} launches ({per_step} a step)")
         out[tag] = dict(losses=losses, step_ms=step_ms,
-                        launches=launches[kernel], launches_per_step=per_step)
+                        launches=launches[kernel], launches_per_step=per_step,
+                        launches_by_counter={k: launches[k] for k in must})
     c = dataclasses.replace(small, fabric=noisy_spec)
     params = init_params(c, device=dev, seed=0)
     batch = stream_batch(torch, dev, c, TRAIN_SIM_SEQ, TRAIN_BATCH, 0)
@@ -2604,7 +2716,8 @@ def train_kernel_checks(torch, dev):
     """8d: the training path's three kernels at its shapes against their
     plain versions on the same inputs, bit for bit: ``imc_mac`` at M = 2048
     (8a's batch 4 x seq 512) and a ragged 2047 over the three (K, N) of a
-    layer, ``bitplane_mac`` at M = 512 (8b's 4 x 128) on (768, 3072), and
+    layer, ``bitplane_mac`` at M = 512 (8b's 4 x 128) on (768, 3072), its
+    tensor-core kernel by counter, and
     ``bitplane_mac_noisy`` at M = 512 on (768, 768) under calibrated
     mismatch, seeded by a row of a step's seed table in device memory."""
     from repro_torch.core.constants import MC_SIGMA_VK
@@ -2646,8 +2759,14 @@ def train_kernel_checks(torch, dev):
                  bitplane_mac_noisy(ua, uw, seed, **kw),
                  bitplane_mac_noisy_torch(ua, uw, seed, **kw))
         else:
+            before = bitplane_mac.mma_launches
             same(f"bitplane_mac {(m, k, n)}", bitplane_mac(ua, uw),
                  bitplane_mac_torch(ua, uw))
+            if bitplane_mac.mma_launches != before + 1:
+                raise AssertionError(f"[8d] bitplane_mac at M = {m} ran the "
+                                     "tensor-core kernel "
+                                     f"{bitplane_mac.mma_launches - before} "
+                                     "times, expected 1")
     log(f"[8d] the training shapes, each kernel equal to its plain version "
         f"bit for bit: {'; '.join(checked)}")
     return checked
@@ -2882,22 +3001,64 @@ def rbl_sweep_row(torch, dev):
     return row
 
 
-# rbl_decode_mac's timing-only variants: (text to find, text put before it);
-# each returns early, its results wrong on purpose
+def build_variants(label, source, variants, entry, argtypes):
+    """Build each of ``variants`` ({name: [(anchor, text), ...]}) of
+    ``csrc/<source>.cu``: every anchor is a piece of one line of the source
+    (a whole line, stripped, where the piece is in several) and is replaced
+    by its text.  One nvcc each, all started together, into the build
+    directory's ``label`` folder.  Returns ({name: the library's ``entry``
+    through ctypes}, {name: nvcc's output})."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / f"{source}.cu").read_text().split("\n")
+    out_dir = build.build_dir() / label
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, patches in variants.items():
+        lines = list(src)
+        for anchor, text in patches:
+            at = [i for i, line in enumerate(lines) if anchor in line]
+            if len(at) > 1:
+                at = [i for i in at if lines[i].strip() == anchor]
+            if "\n" in anchor or len(at) != 1:
+                raise AssertionError(f"{label} {name}: {anchor!r} is not in "
+                                     f"one line of {source}.cu")
+            lines[at[0]] = lines[at[0]].replace(anchor, text)
+        path = out_dir / f"{source}_{name}.cu"
+        path.write_text("\n".join(lines))
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
+             str(path.with_suffix(".so")), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns, logs = {}, {}
+    for name, proc in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"{label} {name}: nvcc failed\n"
+                                 f"{logs[name]}")
+        fn = getattr(ctypes.CDLL(str(out_dir / f"{source}_{name}.so")),
+                     entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns, logs
+
+
+# rbl_decode_mac's timing-only variants, each returning early, its results
+# wrong on purpose (build_variants' patches)
+_RBL_KEEP = ("if (M > 0) {  // every sum kept alive\n    int s = 0;\n"
+             "    for (int m = 0; m < RM; ++m)\n"
+             "      for (int j = 0; j < COLS; ++j) s ^= ctr.acc[m][j];\n"
+             "    if (s == 0x7fffffff) out[0] = 1;\n    return;\n  }\n  ")
 RBL_EXITS = {
-    "after_staging": ("    if (c0 == g_begin) {\n#pragma unroll\n"
-                      "      for (int i = 0; i < TABLE_WORDS; ++i)",
-                      "    if (M > 0) return;\n"),
-    "after_counting": ("  // 5. the block's partial tile",
-                       "  if (M > 0) {  // every sum kept alive\n"
-                       "    int s = 0;\n"
-                       "    for (int m = 0; m < RM; ++m)\n"
-                       "      for (int j = 0; j < COLS; ++j) s ^= "
-                       "ctr.acc[m][j];\n"
-                       "    if (s == 0x7fffffff) out[0] = 1;\n"
-                       "    return;\n  }\n"),
-    "before_meeting": ("  cluster.sync();\n\n  // 6.",
-                       "  if (M > 0) return;\n"),
+    "full": [],
+    "after_staging": [("if (c0 == g_begin) {",
+                       "if (M > 0) return;\n    if (c0 == g_begin) {")],
+    "after_counting": [("// 5. the block's partial tile",
+                        _RBL_KEEP + "// 5. the block's partial tile")],
+    "before_meeting": [("cluster.sync();",
+                        "if (M > 0) return;\n  cluster.sync();")],
 }
 
 
@@ -2912,37 +3073,14 @@ def rbl_phases(torch, dev):
     from device memory and from L2, and 72 one-element launches, beside
     them.  Returns ms from a graph, [decode step, sweep, L2 decode step]
     per variant and turn."""
-    import ctypes
-
     from repro_torch.kernels import build
     from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
     from repro_torch.kernels.imc_mac.ops import imc_mac
     from repro_torch.kernels.rbl_decode.ops import (_ARGTYPES,
                                                     physics_voltages)
 
-    src = (build.CSRC / "rbl_decode_mac.cu").read_text()
-    sources = {"full": src}
-    for name, (anchor, early) in RBL_EXITS.items():
-        if src.count(anchor) != 1:
-            raise AssertionError(f"rbl_phases {name}: anchor not found once")
-        sources[name] = src.replace(anchor, early + anchor)
-    out_dir = build.build_dir() / "rbl_phases"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        (out_dir / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
-             str(out_dir / f"lib{name}.so"), str(out_dir / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
-    for name, proc in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise AssertionError(f"rbl_phases {name}: nvcc failed\n{text}")
-        fn = ctypes.CDLL(str(out_dir / f"lib{name}.so")).rbl_decode_mac_launch
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-        fns[name] = fn
+    fns, _ = build_variants("rbl_phases", "rbl_decode_mac", RBL_EXITS,
+                            "rbl_decode_mac_launch", _ARGTYPES)
 
     g = torch.Generator(device=dev).manual_seed(25)
     shapes = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
@@ -3050,9 +3188,15 @@ def time_paged_attn(torch, dev):
 def time_bitplane_mac(torch, dev):
     """One decode step's bitplane_mac work: 12 layers x 6 projections at
     M = 4 (4 slots), 8x8 bits, 8-row groups, cycling 12 distinct weight sets
-    (85 MB of one-byte operands, more than L2)."""
+    (85 MB of one-byte operands, more than L2); then the same projections
+    at each prefill bucket and at phase 8b's M = 512 (the tensor-core
+    kernel), each with the decode bound of its group counts (one integer
+    instruction a count at 64 an SM a clock) beside the int8 bound, and
+    one projection of the bucket-64 prefill and of M = 512 with its plain
+    version."""
     from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
-                                                      bitplane_mac_torch)
+                                                      bitplane_mac_torch,
+                                                      physics_thresholds)
 
     g = torch.Generator(device=dev).manual_seed(5)
     shapes = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
@@ -3088,42 +3232,87 @@ def time_bitplane_mac(torch, dev):
     ops = layers * sum(2 * bits * bits * m * k * n for k, n in shapes)
     b_ms, by = bound(nbytes, ops, INT8_OPS_PER_S)
 
-    # one training forward's projections at M = 512 (phase 8b's batch 4 x
-    # seq 128) over the 12 layers' weights; the plain version is timed on
-    # one (768, 3072) projection alone (all 72 would take minutes)
-    mt = TRAIN_BATCH * TRAIN_SIM_SEQ
-    at = {k: torch.randint(0, 256, (mt, k), generator=g, device=dev,
-                           dtype=torch.uint8) for k in (768, 3072)}
-    at_lib = {k: (v.to(torch.int32) - 128).to(torch.int8)
-              for k, v in at.items()}
+    # the tensor-core kernel's rows: one bucket-16, -32 and -64 prefill's
+    # projections and one training forward's at M = 512 (phase 8b's batch 4
+    # x seq 128), from graphs under the calibrated and the detuned table,
+    # beside the library call torch._int_mm on the signed codes (M padded
+    # to 32 at bucket 16), the int8 bound and the decode bound (the group
+    # counts at one integer instruction each); the plain version would take
+    # 4-30 s on 72 projections, so it is timed only on one (768, 3072)
+    # projection, in a row of its own beside the kernel, its library call
+    # and their bounds on the same inputs (the bucket-64 prefill's and the
+    # training forward's)
+    good = physics_thresholds(rows, dev)
+    detuned = torch.cat([torch.tensor([1.9], device=dev), good[:-1]])
     kw = dict(bits_a=bits, bits_w=bits, rows=rows)
-    train = dict(
-        ms=cuda_ms(torch, lambda: step(bitplane_mac, at, ws8, **kw), iters=5),
-        graph_ms=graph_ms(torch, lambda: step(bitplane_mac, at, ws8, **kw),
-                          iters=5),
-        plain_ms=cuda_ms(torch, lambda: bitplane_mac_torch(
-            at[768].to(torch.int32), ws[0][4], **kw), iters=1, warmup=1),
-        library_ms=cuda_ms(torch, lambda: step(torch._int_mm, at_lib, ws_lib),
-                           iters=20),
-        library_graph_ms=graph_ms(torch, lambda: step(torch._int_mm, at_lib,
-                                                      ws_lib)),
-        shape=f"one training forward (phase 8b): 12 layers x {{4x (768,768), "
-              f"(768,3072), (3072,768)}} at M={mt}, 8x8 bits, rows 8; plain "
-              f"on one (768,3072) projection; library: torch._int_mm on the "
-              "signed codes")
-    train["bound_ms"], train["bound_by"] = bound(
-        layers * sum(mt * k + k * n + 4 * mt * n for k, n in shapes),
-        layers * sum(2 * bits * bits * mt * k * n for k, n in shapes),
-        INT8_OPS_PER_S)
+
+    def bounds(mt, proj, calls):
+        """(bound_ms, bound_by, decode bound ms, group counts) of ``calls``
+        times the projections ``proj`` at M = mt."""
+        b = bound(calls * sum(mt * k + k * n + 4 * mt * n for k, n in proj),
+                  calls * sum(2 * bits * bits * mt * k * n for k, n in proj),
+                  INT8_OPS_PER_S)
+        counts = calls * sum(mt * n * -(-k // rows) * bits * bits
+                             for k, n in proj)
+        return (*b, counts / INT_OPS_PER_S * 1e3, counts)
+
+    tc = {}
+    for key, mt in (("prefill16", 16), ("prefill32", 32),
+                    ("prefill64", 64), ("train", TRAIN_BATCH * TRAIN_SIM_SEQ)):
+        at = {k: torch.randint(0, 256, (mt, k), generator=g, device=dev,
+                               dtype=torch.uint8) for k in (768, 3072)}
+        pad = max(32 - mt, 0)
+        at_lib = {k: torch.cat([v.to(torch.int32) - 128, v.new_zeros(
+            (pad, k), dtype=torch.int32)]).to(torch.int8)
+            for k, v in at.items()}
+        before = bitplane_mac.mma_launches
+        row = dict(
+            graph_ms=graph_ms(torch, lambda: step(bitplane_mac, at, ws8,
+                                                  **kw), iters=5),
+            graph_ms_detuned=graph_ms(torch, lambda: step(
+                bitplane_mac, at, ws8, thr=detuned, **kw), iters=5),
+            library_graph_ms=graph_ms(torch, lambda: step(
+                torch._int_mm, at_lib, ws_lib)))
+        # the wrapper's count: a warm-up and the capture of each graph, 72
+        # launches each
+        row["tensor_core_launches"] = bitplane_mac.mma_launches - before
+        (row["bound_ms"], row["bound_by"], row["bound_ms_decode"],
+         row["bound_decode_counts"]) = bounds(mt, shapes, layers)
+        what = ("one training forward (phase 8b)" if key == "train"
+                else f"one bucket-{mt} prefill")
+        row["shape"] = (f"{what}: 12 layers x {{4x (768,768), (768,3072), "
+                        f"(3072,768)}} at M={mt}, 8x8 bits, rows 8 (the "
+                        "tensor-core kernel); library: torch._int_mm on the "
+                        "signed codes" + (" (M padded to 32)" if pad else "")
+                        + "; bound_ms_decode: the group counts at one "
+                        "integer instruction each, 64 an SM a clock")
+        if key in ("prefill64", "train"):
+            a, w, w32 = at[768], ws8[0][4], ws[0][4]
+            one = dict(
+                ms=cuda_ms(torch, lambda: bitplane_mac(a, w, **kw), iters=20),
+                graph_ms=graph_ms(torch, lambda: bitplane_mac(a, w, **kw)),
+                plain_ms=cuda_ms(torch, lambda: bitplane_mac_torch(
+                    a.to(torch.int32), w32, **kw), iters=1, warmup=1),
+                library_ms=cuda_ms(torch, lambda: torch._int_mm(
+                    at_lib[768], ws_lib[0][4]), iters=20))
+            (one["bound_ms"], one["bound_by"], one["bound_ms_decode"],
+             one["bound_decode_counts"]) = bounds(mt, [(768, 3072)], 1)
+            one["shape"] = (f"{what}'s (768,3072) projection of layer 0 at "
+                            f"M={mt}, 8x8 bits, rows 8 (the tensor-core "
+                            "kernel); ms, plain, library (torch._int_mm on "
+                            "the signed codes) and both bounds on the same "
+                            "inputs")
+            row["one_projection"] = one
+        tc[key] = row
     return dict(ms=ms, graph_ms=g_ms, plain_ms=plain, library_ms=lib,
-                library_graph_ms=lib_g, bound_ms=b_ms, bound_by=by,
-                train=train,
+                library_graph_ms=lib_g, bound_ms=b_ms, bound_by=by, **tc,
                 shape="one decode step: 12 layers x {4x (768,768), "
                       "(768,3072), (3072,768)} at M=4, 8x8 bits, rows 8, "
-                      "uint8 operands; ops = 2*PA*PW*M*K*N binary MACs at the "
-                      "int8 rate; library: torch._int_mm on the signed int8 "
-                      "codes (M padded to 32), the same values only under "
-                      "calibrated thresholds")
+                      "uint8 operands (the r8 kernel); ops = "
+                      "2*PA*PW*M*K*N binary MACs at the int8 rate; library: "
+                      "torch._int_mm on the signed int8 codes (M padded to "
+                      "32), the same values only under calibrated "
+                      "thresholds")
 
 
 def noisy_tiers(torch, dev, act, weights, rows, kw):
@@ -3171,8 +3360,9 @@ def time_bitplane_mac_noisy(torch, dev):
     path) and mismatch + comparator offset at the stress sigmas, each on
     uniform operands (the rows of earlier PRs, unchanged) and on dense
     ones (``_dense``: every value 255, every count 8: no count is free).
-    The plain version is timed on one layer's six projections of the
-    uniform operands and scaled by 12.  Each row carries its tier shares
+    The plain version is timed once on the 72 projections of the uniform
+    operands under calibrated mismatch, and under the stress sigmas on one
+    layer's six (``plain_ms_both_one_layer``).  Each row carries its tier shares
     (``noisy_tiers``) and two floors: ``bound_ms``, the stream's own (the
     bytes against one Philox4x32-10 for every element a draw can change, at
     the integer issue rate) and ``sfu_bound_ms``, a hardware Box-Muller's
@@ -3193,7 +3383,7 @@ def time_bitplane_mac_noisy(torch, dev):
                          dtype=torch.uint8) for s in shapes]
           for _ in range(layers)]
     a32 = {k: v.to(torch.int32) for k, v in a.items()}
-    w32 = [w.to(torch.int32) for w in ws[0]]
+    ws32 = [[w.to(torch.int32) for w in lw] for lw in ws]
     dense_a = {k: torch.full_like(v, 255) for k, v in a.items()}
     dense_ws = [[torch.full_like(w, 255) for w in lw] for lw in ws]
 
@@ -3218,10 +3408,14 @@ def time_bitplane_mac_noisy(torch, dev):
                                          **kw), iters=iters, warmup=1)
         g_ms = graph_ms(torch, lambda: step(bitplane_mac_noisy, act, weights,
                                             **kw), iters=iters)
-        if act is a:
-            out[f"plain_ms{tag}"] = 12 * cuda_ms(torch, lambda: step(
-                bitplane_mac_noisy_torch, a32, [w32], **kw), iters=1,
-                warmup=1)
+        if act is a:  # warmed up on one projection, then timed once
+            bitplane_mac_noisy_torch(a32[768], ws32[0][0], seed, bits_a=bits,
+                                     bits_w=bits, rows=rows, **kw)
+            out["plain_ms" if tag == "" else f"plain_ms{tag}_one_layer"] = \
+                cuda_ms(torch, lambda: step(
+                    bitplane_mac_noisy_torch, a32,
+                    ws32 if tag == "" else [ws32[0]], **kw), iters=1,
+                    warmup=0)
         tiers = noisy_tiers(torch, dev, act, weights, rows, kw)
         # one Philox4x32-10 per element a draw can change
         philox_ops = PHILOX_INT_OPS * (elems if tiers is None
@@ -3235,14 +3429,41 @@ def time_bitplane_mac_noisy(torch, dev):
                     f"philox_ops{tag}": philox_ops,
                     f"sfu_bound_ms{tag}": sfu_ms, f"sfu_ops{tag}": sfu_ops,
                     f"tiers{tag}": tiers})
+    # the same kernel at a bucket-64 prefill's and a training forward's
+    # projections (phase 8b's M = 512), calibrated mismatch, uniform
+    # operands, from a graph (0.74 s a replay at M = 512); their Philox
+    # bound takes the tier-3 share of the decode step's uniform operands
+    # (the same distribution of counts)
+    share = 1.0 if out["tiers"] is None else out["tiers"]["tier3"]
+    for key, mt, iters in (("prefill64", 64, 3),
+                           ("train", TRAIN_BATCH * TRAIN_SIM_SEQ, 1)):
+        what = ("one training forward (phase 8b)" if key == "train"
+                else "one bucket-64 prefill")
+        at = {k: torch.randint(0, 256, (mt, k), generator=g, device=dev,
+                               dtype=torch.uint8) for k in (768, 3072)}
+        el = layers * sum(bits * bits * mt * (k // rows) * n
+                          for k, n in shapes)
+        b_ms, by = bound(
+            layers * sum(mt * k + k * n + 4 * mt * n for k, n in shapes),
+            PHILOX_INT_OPS * share * el, INT_OPS_PER_S)
+        out[key] = dict(
+            graph_ms=graph_ms(torch, lambda: step(bitplane_mac_noisy, at, ws,
+                                                  **calibrated), iters=iters,
+                              warmup=1),
+            bound_ms=b_ms, bound_by=by, elements=el, tier3_share=share,
+            shape=f"{what}: 12 layers x {{4x (768,768), (768,3072), (3072,768)}} at "
+                  f"M={mt}, mismatch at the calibrated sigma, uniform "
+                  "operands; bound: the bytes against one Philox4x32-10 "
+                  "per element at the decode step's tier-3 share")
     out.update(library_ms=None, elements=elems, bytes=nbytes,
                shape="one decode step: 12 layers x {4x (768,768), "
                      "(768,3072), (3072,768)} at M=4, 8x8 bits, rows 8, "
                      "uint8 operands; ms / plain_ms / bound_ms: mismatch "
                      "only at the calibrated sigma 0.05, uniform operands; "
                      "*_both: mismatch 0.3 + comparator offset 0.03; "
-                     "*_dense*: every operand 255; plain version timed on "
-                     "one layer's six projections x 12; bound: the larger "
+                     "*_dense*: every operand 255; plain version timed "
+                     "once on the 72 projections (*_both: on one layer's "
+                     "six); bound: the larger "
                      "of the bytes at 3.35 TB/s and one Philox4x32-10 (40 "
                      "integer ops) per tier-3 element at 64 integer ops per "
                      "SM per clock; sfu_bound: a hardware Box-Muller (log, "
@@ -4685,11 +4906,11 @@ def time_recurrent_rows(torch, dev):
 # and 1 sixteen-row groups a block; the paged merge's sum unrolled 16 (the
 # source's) and 4 times
 ATTN_VARIANTS = {
-    "flash_attn": ("case 256: return launch<256, 2, 2>(",
-                   {f"rg{rg}": f"case 256: return launch<256, 2, {rg}>("
-                    for rg in (4, 2, 1)}),
-    "paged_attn": ("#pragma unroll 16", {f"unroll{u}": f"#pragma unroll {u}"
-                                         for u in (16, 4)}),
+    "flash_attn": {f"rg{rg}": [("case 256: return launch<256, 2, 2>(",
+                                f"case 256: return launch<256, 2, {rg}>(")]
+                   for rg in (4, 2, 1)},
+    "paged_attn": {f"unroll{u}": [("#pragma unroll 16",
+                                   f"#pragma unroll {u}")] for u in (16, 4)},
 }
 
 
@@ -4705,8 +4926,6 @@ def attn_variants(torch, dev):
     calls, from ``torch.profiler`` over 20 replays of each one's graph.
     Returns {"turns": {case: {variant: [ms, ...]}}, "kernels": {row:
     {"graph_ms", "kernels": {name: [launches a replay, µs each]}}}}."""
-    import ctypes
-
     import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4718,33 +4937,13 @@ def attn_variants(torch, dev):
                                                     CTX_ROWS, ctx_chunks,
                                                     paged_attention)
 
-    out_dir = build.build_dir() / "attn_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for kernel, (anchor, subs) in ATTN_VARIANTS.items():
-        src = (build.CSRC / f"{kernel}.cu").read_text()
-        if src.count(anchor) != 1:
-            raise AssertionError(f"attn_variants: {anchor!r} not in {kernel}")
-        for name, text in subs.items():
-            path = out_dir / f"{kernel}_{name}.cu"
-            path.write_text(src.replace(anchor, text))
-            procs[kernel, name] = subprocess.Popen(
-                [build.nvcc_path(), *build.NVCC_FLAGS, f"-I{build.CSRC}",
-                 "-o", str(path.with_suffix(".so")), str(path)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
-    for (kernel, name), proc in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise AssertionError(f"attn_variants {kernel} {name}: nvcc "
-                                 f"failed\n{text}")
-        lib = ctypes.CDLL(str(out_dir / f"{kernel}_{name}.so"))
+    for kernel, variants in ATTN_VARIANTS.items():
         entry = ("flash_attn_tc_launch" if kernel == "flash_attn"
                  else "paged_attn_ctx_launch")
-        fn = getattr(lib, entry)
-        fn.argtypes = (F_ARGS if kernel == "flash_attn" else P_ARGS)[entry]
-        fn.restype = ctypes.c_int
-        fns.setdefault(kernel, {})[name] = fn
+        fns[kernel], _ = build_variants(
+            "attn_variants", kernel, variants, entry,
+            (F_ARGS if kernel == "flash_attn" else P_ARGS)[entry])
 
     g = torch.Generator(device=dev).manual_seed(18)
     hd = 256
@@ -4868,6 +5067,107 @@ def attn_variants(torch, dev):
     del pins, dense, fins, lins
     free_device(torch)
     return dict(turns=turns, kernels=kernels)
+
+
+# --bitplane-variants: text patches of csrc/bitplane_mac.cu, each its own
+# library: the served case's kernel rule (the r8 kernel at every M, the
+# rule before the tensor-core kernel; the tensor-core kernel at every M),
+# the tensor-core plan's target, and three variants whose results are
+# wrong on purpose (the mma, the prmt decode, dp4a in place of an add),
+# each taking one step out of the tensor-core kernel's loop
+_ADD3 = ("__device__ __forceinline__ uint32_t add3(uint32_t x, uint32_t, "
+         "uint32_t s) { return x + s; }\n")
+BITPLANE_VARIANTS = {
+    "source": [],
+    "r8_all": [("R8_MAX_M = 8;", "R8_MAX_M = 1 << 30;")],
+    "mma_all": [("R8_MAX_M = 8;", "R8_MAX_M = 0;")],
+    "target264": [("MM_TARGET = 528;", "MM_TARGET = 264;")],
+    "target792": [("MM_TARGET = 528;", "MM_TARGET = 792;")],
+    "no_mma": [("mma_u8_k32(d, ap[mi], bq[q][ni][0], bq[q][ni][1], pad);",
+                "d[0] = ap[mi][0] ^ bq[q][ni][0]; d[1] = ap[mi][1] ^ "
+                "bq[q][ni][1]; d[2] = ap[mi][2] ^ pad; d[3] = ap[mi][3] ^ "
+                "d[0];")],
+    "no_prmt": [("prmt(dec_lo, dec_hi, d[x]), 0x01010101u << q",
+                 "d[x], 0x01010101u << q")],
+    "add_for_dp4a": [
+        ("__global__ void __launch_bounds__(MM_THREADS, 3)",
+         _ADD3 + "__global__ void __launch_bounds__(MM_THREADS, 3)"),
+        ("part[mi][ni][x] = static_cast<int>(__dp4a(",
+         "part[mi][ni][x] = static_cast<int>(add3(")],
+}
+BITPLANE_WRONG = ("no_mma", "no_prmt", "add_for_dp4a")
+
+
+def bitplane_variants(torch, dev):
+    """``--bitplane-variants``: which ``bitplane_mac`` kernel each M should
+    take, and where the tensor-core kernel's time goes.  Each variant of
+    ``BITPLANE_VARIANTS`` is built by nvcc into the build directory and
+    called through ctypes on one step's 72 projections (12 layers x {4x
+    (768,768), (768,3072), (3072,768)}, 8x8 bits, rows 8, calibrated
+    table) at each M, from a graph, in turns (in order, reversed, in
+    order).  The exact variants' outputs equal the source's bit for bit on
+    one projection under the detuned table.  Returns {M: {variant: [ms,
+    ...]}} and each variant's ptxas register line."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bitplane_mac.ops import (_ARGTYPES,
+                                                      physics_thresholds)
+
+    fns, logs = build_variants("bitplane_variants", "bitplane_mac",
+                               BITPLANE_VARIANTS, "bitplane_mac_launch",
+                               _ARGTYPES)
+    regs = {}
+    for name, text in logs.items():
+        lines = text.splitlines()
+        at = next(i for i, line in enumerate(lines)
+                  if "bitplane_mac_mma_kernel" in line
+                  or "23bitplane_mac_mma" in line)
+        regs[name] = " ".join(x.strip() for x in lines[at + 1:at + 4]
+                              if "Used" in x or "spill" in x)
+
+    g = torch.Generator(device=dev).manual_seed(30)
+    good = physics_thresholds(8, dev)
+    detuned = torch.cat([torch.tensor([1.9], device=dev), good[:-1]])
+    shapes = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
+    ws = [[torch.randint(0, 256, sh, generator=g, device=dev,
+                         dtype=torch.uint8) for sh in shapes]
+          for _ in range(12)]
+    def call(fn, a, w, thr):  # on the current stream: a capture's
+        out = torch.empty((a.shape[0], w.shape[1]), dtype=torch.int32,
+                          device=dev)
+        stream, device = build.stream_and_device(out)
+        build.check_launch("bitplane_variants", fn(
+            a.data_ptr(), w.data_ptr(), thr.data_ptr(), out.data_ptr(),
+            a.shape[0], w.shape[1], a.shape[1], 8, 8, 8, 264, stream, device,
+            ctypes.byref(ctypes.c_int())))
+        return out
+
+    exact = [n for n in BITPLANE_VARIANTS if n not in BITPLANE_WRONG]
+    turns = {}
+    for m in (4, 8, 9, 16, 17, 32, 64, 512):
+        act = {k: torch.randint(0, 256, (m, k), generator=g, device=dev,
+                                dtype=torch.uint8) for k in (768, 3072)}
+        want = call(fns["source"], act[768], ws[0][4], detuned)
+        for name in exact:
+            if not torch.equal(call(fns[name], act[768], ws[0][4], detuned),
+                               want):
+                raise AssertionError(f"bitplane_variants {name} at M = {m}"
+                                     " differs from the source")
+        names = (["source", "r8_all", "mma_all"] +
+                 (["target264", "target792"] if m >= 17 else []) +
+                 (list(BITPLANE_WRONG) if m in (64, 512) else []))
+        row = turns[m] = {}
+        for order in (names, names[::-1], names):
+            for name in order:
+                row.setdefault(name, []).append(graph_ms(
+                    torch, lambda fn=fns[name]: [
+                        call(fn, act[w.shape[0]], w, good)
+                        for lw in ws for w in lw],
+                    iters=3 if m == 512 else 10))
+        log(f"[bitplane variants] M = {m}: " + "; ".join(
+            f"{n} {' '.join(f'{x:.4f}' for x in v)}" for n, v in row.items()))
+    return {"turns": turns, "registers": regs}
 
 
 # ---------------------------------------------------------- phase 11
@@ -5793,6 +6093,14 @@ def main() -> int:
                           "kind": kind}))
         print(smi)
         return 0
+    if sys.argv[1:] == ["--bitplane-variants"]:
+        from repro_torch.kernels import build
+
+        log(build.build_all(["bitplane_mac"]))
+        print(json.dumps({"bitplane_variants": bitplane_variants(torch, dev),
+                          "kind": kind}))
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--rbl-phases"]:
         from repro_torch.kernels import build
 
@@ -5882,6 +6190,11 @@ def main() -> int:
         timed[name]["recurrent"] = row
     timed["bitplane_mac_noisy"]["noise_free_bitplane_mac_ms"] = \
         timed["bitplane_mac"]["ms"]
+    # the tensor-core kernel's own entry: one projection of the bucket-64
+    # prefill, the kernel, its plain version and its library call on the
+    # same inputs
+    timed["bitplane_mac_mma"] = dict(
+        timed["bitplane_mac"]["prefill64"]["one_projection"])
 
     tpu = "src/repro/kernels"
     kernels = [
@@ -5910,6 +6223,19 @@ def main() -> int:
              launches_per_decode_step=sim["per_decode_step"]["bitplane_mac"],
              launches_per_prefill=sim["per_prefill"]["bitplane_mac"],
              launches_train=trained["sim"]["launches"],
+             launches_per_train_step=trained["sim"]["launches_per_step"],
+             max_abs_err=bp_err),
+        dict(name="bitplane_mac_mma",
+             replaces=f"{tpu}/bitplane_mac/bitplane_mac.py:98",
+             source="src/repro_torch/csrc/bitplane_mac.cu",
+             path="sim_flash", launches=sim["launches"]["bitplane_mac_mma"],
+             launches_per_decode_step=sim["per_decode_step"][
+                 "bitplane_mac_mma"],
+             launches_per_prefill=sim["per_prefill"]["bitplane_mac_mma"],
+             launches_per_prefill_64=sim["per_prefill_64"][
+                 "bitplane_mac_mma"],
+             launches_train=trained["sim"]["launches_by_counter"][
+                 "bitplane_mac_mma"],
              launches_per_train_step=trained["sim"]["launches_per_step"],
              max_abs_err=bp_err),
         dict(name="flash_attn", replaces=f"{tpu}/flash_attn/flash_attn.py:81",
@@ -5994,9 +6320,29 @@ def main() -> int:
             f"{lib}); {k['launches_per_decode_step']} "
             f"launches per decode step, {k['launches_per_prefill']} per "
             f"prefill, {k['launches']} in the {k['path']} run")
+    for key in ("prefill16", "prefill32", "prefill64", "train"):
+        t = timed["bitplane_mac"][key]
+        log(f"[7] bitplane_mac, {t['shape']}: {t['graph_ms']:.4f} ms from a "
+            f"graph, {t['graph_ms_detuned']:.4f} ms under the detuned table "
+            f"({t['tensor_core_launches']} tensor-core launches); library "
+            f"{t['library_graph_ms']:.4f} ms from a graph; bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']}, decode bound "
+            f"{t['bound_ms_decode']:.4f} ms ({t['bound_decode_counts']:.4g} "
+            "group counts)")
+        one = t.get("one_projection")
+        if one is not None:
+            log(f"[7] bitplane_mac, {one['shape']}: {one['ms']:.4f} ms, "
+                f"{one['graph_ms']:.4f} ms from a graph; plain "
+                f"{one['plain_ms']:.4f} ms; library {one['library_ms']:.4f} "
+                f"ms; bound {one['bound_ms']:.4f} ms by {one['bound_by']}, "
+                f"decode bound {one['bound_ms_decode']:.4f} ms")
+        t = timed["bitplane_mac_noisy"].get(key)
+        if t is not None:
+            log(f"[7] bitplane_mac_noisy, {t['shape']}: "
+                f"{t['graph_ms']:.4f} ms from a graph (bound "
+                f"{t['bound_ms']:.4f} ms by {t['bound_by']})")
     for name, key in (("imc_mac", "prefill"), ("imc_mac", "prefill32"),
-                      ("imc_mac", "train"), ("bitplane_mac", "train"),
-                      ("imc_mac", "families"), ("paged_attn", "families"),
+                      ("imc_mac", "train"), ("imc_mac", "families"), ("paged_attn", "families"),
                       ("flash_attn", "families"), ("imc_mac", "recurrent"),
                       ("paged_attn", "recurrent"),
                       ("imc_mac_dequant", "prefill"),
@@ -6015,12 +6361,13 @@ def main() -> int:
                       ("_dense", "calibrated mismatch, dense operands"),
                       ("_dense_both", "mismatch + offset, dense operands")):
         tiers = t[f"tiers{tag}"]
-        plain = t.get(f"plain_ms{tag}")
+        plain = t.get("plain_ms" if tag == "" else f"plain_ms{tag}_one_layer")
         log(f"[7] bitplane_mac_noisy, {what}: {t[f'ms{tag}']:.4f} ms, "
             f"{t[f'graph_ms{tag}']:.4f} ms from a graph (stream floor "
             f"{t[f'bound_ms{tag}']:.4f} ms by {t[f'bound_by{tag}']}; "
             f"hardware Box-Muller floor {t[f'sfu_bound_ms{tag}']:.4f} ms"
-            + ("" if plain is None else f"; plain {plain:.4f} ms") +
+            + ("" if plain is None else f"; plain {plain:.4f} ms"
+               + ("" if tag == "" else " on one layer")) +
             f"); tiers 2 / 3 / full {tiers['tier2']:.4f} / "
             f"{tiers['tier3']:.4f} / {tiers['full']:.6f}")
     log(f"[7] noise-free bitplane_mac {t['noise_free_bitplane_mac_ms']:.4f} "

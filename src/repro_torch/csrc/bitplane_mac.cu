@@ -20,9 +20,10 @@
 // Neither kernel here reaches that: both count on the integer pipes,
 // ~2.7 G group counts per decode step.
 //
-// Two kernels, one launch each; bitplane_mac_launch picks one:
+// Three kernels, one launch each; bitplane_mac_launch picks one:
 //
-// bitplane_mac_r8 -- the paper's served case, 8-row groups and 8 x 8 bits.
+// bitplane_mac_r8 -- the paper's served case, 8-row groups and 8 x 8 bits,
+//   at M <= R8_MAX_M = 8 (decode; measured below).
 //   * Four groups per word.  A group of one plane is 8 bits, so one 32-bit
 //     word holds four consecutive K-groups.  Group j's rows 0-3 sit in
 //     nibble j (bits 4j..4j+3) and its rows 4-7 in nibble j + 4: the same
@@ -62,13 +63,60 @@
 //     with a 64-bit transpose and its 8 planes x 4 groups into 8 words with
 //     16 byte permutes; A likewise, one (row, word) per thread.
 //
+// bitplane_mac_mma -- the served case at M > 8 (prefill buckets 16-64,
+//   training's M = 512): the group counts on the int8 tensor cores.
+//   What bounds it on an H100 at one training forward's 72 projections at
+//   M = 512: counted as binary MACs at the int8 tensor-core rate, 2.81 ms;
+//   but each of its 3.48e11 group counts goes through the live comparator
+//   table on the integer pipes, 20.8 ms at one instruction a count (64 an
+//   SM a clock).  The r8 kernel spends ~12 a word of four counts there
+//   (58.35 ms, ~2.8 issue slots a count).  This kernel spends two a word:
+//   * Counts by mma.sync.m16n8k32 on 0/1 bytes: slot k of a k-step holds
+//     K-row 32 s + k, of group j = k / 8, and bytes weigh alpha_j (A) and
+//     beta_j (B) with alpha_j beta_j = 16^j (a0/a1, k = 4t..: alpha
+//     16^(t/2), beta 1; a2/a3: alpha 4 x 16^(t/2), beta 64), so the s32
+//     output of one mma holds the four groups' counts (0..8) in its four
+//     low nibbles: 512 counts an mma, no expansion of B.
+//   * The decode from registers: that word is the prmt selector over
+//     dec[0..7] (two words), four counts at once, and one __dp4a with byte
+//     weights 2^q sums them; sum_p 2^p by Horner from p = 7 down (one
+//     shift a p).  A count of 8 (nibble 8) replicates dec[0]'s top bit,
+//     0; dec[8] times the number of (p, q, group) counts of 8 comes back
+//     through a second product, sum_g FA[m,g] FW[g,n], FA and FW the AND
+//     of a group's 8 bytes (bit p set where plane p is one in all 8 rows),
+//     one m16n8k16 per chunk.  Groups past ceil(K/8) (the last k-step's)
+//     get 8 in their nibbles from the mma's accumulator input: they decode
+//     to 0, never to dec[0].  Any table, detuned or random, takes the same
+//     code.
+//   * One tile serves many rows: a 128-thread block keeps a 64 x 64 output
+//     tile (four warps of 32 x 32); A's and W's bytes are staged once per
+//     chunk of 128 K-rows by 16-byte cp.async, double-buffered (byte loads
+//     when K, N or a pointer are not 16-byte aligned), zeros past M, N and
+//     the split's end; each lane then reads its fragments' bytes and
+//     extracts the 8 W planes once per k-step (held in registers) and each
+//     A plane once per p.  Warps whose 32 rows lie past M skip the math.
+//   * K splits over blocks (gridDim.z, whole k-steps) until the launch
+//     aims at MM_TARGET = 528 blocks, four per SM, from the shapes alone
+//     (mma_plan; the autotuner's target is the other kernels'); partial
+//     sums meet by integer atomicAdd into the output that the launcher
+//     zeroes.  Everything wraps modulo 2^32, as the plain version's int32.
+//   Measured (chip_smoke.py --bitplane-variants, one step's 72 launches
+//   from a graph, H100 80GB HBM3 at 700 W): M = 512 16.8-17.2 ms against
+//   the r8 kernel's 58.3; bucket 64 2.78-2.80 against 7.7-8.0; M = 9 and 16
+//   1.95-1.97 against 2.69-2.72 (the r8 kernel keeps 8 rows a block);
+//   M = 8 1.94 against 1.81-1.84 and M = 4 1.95-1.97 against 1.24-1.26, so
+//   the r8 kernel keeps M <= 8.  Variants at M = 512 whose results are
+//   wrong on purpose: without the mma 13.0-13.6 ms, without the prmt
+//   15.1-15.3, an add for the dp4a 17.1-17.5: the integer issue slots
+//   bind it, ~0.8 a count, and the mma's results wait on their latency.
+//
 // bitplane_mac_kernel -- every other case (bits 1-8 on either side, rows up
 //   to 32): one 32-bit word per (plane, row or column, group), one __popc,
 //   one shared-memory table read and one shift-add per (plane pair, group,
 //   output); K-groups split across the 8 warps.  Staging, voltage, split
 //   and epilogue in bitplane_common.cuh, shared with bitplane_mac_noisy.cu.
 //
-// Common to both:
+// Common to the r8 and generic kernels:
 //   * one 256-thread block (8 warps) per 8 x 32 output tile (plan() in
 //     bitplane_common.cuh); lane = output column, each thread keeps a row
 //     accumulator per tile row, summed across warps at the end;
@@ -343,28 +391,419 @@ bitplane_mac_r8_kernel(const uint8_t* __restrict__ a,
   }
 }
 
+
+// -------------------------- the served case at M > 8: tensor-core counts
+constexpr int R8_MAX_M = 8;       // bitplane_mac_r8_kernel's M; above, mma
+constexpr int MM_WARPS = 4;       // a 2 x 2 grid of 32 x 32 warp tiles
+constexpr int MM_THREADS = 32 * MM_WARPS;
+constexpr int MM_BM = 64;         // output rows a block keeps
+constexpr int MM_BN = 64;         // output columns
+constexpr int MM_STEP = 32;       // K-rows of one k-step: one m16n8k32, 4 groups
+constexpr int MM_KC = 128;        // K-rows staged per chunk: 4 k-steps
+constexpr int MM_GC = MM_KC / R8_ROWS;  // groups per chunk (16)
+constexpr int MM_AS = MM_KC + 16; // A's row stride in bytes: 36 words, 4 mod 32
+constexpr int MM_WS = MM_BN + 16; // W's row stride in bytes
+constexpr int MM_TARGET = 528;    // blocks a launch aims at: four per SM
+static_assert(MM_BM * MM_KC / 16 % MM_THREADS == 0 &&
+              MM_KC * MM_BN / 16 % MM_THREADS == 0, "whole staging rounds");
+
+struct SmemMma {
+  uint8_t a[2][MM_BM][MM_AS];         // A's bytes, k contiguous, 18 KB
+  uint8_t w[2][MM_KC][MM_WS];         // W's bytes, n contiguous, 20 KB
+  uint32_t fa[MM_BM][MM_GC / 4];      // per row: the AND of each group's
+  uint32_t fw[MM_BN][MM_GC / 4];      // 8 bytes, 4 groups a word; per column
+};
+
+struct MmaPlan {
+  dim3 grid;        // (column tiles, row tiles, K splits)
+  int per_split;    // k-steps (32 K-rows) per split
+  bool accumulate;  // atomicAdd into a zeroed output
+  int steps;        // ceil(ceil(K / 8) / 4)
+};
+
+// 64 x 64 output tiles; the k-steps split across blocks until the grid has
+// about MM_TARGET blocks (--bitplane-variants: 264 gave 18.9 ms at M = 512
+// and 3.2 at bucket 64, 792 15.8 and 3.0 against 528's 16.8 and 2.8).
+// Shapes only: the autotuner's `target` is the r8 and generic kernels'.
+inline MmaPlan mma_plan(int M, int N, int K) {
+  MmaPlan p;
+  p.steps = ((K + R8_ROWS - 1) / R8_ROWS + 3) / 4;
+  const int tiles_n = (N + MM_BN - 1) / MM_BN;
+  const int tiles_m = (M + MM_BM - 1) / MM_BM;
+  const long long tiles = static_cast<long long>(tiles_n) * tiles_m;
+  long long splits = (MM_TARGET + tiles - 1) / tiles;
+  splits = splits > p.steps ? p.steps : splits;
+  splits = splits < 1 ? 1 : splits;
+  const int per = static_cast<int>((p.steps + splits - 1) / splits);
+  p.per_split = per < 1 ? 1 : per;
+  const int z = p.steps == 0 ? 1 : (p.steps + p.per_split - 1) / p.per_split;
+  p.accumulate = z > 1 || p.steps == 0;
+  p.grid = dim3(tiles_n, tiles_m, z);
+  return p;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// d = a (16x32, row) x b (32x8, col) + c, unsigned bytes in, s32 out
+// (fragments: g = lane / 4, t = lane % 4; a0 row g, k 4t..4t+3; a1 row
+// g + 8; a2, a3 the same rows at k 16 + 4t..; b0 column g, k 4t..4t+3; b1
+// k 16 + 4t..; d0, d1 row g, columns 2t, 2t + 1; d2, d3 row g + 8).
+__device__ __forceinline__ void mma_u8_k32(uint32_t (&d)[4],
+                                           const uint32_t (&a)[4], uint32_t b0,
+                                           uint32_t b1, uint32_t c) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "r"(c));
+}
+
+// The same at k = 16 (a0 row g, a1 row g + 8, k 4t..4t+3; b0 k 4t..4t+3).
+__device__ __forceinline__ void mma_u8_k16(uint32_t (&d)[4], uint32_t a0,
+                                           uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0), "r"(0));
+}
+
+// Stage K-rows [kc, kc + MM_KC) of the tile at (m0, n0) into buffer `buf`:
+// 16-byte cp.async when `vec` (K and N multiples of 16, both operands
+// 16-byte aligned), else byte loads; zeros past M, N and k_end (the end of
+// this block's split).  Commits one cp.async group either way.
+__device__ __forceinline__ void mma_stage(SmemMma& s, int buf,
+                                          const uint8_t* __restrict__ a,
+                                          const uint8_t* __restrict__ w,
+                                          int M, int N, int K, int m0, int n0,
+                                          int kc, int k_end, bool vec) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < MM_BM * MM_KC / 16 / MM_THREADS; ++j) {
+    const int u = tid + j * MM_THREADS;
+    const int r = u / (MM_KC / 16);
+    const int k = kc + 16 * (u % (MM_KC / 16));
+    uint8_t* dst = &s.a[buf][r][k - kc];
+    const uint8_t* row = a + static_cast<size_t>(m0 + r) * K;
+    if (vec) {
+      const bool ok = m0 + r < M && k < k_end;
+      cp_async16(dst, ok ? row + k : a, ok);
+    } else {
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (m0 + r < M)
+        for (int i = 0; i < 16 && k + i < k_end; ++i)
+          v[i >> 2] |= static_cast<uint32_t>(row[k + i]) << (8 * (i & 3));
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < MM_KC * MM_BN / 16 / MM_THREADS; ++j) {
+    const int u = tid + j * MM_THREADS;
+    const int r = u / (MM_BN / 16);
+    const int c = 16 * (u % (MM_BN / 16));
+    uint8_t* dst = &s.w[buf][r][c];
+    const uint8_t* src = w + static_cast<size_t>(kc + r) * N + n0 + c;
+    if (vec) {
+      const bool ok = kc + r < k_end && n0 + c < N;
+      cp_async16(dst, ok ? src : w, ok);
+    } else {
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (kc + r < k_end)
+        for (int i = 0; i < 16 && n0 + c + i < N; ++i)
+          v[i >> 2] |= static_cast<uint32_t>(src[i]) << (8 * (i & 3));
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The AND of every group's 8 bytes: bit p (q) is set where plane p (q) is
+// one in all 8 rows, i.e. where the group's count can reach 8.  fa[r][j/4]
+// byte j % 4: row r, group j of the chunk; fw[c][j/4]: column c.
+__device__ __forceinline__ void mma_full_groups(SmemMma& s, int buf) {
+  const int tid = threadIdx.x;
+  for (int u = tid; u < MM_BM * MM_GC / 4; u += MM_THREADS) {
+    const int r = u / (MM_GC / 4);
+    const int jq = u % (MM_GC / 4);
+    const uint32_t* x = reinterpret_cast<const uint32_t*>(
+        &s.a[buf][r][32 * jq]);
+    uint32_t f = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t y = x[2 * j] & x[2 * j + 1];
+      y &= y >> 16;
+      y &= y >> 8;
+      f |= (y & 0xffu) << (8 * j);
+    }
+    s.fa[r][jq] = f;
+  }
+  uint8_t* fw = reinterpret_cast<uint8_t*>(&s.fw[0][0]);
+  for (int u = tid; u < MM_GC * MM_BN / 4; u += MM_THREADS) {
+    const int j = u / (MM_BN / 4);
+    const int cw = u % (MM_BN / 4);
+    uint32_t y = 0xffffffffu;
+#pragma unroll
+    for (int i = 0; i < R8_ROWS; ++i)
+      y &= *reinterpret_cast<const uint32_t*>(&s.w[buf][8 * j + i][4 * cw]);
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      fw[(4 * cw + b) * MM_GC + j] = static_cast<uint8_t>(y >> (8 * b));
+  }
+}
+
+__global__ void __launch_bounds__(MM_THREADS, 3)
+bitplane_mac_mma_kernel(const uint8_t* __restrict__ a,
+                        const uint8_t* __restrict__ w,
+                        const float* __restrict__ thr,
+                        int32_t* __restrict__ out, int M, int N, int K,
+                        int steps_per_split, bool accumulate, bool vec) {
+  __shared__ __align__(16) SmemMma s;
+  __shared__ uint32_t dec_s[R8_ROWS + 1];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wr = 32 * (warp >> 1);  // the warp's rows and columns in the tile
+  const int wc = 32 * (warp & 1);
+  const int n0 = blockIdx.x * MM_BN;
+  const int m0 = blockIdx.y * MM_BM;
+  const int groups = (K + R8_ROWS - 1) / R8_ROWS;
+  const int steps = (groups + 3) / 4;
+  const int s_begin = blockIdx.z * steps_per_split;
+  const int s_end = min(steps, s_begin + steps_per_split);
+  const int k_begin = s_begin * MM_STEP;
+  const int k_end = min(K, s_end * MM_STEP);
+  const bool live = m0 + wr < M;  // warp-uniform: the rows are not all past M
+  // slot k of an m16n8k32 holds K-row 32 * step + k, of group j = k / 8;
+  // its bytes weigh alpha_j (A) x beta_j (B) = 16^j, so the s32 output
+  // holds group j's count in nibble j.  a0/a1 (k = 4t..) are group t / 2:
+  // alpha 16^(t/2), beta 1; a2/a3 group 2 + t / 2: alpha 4 * 16^(t/2),
+  // beta 64.
+  const int sa0 = 4 * (t >> 1);
+  const int sa1 = sa0 + 2;
+
+  if (tid <= R8_ROWS) {  // the decode table, from the live thresholds
+    const float v = rbl_voltage(static_cast<float>(tid), R8_ROWS);
+    uint32_t d = 0;
+    for (int i = 0; i < R8_ROWS; ++i) d += (v <= thr[i]) ? 1u : 0u;
+    dec_s[tid] = d;
+  }
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[mi][ni][x] = 0;
+
+  const int chunks = (k_end - k_begin + MM_KC - 1) / MM_KC;
+  if (chunks > 0)
+    mma_stage(s, 0, a, w, M, N, K, m0, n0, k_begin, k_end, vec);
+  uint32_t dec_lo = 0, dec_hi = 0, dec_8 = 0;
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c & 1;
+    const int kc = k_begin + c * MM_KC;
+    if (c + 1 < chunks) {
+      mma_stage(s, buf ^ 1, a, w, M, N, K, m0, n0, kc + MM_KC, k_end, vec);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();  // chunk c has landed (and, at c = 0, dec_s)
+    mma_full_groups(s, buf);
+    if (c == 0) {
+      dec_lo = dec_s[0] | dec_s[1] << 8 | dec_s[2] << 16 | dec_s[3] << 24;
+      dec_hi = dec_s[4] | dec_s[5] << 8 | dec_s[6] << 16 | dec_s[7] << 24;
+      dec_8 = dec_s[8];
+    }
+    __syncthreads();  // fa, fw
+    const int step0 = kc / MM_STEP;
+    const int nst = min(MM_KC / MM_STEP, s_end - step0);
+    if (live) {
+      for (int st = 0; st < nst; ++st) {
+        const int kb = MM_STEP * st;
+        // groups past ceil(K/8) (only in the last k-step) stage as zeros;
+        // 8 added to their nibbles makes them decode to 0, as a count of 8
+        // does (below)
+        const int real = groups - 4 * (step0 + st);
+        const uint32_t pad =
+            real >= 4 ? 0u : 0x8888u & (0xffffu << (4 * real));
+        uint32_t ra[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const int r = wr + 16 * mi + g;
+          ra[mi][0] = *reinterpret_cast<const uint32_t*>(
+              &s.a[buf][r][kb + 4 * t]);
+          ra[mi][1] = *reinterpret_cast<const uint32_t*>(
+              &s.a[buf][r + 8][kb + 4 * t]);
+          ra[mi][2] = *reinterpret_cast<const uint32_t*>(
+              &s.a[buf][r][kb + 16 + 4 * t]);
+          ra[mi][3] = *reinterpret_cast<const uint32_t*>(
+              &s.a[buf][r + 8][kb + 16 + 4 * t]);
+        }
+        // W's 4 K-rows of column wc + 8 ni + g at k = 4t.. (b0) and 16 +
+        // 4t.. (b1), then its 8 planes: bit q of each byte, times beta
+        uint32_t bq[R8_PLANES][4][2];
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int col = wc + 8 * ni + g;
+          uint32_t rb[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = kb + 16 * h + 4 * t;
+            const uint32_t x01 = prmt(s.w[buf][k][col], s.w[buf][k + 1][col],
+                                      0x0040u);
+            const uint32_t x23 = prmt(s.w[buf][k + 2][col],
+                                      s.w[buf][k + 3][col], 0x0040u);
+            rb[h] = prmt(x01, x23, 0x5410u);
+          }
+#pragma unroll
+          for (int q = 0; q < R8_PLANES; ++q) {
+            bq[q][ni][0] = (rb[0] >> q) & 0x01010101u;
+            bq[q][ni][1] = q <= 6 ? (rb[1] << (6 - q)) & 0x40404040u
+                                  : (rb[1] >> (q - 6)) & 0x40404040u;
+          }
+        }
+        // sum_p 2^p sum_q 2^q dec, by Horner over p from 7 down
+        int part[2][4][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) part[mi][ni][x] = 0;
+#pragma unroll 1
+        for (int p = R8_PLANES - 1; p >= 0; --p) {
+          uint32_t ap[2][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              ap[mi][i] = ((ra[mi][i] >> p) & 0x01010101u) << (i < 2 ? sa0 : sa1);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+              for (int x = 0; x < 4; ++x) part[mi][ni][x] <<= 1;
+#pragma unroll
+          for (int q = 0; q < R8_PLANES; ++q) {
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int ni = 0; ni < 4; ++ni) {
+                uint32_t d[4];
+                mma_u8_k32(d, ap[mi], bq[q][ni][0], bq[q][ni][1], pad);
+                // four counts a word, the word the prmt selector: a count
+                // of 8 (selector nibble 8) replicates dec[0]'s top bit, 0
+#pragma unroll
+                for (int x = 0; x < 4; ++x)
+                  part[mi][ni][x] = static_cast<int>(__dp4a(
+                      prmt(dec_lo, dec_hi, d[x]), 0x01010101u << q,
+                      static_cast<uint32_t>(part[mi][ni][x])));
+              }
+          }
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) acc[mi][ni][x] += part[mi][ni][x];
+      }
+      // the counts of 8: sum_g FA[m,g] FW[g,n] = sum_{p,q} 2^(p+q) N8, one
+      // m16n8k16 over the chunk's 16 groups, times dec[8]
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          uint32_t d[4];
+          mma_u8_k16(d, s.fa[wr + 16 * mi + g][t], s.fa[wr + 16 * mi + g + 8][t],
+                     s.fw[wc + 8 * ni + g][t]);
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            acc[mi][ni][x] += static_cast<int>(dec_8 * d[x]);
+        }
+    }
+    __syncthreads();  // buf and fa, fw are read before they are restaged
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int m = m0 + wr + 16 * mi + g + 8 * (x >> 1);
+        const int n = n0 + wc + 8 * ni + 2 * t + (x & 1);
+        if (m < M && n < N) {
+          int32_t* o = out + static_cast<size_t>(m) * N + n;
+          if (accumulate) {
+            atomicAdd(o, acc[mi][ni][x]);
+          } else {
+            *o = acc[mi][ni][x];
+          }
+        }
+      }
+}
+
 }  // namespace
 
 // a: uint8[M,K] row-major, w: uint8[K,N] row-major (offset-binary values; only
 // the low bits_a / bits_w bits are read), thr: float32[rows], out: int32[M,N];
-// target: the blocks plan() aims at (264 by default: two per SM on a 132-SM
-// H100).  Returns a cudaError_t value.
+// target: the blocks plan() aims at for the r8 and generic kernels (264 by
+// default: two per SM on a 132-SM H100); the tensor-core kernel (rows 8,
+// 8 x 8 bits, M > 8) plans from the shapes alone.  *kernel is set to the
+// kernel launched: 0 none (an empty output), 1 bitplane_mac_kernel, 2
+// bitplane_mac_r8_kernel, 3 bitplane_mac_mma_kernel.  Returns a cudaError_t
+// value.
 extern "C" int bitplane_mac_launch(const void* a, const void* w, const void* thr,
                                    void* out, int M, int N, int K, int bits_a,
                                    int bits_w, int rows, int target, void* stream,
-                                   int device) {
+                                   int device, int* kernel) {
+  *kernel = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* a8 = static_cast<const uint8_t*>(a);
+  const auto* w8 = static_cast<const uint8_t*>(w);
+  const auto* t = static_cast<const float*>(thr);
+  auto* o = static_cast<int32_t*>(out);
+  if (rows == R8_ROWS && bits_a == R8_PLANES && bits_w == R8_PLANES &&
+      M > R8_MAX_M) {
+    if (N < 0 || K < 0 || target < 1 || target > MAX_TARGET) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (N == 0) return 0;
+    const MmaPlan p = mma_plan(M, N, K);
+    if (p.accumulate) {
+      err = cudaMemsetAsync(out, 0, sizeof(int32_t) * static_cast<size_t>(M) * N,
+                            s);
+      if (err != cudaSuccess || p.steps == 0) return static_cast<int>(err);
+    }
+    const bool vec = K % 16 == 0 && N % 16 == 0 &&
+                     (reinterpret_cast<uintptr_t>(a) & 15) == 0 &&
+                     (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+    bitplane_mac_mma_kernel<<<p.grid, MM_THREADS, 0, s>>>(
+        a8, w8, t, o, M, N, K, p.per_split, p.accumulate, vec);
+    *kernel = 3;
+    return static_cast<int>(cudaGetLastError());
+  }
   Plan p;
   bool skip = true;
   const int rc = prepare(out, M, N, K, bits_a, bits_w, rows, target, s, &p,
                          &skip);
   if (skip) return rc;
-  const auto* a8 = static_cast<const uint8_t*>(a);
-  const auto* w8 = static_cast<const uint8_t*>(w);
-  const auto* t = static_cast<const float*>(thr);
-  auto* o = static_cast<int32_t*>(out);
   if (rows == R8_ROWS && bits_a == R8_PLANES && bits_w == R8_PLANES) {
     // the padded-byte mask assumes each split starts on a word
     if (p.per_split % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -375,12 +814,28 @@ extern "C" int bitplane_mac_launch(const void* a, const void* w, const void* thr
       bitplane_mac_r8_kernel<BM><<<p.grid, THREADS, 0, s>>>(
           a8, w8, t, o, M, N, K, p.per_split, p.accumulate);
     }
+    *kernel = 2;
   } else {
     bitplane_mac_kernel<<<p.grid, THREADS, 0, s>>>(
         a8, w8, t, o, M, N, K, bits_a, bits_w, rows, p.per_split,
         p.accumulate);
+    *kernel = 1;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// mma_plan() of the tensor-core kernel (rows 8, 8 x 8 bits, M > 8): out[0..2]
+// the grid, out[3] the k-steps (32 K-rows) per split, out[4] whether the
+// splits add into a zeroed output.  Returns 0, or cudaErrorInvalidValue.
+extern "C" int bitplane_mma_plan(int M, int N, int K, int* out) {
+  if (M <= R8_MAX_M || N < 1 || K < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const MmaPlan p = mma_plan(M, N, K);
+  const int v[5] = {static_cast<int>(p.grid.x), static_cast<int>(p.grid.y),
+                    static_cast<int>(p.grid.z), p.per_split, p.accumulate};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
 }
 
 // bitplane_common.cuh's plan() of an M x K x N product of `rows`-row groups

@@ -30,13 +30,24 @@ Its stream is not the reference's (that one is keyed by the TPU's grid
 steps), so it agrees with the reference in distribution only.
 ``bitplane_mac_noisy.launches`` counts its launches.
 
-Both kernels split K over blocks until a launch has about ``target``
-blocks (``bitplane_common.cuh``'s ``plan()``; its twin :func:`bitplane_plan`),
-a runtime argument: on a CUDA tensor each wrapper resolves it at call time
-with ``autotune.lookup`` (264 and 480 by default, the measured cache, a
-pin), and an explicit ``geometry=`` beats the tuner.  Any target gives the
-same output (split sums meet by integer atomics).  The CPU path ignores
-geometry.
+``bitplane_mac`` launches one of three kernels (``csrc/bitplane_mac.cu``):
+the paper's served case (rows 8, 8 x 8 bits) takes ``bitplane_mac_r8_kernel``
+at M <= :data:`R8_MAX_M` (decode) and ``bitplane_mac_mma_kernel``, group
+counts on the int8 tensor cores, above it (the prefill buckets and
+training); every other case takes ``bitplane_mac_kernel``
+(:func:`bitplane_kernel` is the rule's twin).  ``bitplane_mac.launches``
+counts every launch, ``bitplane_mac.mma_launches`` those that the C
+launcher reports were of the tensor-core kernel.
+
+The r8, generic and noisy kernels split K over blocks until a launch has
+about ``target`` blocks (``bitplane_common.cuh``'s ``plan()``; its twin
+:func:`bitplane_plan`), a runtime argument: on a CUDA tensor each wrapper
+resolves it at call time with ``autotune.lookup`` (264 and 480 by default,
+the measured cache, a pin), and an explicit ``geometry=`` beats the tuner.
+The tensor-core kernel plans from the shapes alone (:func:`bitplane_mma_plan`):
+where it runs, the wrapper looks nothing up, and a pin, a cache entry or a
+``geometry=`` is ignored.  Any plan gives the same output (split sums meet
+by integer atomics).  The CPU path ignores geometry.
 """
 from __future__ import annotations
 
@@ -57,8 +68,13 @@ from repro_torch.kernels.common import (U1_GRID, decode_counts_noisy,
 
 MAX_ROWS = 32  # the kernel packs one K-group of one plane into a 32-bit word
 _BM, _BN = 8, 32  # bitplane_common.cuh: a block's output tile
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p,
-                                                          ctypes.c_int]
+R8_MAX_M = 8  # bitplane_mac.cu: the r8 kernel's M; the tensor-core one above
+_MM_BM, _MM_BN, _MM_TARGET = 64, 64, 528  # the tensor-core kernel's plan
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+# what bitplane_mac_launch reports it launched (its *kernel)
+LAUNCHED = (None, "bitplane_mac_kernel", "bitplane_mac_r8_kernel",
+            "bitplane_mac_mma_kernel")
 _NOISY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
     [ctypes.c_void_p] + [ctypes.c_float] * 2 + [ctypes.c_int] + \
     [ctypes.c_void_p, ctypes.c_int]
@@ -94,6 +110,46 @@ def bitplane_plan(m: int, n: int, k: int, rows: int, target: int,
     splits = 1 if groups == 0 else -(-groups // per)
     return Plan(tiles_n, tiles_m, splits, per,
                 int(splits > 1 or groups == 0))
+
+
+def bitplane_kernel(m: int, bits_a: int, bits_w: int, rows: int) -> str:
+    """The ``__global__`` function ``bitplane_mac_launch`` takes for an
+    ``m``-row product: the tensor-core kernel for the served case (rows 8,
+    8 x 8 bits) above ``R8_MAX_M`` rows, the r8 kernel for it at or below,
+    the generic kernel for every other case."""
+    if rows == 8 and bits_a == 8 and bits_w == 8:
+        return ("bitplane_mac_mma_kernel" if m > R8_MAX_M
+                else "bitplane_mac_r8_kernel")
+    return "bitplane_mac_kernel"
+
+
+@functools.lru_cache(maxsize=None)
+def bitplane_mma_plan(m: int, n: int, k: int) -> Plan:
+    """The tensor-core kernel's launch, as ``bitplane_mac.cu``'s
+    ``mma_plan()`` computes it (the C ``bitplane_mma_plan``): 64 x 64 output
+    tiles, the k-steps (32 K-rows, four 8-row groups) split until the grid
+    has about 528 blocks; ``per_split`` counts k-steps."""
+    steps = -(-(-(-k // 8)) // 4)
+    tiles = -(-n // _MM_BN) * -(-m // _MM_BM)
+    splits = max(min(-(-_MM_TARGET // tiles), steps), 1)
+    per = max(-(-steps // splits), 1)
+    z = 1 if steps == 0 else -(-steps // per)
+    return Plan(-(-n // _MM_BN), -(-m // _MM_BM), z, per,
+                int(z > 1 or steps == 0))
+
+
+def compiled_mma_plan(m: int, n: int, k: int) -> Plan:
+    """The C ``bitplane_mma_plan`` of the built library (needs ``nvcc``)."""
+    fn = _FNS.get("mma_plan")
+    if fn is None:
+        fn = build.load("bitplane_mac").bitplane_mma_plan
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS["mma_plan"] = fn
+    out = (ctypes.c_int * 5)()
+    build.check_launch("bitplane_mma_plan",
+                       fn(m, n, k, ctypes.addressof(out)))
+    return Plan(*out)
 
 
 def compiled_plan(m: int, n: int, k: int, rows: int, target: int,
@@ -222,7 +278,8 @@ def bitplane_mac(u_a: torch.Tensor, u_w: torch.Tensor,
     u_a: int[..., K]; u_w: int[K, N]; leading batch dims of ``u_a`` flatten
     into M.  ``thr`` (float[rows], descending) defaults to the
     physics-model references for ``rows``.  ``geometry`` (``{"target":
-    blocks}``) beats the tuner's.  Returns int32[..., N].
+    blocks}``) beats the tuner's where a target is read (not by the
+    tensor-core kernel).  Returns int32[..., N].
     """
     if _on_cpu(u_a, u_w, thr):
         return bitplane_mac_torch(u_a, u_w, thr, bits_a=bits_a,
@@ -230,18 +287,25 @@ def bitplane_mac(u_a: torch.Tensor, u_w: torch.Tensor,
     a, w, t, out, batch = _operands("bitplane_mac", u_a, u_w, thr, bits_a,
                                     bits_w, rows)
     (m, k), n = a.shape, w.shape[1]
-    target = _target("bitplane_mac", m, n, k, bits_a, bits_w, rows, geometry,
-                     a.device)
+    if bitplane_kernel(m, bits_a, bits_w, rows) == "bitplane_mac_mma_kernel":
+        target = autotune.DEFAULTS["bitplane_mac"]["target"]  # not read
+    else:
+        target = _target("bitplane_mac", m, n, k, bits_a, bits_w, rows,
+                         geometry, a.device)
     fn = _entry("bitplane_mac", _ARGTYPES)
     stream, dev = build.stream_and_device(a)
+    ran = ctypes.c_int(0)
     build.check_launch("bitplane_mac", fn(
         a.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(), m, n, k,
-        bits_a, bits_w, rows, target, stream, dev))
+        bits_a, bits_w, rows, target, stream, dev, ctypes.byref(ran)))
     bitplane_mac.launches += 1
+    if LAUNCHED[ran.value] == "bitplane_mac_mma_kernel":
+        bitplane_mac.mma_launches += 1
     return out.reshape(batch + (n,))
 
 
 bitplane_mac.launches = 0
+bitplane_mac.mma_launches = 0
 
 
 # ------------------------------------------------------------------- noisy

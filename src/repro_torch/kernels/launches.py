@@ -44,7 +44,8 @@ KERNELS = {
         "staged_launches": ("paged_decode_kernel",)},
         "paged_decode_torch"),
     "bitplane_mac": ("bitplane_mac.ops", "bitplane_mac", {
-        "launches": ("bitplane_mac_kernel", "bitplane_mac_r8_kernel")},
+        "launches": ("bitplane_mac_kernel", "bitplane_mac_r8_kernel"),
+        "mma_launches": ("bitplane_mac_mma_kernel",)},
         "bitplane_mac_torch"),
     "flash_attn": ("flash_attn.ops", "flash_attention", {
         "tc_launches": ("flash_attn_tc_kernel",),

@@ -27,7 +27,9 @@ from repro.kernels.autotune import tuner as ref_tuner
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.kernels import autotune
 from repro_torch.kernels.autotune import tuner
-from repro_torch.kernels.bitplane_mac.ops import bitplane_plan
+from repro_torch.kernels.bitplane_mac.ops import (bitplane_kernel,
+                                                  bitplane_mma_plan,
+                                                  bitplane_plan)
 from repro_torch.kernels.imc_mac.ops import (imc_mac, imc_mac_dequant,
                                              imc_mac_dequant_torch,
                                              imc_mac_plan, imc_mac_torch)
@@ -462,7 +464,14 @@ def test_standard_cells_differ_by_candidate_and_left_out_ones_do_not():
                    autotune.DEFAULTS[kernel]
                    for c in autotune.candidates(kernel, shapes))
     for kernel, shapes, why in autotune.LEFT_OUT:
-        plans = {plan(kernel, shapes, c)
+        # the plan of the kernel the launcher takes there: bitplane_mac's
+        # tensor-core kernel (M > 8) plans from the shapes alone
+        tc = kernel == "bitplane_mac" and bitplane_kernel(
+            shapes["m"], shapes["ba"], shapes["bw"], shapes["rows"]) == \
+            "bitplane_mac_mma_kernel"
+        plans = {tuple(bitplane_mma_plan(shapes["m"], shapes["n"],
+                                         shapes["k"])) if tc
+                 else plan(kernel, shapes, c)
                  for c in autotune.candidates(kernel, shapes)}
         assert len(plans) == 1 and why, (kernel, shapes)
     imc_m4 = [s for k, s in autotune.STANDARD_CELLS

@@ -10,9 +10,11 @@ same card tensors: ``imc_mac``, ``imc_mac_dequant``, ``bitplane_mac``,
 comparator references and 16-row groups; ``rbl_decode_mac`` also at rows
 2-32, M up to 200, operands at byte offsets 1 and 4 holding bytes 0-255,
 random references, its C launch plan equal to the Python twin;
-``bitplane_mac``'s served-case
-kernel, rows 8 at 8x8 bits, also under random references and on all-255
-operands; the noisy kernel and its plain version draw one Philox stream, and
+``bitplane_mac``'s served case,
+rows 8 at 8x8 bits, also under random references and on all-255
+operands, which of its kernels ran asserted by counter (the r8 kernel at
+M <= 8, the tensor-core one above, up to a training forward's M = 512);
+the noisy kernel and its plain version draw one Philox stream, and
 the noisy kernel's skip is also held on operands and thresholds chosen
 against it: dense and zero operands, thresholds a hair inside and outside a
 count's band, mismatch 1.0, rows 16 and 3),
@@ -46,7 +48,8 @@ from repro_torch.core.fabric import (Fabric, FabricSpec, NoiseSpec,
                                      fabric_matmul)
 from repro_torch.core.logic import WORD_OPS
 from repro_torch.core.rbl import rbl_voltage_physics
-from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
+from repro_torch.kernels.bitplane_mac.ops import (bitplane_kernel,
+                                                  bitplane_mac,
                                                   bitplane_mac_noisy,
                                                   bitplane_mac_noisy_torch,
                                                   bitplane_mac_torch,
@@ -357,11 +360,17 @@ R8_SHAPES = [(1, 8, 1), (3, 100, 31), (4, 1030, 129), (5, 3072, 768),
              (4, 8, 31), (5, 100, 1), (9, 1030, 768), (64, 3072, 129)]
 
 
+# the tensor-core kernel (rows 8, 8x8 bits, M > 8): M in {9, 16, 17, 32,
+# 33, 64, 512}, the prefill buckets' projections and the training forward's
+MMA_SHAPES = [(17, 768, 129), (32, 768, 3072), (33, 1030, 129),
+              (64, 3072, 768), (512, 768, 200), (16, 100, 31), (9, 1030, 40)]
+
+
 @pytest.mark.parametrize("m,k,n,bits_a,bits_w,rows", [
     (4, 768, 768, 8, 8, 8), (4, 3072, 768, 8, 8, 8), (64, 768, 3072, 8, 8, 8),
     (33, 1030, 129, 8, 8, 8), (16, 768, 768, 4, 8, 8), (5, 40, 12, 6, 6, 8),
     (4, 768, 768, 8, 8, 16), (7, 100, 37, 3, 5, 16)] +
-    [(m, k, n, 8, 8, 8) for m, k, n in R8_SHAPES])
+    [(m, k, n, 8, 8, 8) for m, k, n in R8_SHAPES + MMA_SHAPES])
 def test_bitplane_mac_bit_exact(hopper, m, k, n, bits_a, bits_w, rows):
     g = torch.Generator(device=hopper).manual_seed(m * k + n + rows)
     ua = torch.randint(0, 1 << bits_a, (m, k), generator=g, device=hopper,
@@ -369,9 +378,15 @@ def test_bitplane_mac_bit_exact(hopper, m, k, n, bits_a, bits_w, rows):
     uw = torch.randint(0, 1 << bits_w, (k, n), generator=g, device=hopper,
                        dtype=torch.int32)
     before = bitplane_mac.launches
+    before_mma = bitplane_mac.mma_launches
     out = bitplane_mac(ua, uw, bits_a=bits_a, bits_w=bits_w, rows=rows)
     torch.cuda.synchronize()
     assert bitplane_mac.launches == before + 1
+    # M = 4 (decode) keeps the r8 kernel; M > 8 of the served case takes
+    # the tensor-core one
+    tc = bitplane_kernel(m, bits_a, bits_w, rows) == "bitplane_mac_mma_kernel"
+    assert tc == (rows == 8 and bits_a == bits_w == 8 and m > 8)
+    assert bitplane_mac.mma_launches == before_mma + int(tc)
     assert torch.equal(out, bitplane_mac_torch(ua, uw, bits_a=bits_a,
                                                bits_w=bits_w, rows=rows))
     assert torch.equal(out, (ua.double() @ uw.double()).to(torch.int32))
@@ -398,7 +413,8 @@ def test_bitplane_mac_detuned_thresholds(hopper, m, k, n, rows):
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 1030, 129), (9, 3072, 31),
-                                   (1, 8, 1)])
+                                   (1, 8, 1), (17, 1030, 129),
+                                   (512, 768, 200)])
 def test_bitplane_mac_all_255(hopper, m, k, n):
     """Every count is 8: the decode's ninth table entry, every group."""
     ua = torch.full((m, k), 255, device=hopper, dtype=torch.int32)
@@ -413,7 +429,7 @@ def test_bitplane_mac_all_255(hopper, m, k, n):
 
 @pytest.mark.parametrize("thr_kind", ["detuned", "random"])
 @pytest.mark.parametrize("m,k,n", [(3, 100, 31), (4, 1030, 129),
-                                   (4, 768, 768), (9, 8, 1)])
+                                   (4, 768, 768), (9, 8, 1)] + MMA_SHAPES)
 def test_bitplane_mac_8x8_live_thresholds(hopper, m, k, n, thr_kind):
     """The served-case kernel decodes detuned and random references as the
     plain version does (its padded bytes weigh nothing)."""
