@@ -72,7 +72,13 @@ result:
       dense operands (every count is ``rows``: nothing is free) and zero
       ones (everything is), thresholds a hair inside and outside a count's
       band (linear and triode regime, mismatch and comparator offset),
-      mismatch 1.0, rows 16 and 3.
+      mismatch 1.0, rows 16 and 3, each also at M 9-64.  Then the
+      tensor-core kernel (rows 8, 8x8 bits, M >= 9, ``NOISY_MMA_CASES``): M
+      in {9, 17, 33, 41, 47, 64, 65, 100, 512}, K with a partial group and
+      a partial k-step, calibrated, stress, mismatch-only and
+      comparator-only sigmas, a detuned ``thr``, dense operands.  On every call of 4b the launcher's
+      report (``bitplane_mac_noisy.mma_launches``) must name the kernel
+      that ``ops.bitplane_noisy_kernel`` names.
    c. ``rbl_decode_mac`` (one {0,1} plane pair, decode against live
       thresholds) against its plain version, bit for bit, under calibrated
       and detuned thresholds: one plane pair of each demonstrator projection
@@ -138,8 +144,12 @@ result:
       printed beside the plain path's own flash-vs-dense distance.
    c. ``sim`` with the paper-calibrated noise (``NoiseSpec.calibrated()``,
       device mismatch 0.05) and flash prefill: ``bitplane_mac_noisy``
-      (72 launches per decode step), ``flash_attn`` and ``paged_attn`` must
-      launch, ``bitplane_mac`` and ``imc_mac`` never.  The graphs read
+      (72 launches per decode step, all of its 8-row-tile kernel, and 72 per
+      prefill, all of its tensor-core kernel: the replayed bucket-16 and
+      bucket-64 graphs, counted on the device, and eager bucket-32 and -64
+      prefills, as the launcher reports them against the twin),
+      ``flash_attn`` and ``paged_attn`` must launch, ``bitplane_mac`` and
+      ``imc_mac`` never.  The graphs read
       each step's noise seeds from a seed table in device memory, written
       before each replay, so the four serves' streams are equal.  The first
       request's prefill logits at the stress sigmas under two seeds must
@@ -200,8 +210,11 @@ result:
    an SM a clock) beside the int8 bound, one (768, 3072) projection of the
    bucket-64 prefill and of the training forward beside its plain version
    (the first is the ``bitplane_mac_mma`` entry of the ``kernels`` line),
-   and ``bitplane_mac_noisy`` rows for a bucket-64 prefill and the training
-   forward, from graphs;
+   and ``bitplane_mac_noisy`` rows for a bucket-16, -32 and -64 prefill
+   and the training forward (its tensor-core kernel), from graphs, beside
+   their bounds and the noise-free ``bitplane_mac``'s graph time, and one
+   (768, 3072) projection of the bucket-64 prefill beside its plain
+   version (the ``bitplane_mac_noisy_mma`` entry of the ``kernels`` line);
    the bucket-64 ``imc_mac`` row is also timed over one layer's weights
    alone (7.1 MB, resident in L2), the kernels without device-memory
    traffic.
@@ -227,8 +240,8 @@ result:
       kernels that the deterministic-algorithms mode swaps are named.
    b. ``sim`` and noisy ``sim`` (``NoiseSpec.calibrated()``), full width, 2
       layers, batch 4 x seq 128, 3 steps each: 24 ``bitplane_mac`` (all
-      on its tensor-core kernel, M = 512) / ``bitplane_mac_noisy``
-      launches a step; noisy, one step seed twice
+      on its tensor-core kernel, M = 512) / ``bitplane_mac_noisy`` (all on
+      its tensor-core kernel) launches a step; noisy, one step seed twice
       gives the same loss and gradients bit for bit, another step's seed
       another loss.
    c. The card against the CPU's plain path, same params and batch, 2
@@ -242,7 +255,8 @@ result:
    d. The three kernels at the training shapes against their plain
       versions, bit for bit: ``imc_mac`` at M = 2048 and 2047,
       ``bitplane_mac`` (its tensor-core kernel, by counter) and
-      ``bitplane_mac_noisy`` (a seed-table row) at M = 512.
+      ``bitplane_mac_noisy`` (a seed-table row; its tensor-core kernel, by
+      counter) at M = 512.
    Phase 7 adds the training shapes: ``imc_mac`` over one training
    forward's 72 projections at M = 2048 (beside ``torch._int_mm``), and
    ``bitplane_mac`` at M = 512 (with its prefill rows, below).
@@ -520,6 +534,21 @@ of its dp4a (``BITPLANE_VARIANTS``); prints one JSON line and the
 nvidia-smi line: where the kernel rule's threshold and the plan's target
 come from, and where the kernel's time goes.
 
+    python3 chip_smoke.py --noisy-variants
+
+times ``bitplane_mac_noisy`` built from text patches of its source, in
+turns from graphs, on one step's 72 projections at M in {4, 8, 9, 16, 17,
+24, 32, 33, 40, 41, 48, 64, 512} under calibrated mismatch: the source, the
+8-row-tile kernel at every M (the rule before the tensor-core kernel), the
+tensor-core kernel from M = 1, the designs it was measured against (drain
+inlined, offsets by a warp scan, appends by a bit loop, Philox by
+``__umulhi``, plan targets 528 and 792, two blocks an SM) and, results
+wrong on purpose, without Philox, tier 3, the queue, the appends and the
+offsets (``NOISY_VARIANTS``); the exact variants' outputs
+equal bit for bit; prints one JSON line (with ptxas's registers and spills
+of the tensor-core kernel per variant) and the nvidia-smi line: where
+``NOISY_MMA_MIN_M`` comes from, and where that kernel's time goes.
+
     python3 chip_smoke.py --int8-witness
 
 runs ``paged_attn`` (whichever kernel the tree's wrapper picks) on two int8
@@ -644,6 +673,28 @@ R8_ODD_SHAPES = ((3, 100, 31), (4, 1030, 129), (4, 768, 768), (9, 8, 1))
 MMA_SHAPES = ((16, 768, 768), (17, 1030, 129), (32, 768, 3072),
               (33, 100, 31), (64, 3072, 768), (65, 8, 1), (512, 768, 200),
               (512, 1030, 129), (17, 3072, 31))
+# bitplane_mac_noisy's tensor-core kernel (rows 8, 8x8 bits, M >= 9), phase
+# 4b: (m, k, n, noise, thresholds, fill); M in {9, 17, 33, 41, 47, 64, 65,
+# 100, 512}, K with
+# a partial group (1030) and a partial k-step (300), calibrated, stress,
+# mismatch-only and comparator-only sigmas, a detuned thr, dense operands
+NOISY_MMA_CASES = ((9, 768, 768, "calibrated", "calibrated", None),
+                   (17, 300, 200, "comparator", "detuned", None),
+                   (33, 1030, 129, "both", "detuned", None),
+                   (41, 768, 768, "calibrated", "calibrated", None),
+                   (41, 1030, 129, "both", "calibrated", None),
+                   (47, 768, 768, "calibrated", "calibrated", None),
+                   (47, 300, 200, "comparator", "detuned", None),
+                   (65, 1030, 129, "both", "detuned", None),
+                   (100, 768, 768, "mismatch", "calibrated", None),
+                   (64, 768, 3072, "calibrated", "calibrated", None),
+                   (64, 1030, 129, "both", "calibrated", None),
+                   (64, 3072, 768, "calibrated", "detuned", None),
+                   (64, 768, 256, "calibrated", "calibrated", 255),
+                   (64, 768, 256, "both", "detuned", 255),
+                   (65, 300, 72, "comparator", "calibrated", 255),
+                   (512, 768, 64, "calibrated", "calibrated", None),
+                   (512, 300, 72, "both", "calibrated", None))
 
 
 def log(*a):
@@ -1211,6 +1262,42 @@ def phase_bitplane_mac(torch, dev):
     return float(worst)
 
 
+def noisy_call(torch, fn, ua, uw, seed, thr, tag, **kw):
+    """One ``bitplane_mac_noisy`` call: one launch, of the kernel that the
+    twin ``ops.bitplane_noisy_kernel`` names for its shape (the launcher's
+    report, ``mma_launches``); returns its output."""
+    from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac_noisy,
+                                                      bitplane_noisy_kernel)
+
+    before = bitplane_mac_noisy.launches
+    before_mma = bitplane_mac_noisy.mma_launches
+    out = fn(ua, uw, seed, thr, **kw)
+    torch.cuda.synchronize()
+    m = ua.reshape(-1, ua.shape[-1]).shape[0]
+    want = bitplane_noisy_kernel(m, kw.get("bits_a", 8), kw.get("bits_w", 8),
+                                 kw.get("rows", 8))
+    ran = bitplane_mac_noisy.mma_launches - before_mma
+    if bitplane_mac_noisy.launches != before + 1 or \
+            ran != int(want == "bitplane_mac_noisy_mma_kernel"):
+        raise AssertionError(
+            f"bitplane_mac_noisy at {tag}: {bitplane_mac_noisy.launches - before}"
+            f" launches, {ran} of the tensor-core kernel; the twin names "
+            f"{want}")
+    return out
+
+
+def noisy_gate(tag, counts, m, calls):
+    """``calls`` launches of ``bitplane_mac_noisy`` at M = ``m`` in
+    ``counts``, each of the kernel that ``ops.bitplane_noisy_kernel`` names
+    (the launcher's report: ``bitplane_mac_noisy_mma``)."""
+    from repro_torch.kernels.bitplane_mac.ops import bitplane_noisy_kernel
+
+    mma = calls if bitplane_noisy_kernel(m, 8, 8, 8) == \
+        "bitplane_mac_noisy_mma_kernel" else 0
+    check_counts(tag, counts, {"bitplane_mac_noisy": calls,
+                               "bitplane_mac_noisy_mma": mma})
+
+
 def phase_bitplane_mac_noisy(torch, dev):
     from repro_torch.core.constants import MC_SIGMA_VK
     from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
@@ -1241,9 +1328,11 @@ def phase_bitplane_mac_noisy(torch, dev):
         uw = torch.randint(0, 1 << bw, (k, n), generator=g, device=dev,
                            dtype=torch.int32)
         kw = dict(bits_a=ba, bits_w=bw, rows=rows, **noise[nz])
-        out = bitplane_mac_noisy(ua, uw, 11, **kw)
-        again = bitplane_mac_noisy(ua, uw, seed_row(11, dev), **kw)
-        torch.cuda.synchronize()
+        tag = (m, k, n, ba, bw, rows, nz)
+        out = noisy_call(torch, bitplane_mac_noisy, ua, uw, 11, None, tag,
+                         **kw)
+        again = noisy_call(torch, bitplane_mac_noisy, ua, uw,
+                           seed_row(11, dev), None, tag, **kw)
         plain = bitplane_mac_noisy_torch(ua, uw, 11, **kw)
         worst = max(worst, (out - plain).abs().max().item())
         if not torch.equal(out, plain):
@@ -1292,13 +1381,8 @@ def phase_bitplane_mac_noisy(torch, dev):
         else:
             ua = torch.full((m, k), fill, device=dev, dtype=torch.int32)
             uw = torch.full((k, n), fill, device=dev, dtype=torch.int32)
-        before = bitplane_mac_noisy.launches
-        out = bitplane_mac_noisy(ua, uw, 11, thr, rows=rows, **kw)
-        torch.cuda.synchronize()
-        if bitplane_mac_noisy.launches != before + 1:
-            raise AssertionError("bitplane_mac_noisy launched "
-                                 f"{bitplane_mac_noisy.launches - before} "
-                                 f"times at {tag}")
+        out = noisy_call(torch, bitplane_mac_noisy, ua, uw, 11, thr,
+                         (tag, m, k, n), rows=rows, **kw)
         plain = bitplane_mac_noisy_torch(ua, uw, 11, thr, rows=rows, **kw)
         worst = max(worst, (out - plain).abs().max().item())
         if not torch.equal(out, plain):
@@ -1306,11 +1390,38 @@ def phase_bitplane_mac_noisy(torch, dev):
                 f"bitplane_mac_noisy differs from its plain version at {tag} "
                 f"{(m, k, n, rows, kw)} in {int((out != plain).sum())} of "
                 f"{out.numel()} elements")
+    # the tensor-core kernel (rows 8, 8x8 bits, M >= NOISY_MMA_MIN_M = 9)
+    mma_worst = 0
+    for m, k, n, nz, kind, fill in NOISY_MMA_CASES:
+        if fill is None:
+            ua = torch.randint(0, 256, (m, k), generator=g, device=dev,
+                               dtype=torch.int32)
+            uw = torch.randint(0, 256, (k, n), generator=g, device=dev,
+                               dtype=torch.int32)
+        else:
+            ua = torch.full((m, k), fill, device=dev, dtype=torch.int32)
+            uw = torch.full((k, n), fill, device=dev, dtype=torch.int32)
+        thr = good if kind == "calibrated" else detuned
+        tag = (m, k, n, nz, kind, fill)
+        out = noisy_call(torch, bitplane_mac_noisy, ua, uw, 13, thr, tag,
+                         **noise[nz])
+        plain = bitplane_mac_noisy_torch(ua, uw, 13, thr, **noise[nz])
+        mma_worst = max(mma_worst, (out - plain).abs().max().item())
+        if not torch.equal(out, plain):
+            raise AssertionError(
+                f"bitplane_mac_noisy (tensor-core kernel) differs from its "
+                f"plain version at {tag} in {int((out != plain).sum())} of "
+                f"{out.numel()} elements")
+    worst = max(worst, mma_worst)
     log(f"[4b] bitplane_mac_noisy bit-exact on {len(cases) + 1} cases "
         f"(1 detuned) and {len(adverse)} adversarial ones (dense and zero "
         "operands, thresholds a hair inside and outside a band edge, "
-        "mismatch 1.0, rows 16 and 3); NoiseSpec(0, 0) equals bitplane_mac; "
-        "same seed identical, two seeds differ")
+        "mismatch 1.0, rows 16 and 3, M 9-64 on the tensor-core kernel); "
+        f"and on the tensor-core kernel's {len(NOISY_MMA_CASES)} cases (M 9-"
+        "512, calibrated / stress / mismatch / comparator sigmas, detuned "
+        "thr, dense operands); the launcher's kernel equal to the twin's on "
+        "every call; NoiseSpec(0, 0) equals bitplane_mac; same seed "
+        "identical, two seeds differ")
     # the plain version's Philox temporaries filled the caching allocator
     # with GBs of int64 blocks; hand them back before the served paths
     torch.cuda.empty_cache()
@@ -1350,14 +1461,30 @@ def noisy_adversarial_cases(torch, dev):
     outside a count's band edge (linear and triode regime, mismatch and
     comparator offset), mismatch 1.0, rows 16 and 3."""
     from repro_torch.core.constants import MC_SIGMA_VK
+    from repro_torch.kernels.bitplane_mac.ops import physics_thresholds
     from repro_torch.kernels.common import U1_GRID, radius
 
     zmax = float(radius(U1_GRID - 1))
     cal = dict(mismatch_sigma=MC_SIGMA_VK)
     big = dict(mismatch_sigma=1.0)
     off = dict(comparator_offset_sigma=0.03)
+    good = physics_thresholds(8, dev)
+    detuned = torch.cat([torch.tensor([1.9], device=dev), good[:-1]])
     cases = [("dense", 4, 768, 768, 8, cal, 255, None),
              ("dense", 4, 768, 768, 8, STRESS, 255, None),
+             # the tensor-core kernel (M >= 9)
+             ("dense", 64, 768, 768, 8, cal, 255, None),
+             ("dense", 41, 768, 256, 8, STRESS, 255, None),
+             ("dense", 9, 300, 200, 8, dict(mismatch_sigma=0.3), 255, None),
+             ("dense", 47, 300, 200, 8, dict(mismatch_sigma=0.3), 255, None),
+             ("dense, detuned", 64, 768, 256, 8, cal, 255, detuned),
+             ("detuned", 64, 768, 768, 8, cal, None, detuned),
+             ("detuned", 64, 768, 256, 8, STRESS, None, detuned),
+             ("zero", 64, 300, 200, 8, STRESS, 0, None),
+             ("mismatch 1.0", 17, 768, 768, 8, big, None, None),
+             ("mismatch 1.0", 64, 768, 768, 8, big, None, None),
+             ("mismatch 1.0 + offset", 41, 768, 256, 8,
+              dict(big, comparator_offset_sigma=0.03), None, None),
              ("dense", 4, 768, 768, 8, dict(mismatch_sigma=0.3), 255, None),
              ("dense", 4, 768, 256, 16, cal, 255, None),
              ("dense", 4, 300, 200, 3, STRESS, 255, None),
@@ -1373,11 +1500,15 @@ def noisy_adversarial_cases(torch, dev):
     for k in (3, 6):  # linear and triode regime
         reach = MC_SIGMA_VK * k ** 0.5 * zmax
         for f, where in ((0.999, "inside"), (1.001, "outside")):
-            cases.append((f"hair {where} count {k}", 4, 768, 768, 8, cal,
-                          None, hair_thresholds(torch, dev, 8, k, reach, f)))
+            for m in (4, 48):  # the 8-row-tile kernel and the tensor-core one
+                cases.append((f"hair {where} count {k}", m, 768, 768, 8, cal,
+                              None, hair_thresholds(torch, dev, 8, k, reach,
+                                                    f)))
     for f, where in ((0.999, "inside"), (1.001, "outside")):
-        cases.append((f"offset hair {where} count 3", 4, 768, 768, 8, off,
-                      None, hair_offsets(torch, dev, 8, 3, 0.03 * zmax, f)))
+        for m in (4, 64):
+            cases.append((f"offset hair {where} count 3", m, 768, 768, 8, off,
+                          None, hair_offsets(torch, dev, 8, 3, 0.03 * zmax,
+                                             f)))
     return cases
 
 
@@ -1976,13 +2107,23 @@ def phase_server(torch, dev):
              "paged_attn_staged")
     noisy, noisy_first = serve_path(torch, dev, noisy_cfg, params, prompts,
                                     "sim+noise+flash", must, never,
-                                    noise_seed=NOISE_SEED)
+                                    noise_seed=NOISE_SEED, prefill64=True)
     log_turns("sim+noise+flash", noisy)
-    per_step = noisy["per_decode_step"]["bitplane_mac_noisy"]
-    if per_step != 6 * cfg.n_layers:  # 72: 4 attention + 2 MLP projections
-        raise AssertionError(f"sim+noise: {per_step} bitplane_mac_noisy "
-                             f"launches per decode step, expected "
-                             f"{6 * cfg.n_layers}")
+    # 72 launches (4 attention + 2 MLP projections a layer) a decode step
+    # (M = 4: the 8-row-tile kernel) and a prefill (M = the bucket: the
+    # tensor-core kernel), as the launcher reports them: the replayed
+    # bucket-16 and bucket-64 graphs and eager bucket-32 and -64 prefills
+    noisy_gate("sim+noise: a decode step", noisy["per_decode_step"], 4,
+               n_proj)
+    for bucket, prompt in ((32, prompts[5][:20]), (64, prompts[2])):
+        zero_counts()
+        first_prefill(torch, dev, params, noisy_cfg, prompt, bucket=bucket,
+                      noise_seed=NOISE_SEED)
+        noisy[f"per_prefill_{bucket}_eager"] = read_counts()
+    for what, bucket in (("per_prefill", 16), ("per_prefill_64", 64),
+                         ("per_prefill_32_eager", 32),
+                         ("per_prefill_64_eager", 64)):
+        noisy_gate(f"sim+noise: {what}", noisy[what], bucket, n_proj)
     # serve_path served it four times under one noise_seed, eagerly and
     # from graphs that read their seeds from device memory: equal streams
     stress_cfg = dataclasses.replace(sim_cfg, fabric=FabricSpec(
@@ -2568,11 +2709,13 @@ def phase_train(torch, dev):
     per_step = 2 * dense_calls(small)
     noisy_spec = FabricSpec(mode="sim", noise=NoiseSpec.calibrated())
     # (M = batch x seq = 512: sim's projections take bitplane_mac's
-    # tensor-core kernel)
+    # tensor-core kernel, noisy sim's bitplane_mac_noisy's; train_run holds
+    # every counter to its must list, the launchers' reports among them)
     for tag, spec, must in (
             ("sim", FabricSpec(mode="sim"),
              ("bitplane_mac", "bitplane_mac_mma")),
-            ("noisy", noisy_spec, ("bitplane_mac_noisy",))):
+            ("noisy", noisy_spec,
+             ("bitplane_mac_noisy", "bitplane_mac_noisy_mma"))):
         kernel = must[0]
         c = dataclasses.replace(small, fabric=spec)
         t0 = time.perf_counter()
@@ -2587,6 +2730,9 @@ def phase_train(torch, dev):
             f"losses {' '.join(f'{x:.4f}' for x in losses)}; step ms "
             f"{' '.join(f'{x:.1f}' for x in step_ms)}; {launches[kernel]} "
             f"{kernel} launches ({per_step} a step)")
+        if tag == "noisy":
+            noisy_gate("[8b] noisy", launches, TRAIN_BATCH * TRAIN_SIM_SEQ,
+                       per_step * len(hist))
         out[tag] = dict(losses=losses, step_ms=step_ms,
                         launches=launches[kernel], launches_per_step=per_step,
                         launches_by_counter={k: launches[k] for k in must})
@@ -2719,7 +2865,8 @@ def train_kernel_checks(torch, dev):
     layer, ``bitplane_mac`` at M = 512 (8b's 4 x 128) on (768, 3072), its
     tensor-core kernel by counter, and
     ``bitplane_mac_noisy`` at M = 512 on (768, 768) under calibrated
-    mismatch, seeded by a row of a step's seed table in device memory."""
+    mismatch, seeded by a row of a step's seed table in device memory, its
+    tensor-core kernel by the launcher's report."""
     from repro_torch.core.constants import MC_SIGMA_VK
     from repro_torch.kernels.bitplane_mac.ops import (bitplane_mac,
                                                       bitplane_mac_noisy,
@@ -2756,7 +2903,8 @@ def train_kernel_checks(torch, dev):
             seed = torch.from_numpy(seed_table(7, 24)).to(dev)[5]
             kw = dict(mismatch_sigma=MC_SIGMA_VK)
             same(f"bitplane_mac_noisy {(m, k, n)}",
-                 bitplane_mac_noisy(ua, uw, seed, **kw),
+                 noisy_call(torch, bitplane_mac_noisy, ua, uw, seed, None,
+                            f"[8d] {(m, k, n)}", **kw),
                  bitplane_mac_noisy_torch(ua, uw, seed, **kw))
         else:
             before = bitplane_mac.mma_launches
@@ -3002,35 +3150,42 @@ def rbl_sweep_row(torch, dev):
 
 
 def build_variants(label, source, variants, entry, argtypes):
-    """Build each of ``variants`` ({name: [(anchor, text), ...]}) of
-    ``csrc/<source>.cu``: every anchor is a piece of one line of the source
-    (a whole line, stripped, where the piece is in several) and is replaced
-    by its text.  One nvcc each, all started together, into the build
-    directory's ``label`` folder.  Returns ({name: the library's ``entry``
-    through ctypes}, {name: nvcc's output})."""
+    """Build each of ``variants`` ({name: [(anchor, text[, header]), ...]})
+    of ``csrc/<source>.cu``: every anchor is a piece of one line of the
+    source, or of the named header of ``csrc/`` (a whole line, stripped,
+    where the piece is in several), and is replaced by its text.  Each
+    variant is written to a folder of its own under the build directory's
+    ``label`` folder, its patched headers beside it (found there before
+    ``csrc/``'s); one nvcc each, all started together.  Returns ({name: the
+    library's ``entry`` through ctypes}, {name: nvcc's output})."""
     import ctypes
 
     from repro_torch.kernels import build
 
-    src = (build.CSRC / f"{source}.cu").read_text().split("\n")
-    out_dir = build.build_dir() / label
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, dirs = {}, {}
     for name, patches in variants.items():
-        lines = list(src)
-        for anchor, text in patches:
+        files = {f"{source}.cu": (build.CSRC / f"{source}.cu").read_text()
+                 .split("\n")}
+        for anchor, text, *header in patches:
+            fname = header[0] if header else f"{source}.cu"
+            lines = files.setdefault(
+                fname, (build.CSRC / fname).read_text().split("\n"))
             at = [i for i, line in enumerate(lines) if anchor in line]
             if len(at) > 1:
                 at = [i for i in at if lines[i].strip() == anchor]
             if "\n" in anchor or len(at) != 1:
                 raise AssertionError(f"{label} {name}: {anchor!r} is not in "
-                                     f"one line of {source}.cu")
+                                     f"one line of {fname}")
             lines[at[0]] = lines[at[0]].replace(anchor, text)
-        path = out_dir / f"{source}_{name}.cu"
-        path.write_text("\n".join(lines))
+        vdir = dirs[name] = build.build_dir() / label / name
+        vdir.mkdir(parents=True, exist_ok=True)
+        for stale in vdir.glob("*.cu*"):  # an earlier build's patches
+            stale.unlink()
+        for fname, lines in files.items():
+            (vdir / fname).write_text("\n".join(lines))
         procs[name] = subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, f"-I{build.CSRC}", "-o",
-             str(path.with_suffix(".so")), str(path)],
+             str(vdir / f"{source}.so"), str(vdir / f"{source}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns, logs = {}, {}
     for name, proc in procs.items():
@@ -3038,11 +3193,23 @@ def build_variants(label, source, variants, entry, argtypes):
         if proc.returncode != 0:
             raise AssertionError(f"{label} {name}: nvcc failed\n"
                                  f"{logs[name]}")
-        fn = getattr(ctypes.CDLL(str(out_dir / f"{source}_{name}.so")),
-                     entry)
+        fn = getattr(ctypes.CDLL(str(dirs[name] / f"{source}.so")), entry)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         fns[name] = fn
     return fns, logs
+
+
+def ptxas_lines(logs, kernel):
+    """{variant: ptxas's registers, stack and spill lines for ``kernel``}
+    from ``build_variants``' nvcc outputs."""
+    out = {}
+    for name, text in logs.items():
+        lines = text.splitlines()
+        at = next(i for i, line in enumerate(lines)
+                  if "Compiling entry function" in line and kernel in line)
+        out[name] = " ".join(x.strip() for x in lines[at + 1:at + 4]
+                             if "Used" in x or "spill" in x)
+    return out
 
 
 # rbl_decode_mac's timing-only variants, each returning early, its results
@@ -3429,16 +3596,19 @@ def time_bitplane_mac_noisy(torch, dev):
                     f"philox_ops{tag}": philox_ops,
                     f"sfu_bound_ms{tag}": sfu_ms, f"sfu_ops{tag}": sfu_ops,
                     f"tiers{tag}": tiers})
-    # the same kernel at a bucket-64 prefill's and a training forward's
-    # projections (phase 8b's M = 512), calibrated mismatch, uniform
-    # operands, from a graph (0.74 s a replay at M = 512); their Philox
-    # bound takes the tier-3 share of the decode step's uniform operands
-    # (the same distribution of counts)
+    # the prefill buckets' and a training forward's projections (phase 8b's
+    # M = 512), calibrated mismatch, uniform operands, from graphs: the
+    # tensor-core kernel (M >= NOISY_MMA_MIN_M); their Philox bound takes
+    # the tier-3 share of the decode step's uniform operands (the same
+    # distribution of counts).  The bucket-64 prefill's (768, 3072)
+    # projection of layer 0 is timed alone beside its plain version (the
+    # kernels line's bitplane_mac_noisy_mma entry).
     share = 1.0 if out["tiers"] is None else out["tiers"]["tier3"]
-    for key, mt, iters in (("prefill64", 64, 3),
-                           ("train", TRAIN_BATCH * TRAIN_SIM_SEQ, 1)):
+    for key, mt, iters in (("prefill16", 16, 5), ("prefill32", 32, 5),
+                           ("prefill64", 64, 5),
+                           ("train", TRAIN_BATCH * TRAIN_SIM_SEQ, 3)):
         what = ("one training forward (phase 8b)" if key == "train"
-                else "one bucket-64 prefill")
+                else f"one bucket-{mt} prefill")
         at = {k: torch.randint(0, 256, (mt, k), generator=g, device=dev,
                                dtype=torch.uint8) for k in (768, 3072)}
         el = layers * sum(bits * bits * mt * (k // rows) * n
@@ -3446,15 +3616,42 @@ def time_bitplane_mac_noisy(torch, dev):
         b_ms, by = bound(
             layers * sum(mt * k + k * n + 4 * mt * n for k, n in shapes),
             PHILOX_INT_OPS * share * el, INT_OPS_PER_S)
+        before = getattr(bitplane_mac_noisy, "mma_launches", 0)
         out[key] = dict(
             graph_ms=graph_ms(torch, lambda: step(bitplane_mac_noisy, at, ws,
                                                   **calibrated), iters=iters,
                               warmup=1),
             bound_ms=b_ms, bound_by=by, elements=el, tier3_share=share,
+            # the wrapper's count: a warm-up and the capture, 72 each
+            tensor_core_launches=getattr(bitplane_mac_noisy, "mma_launches",
+                                         0) - before,
             shape=f"{what}: 12 layers x {{4x (768,768), (768,3072), (3072,768)}} at "
                   f"M={mt}, mismatch at the calibrated sigma, uniform "
                   "operands; bound: the bytes against one Philox4x32-10 "
                   "per element at the decode step's tier-3 share")
+        if key == "prefill64":
+            a1, w1 = at[768], ws[0][4]
+            el1 = bits * bits * mt * (768 // rows) * 3072
+            b1, by1 = bound(mt * 768 + 768 * 3072 + 4 * mt * 3072,
+                            PHILOX_INT_OPS * share * el1, INT_OPS_PER_S)
+            one = dict(
+                ms=cuda_ms(torch, lambda: bitplane_mac_noisy(
+                    a1, w1, seed, bits_a=bits, bits_w=bits, rows=rows,
+                    **calibrated), iters=20),
+                graph_ms=graph_ms(torch, lambda: bitplane_mac_noisy(
+                    a1, w1, seed, bits_a=bits, bits_w=bits, rows=rows,
+                    **calibrated)),
+                plain_ms=cuda_ms(torch, lambda: bitplane_mac_noisy_torch(
+                    a1.to(torch.int32), w1.to(torch.int32), seed,
+                    bits_a=bits, bits_w=bits, rows=rows, **calibrated),
+                    iters=1, warmup=1),
+                bound_ms=b1, bound_by=by1, library_ms=None, elements=el1,
+                shape=f"{what}'s (768,3072) projection of layer 0 at M={mt},"
+                      " 8x8 bits, rows 8, calibrated mismatch, uniform "
+                      "operands (the tensor-core kernel); ms, plain and "
+                      "bound on the same inputs; library: none computes "
+                      "the noisy pyramid")
+            out[key]["one_projection"] = one
     out.update(library_ms=None, elements=elems, bytes=nbytes,
                shape="one decode step: 12 layers x {4x (768,768), "
                      "(768,3072), (3072,768)} at M=4, 8x8 bits, rows 8, "
@@ -3897,8 +4094,10 @@ def serve_family(torch, dev, name):
             never=("imc_mac", "bitplane_mac") + flash_never,
             noise_seed=NOISE_SEED)
         log_turns(ntag, noisy)
-        check_counts(f"{ntag}, a decode step", noisy["per_decode_step"],
-                     {"bitplane_mac_noisy": calls})
+        noisy_gate(f"{ntag}, a decode step", noisy["per_decode_step"], 4,
+                   calls)
+        noisy_gate(f"{ntag}, a bucket-16 prefill", noisy["per_prefill"], 16,
+                   noisy["per_prefill"]["bitplane_mac_noisy"])
         out["sim_noise"] = noisy
     if name in WINDOW_REQUESTS:
         # gated with the fabric off: the exact fabric requantizes each
@@ -5081,8 +5280,10 @@ BITPLANE_VARIANTS = {
     "source": [],
     "r8_all": [("R8_MAX_M = 8;", "R8_MAX_M = 1 << 30;")],
     "mma_all": [("R8_MAX_M = 8;", "R8_MAX_M = 0;")],
-    "target264": [("MM_TARGET = 528;", "MM_TARGET = 264;")],
-    "target792": [("MM_TARGET = 528;", "MM_TARGET = 792;")],
+    "target264": [("MM_TARGET = 528;", "MM_TARGET = 264;",
+                   "bitplane_mma.cuh")],
+    "target792": [("MM_TARGET = 528;", "MM_TARGET = 792;",
+                   "bitplane_mma.cuh")],
     "no_mma": [("mma_u8_k32(d, ap[mi], bq[q][ni][0], bq[q][ni][1], pad);",
                 "d[0] = ap[mi][0] ^ bq[q][ni][0]; d[1] = ap[mi][1] ^ "
                 "bq[q][ni][1]; d[2] = ap[mi][2] ^ pad; d[3] = ap[mi][3] ^ "
@@ -5117,14 +5318,7 @@ def bitplane_variants(torch, dev):
     fns, logs = build_variants("bitplane_variants", "bitplane_mac",
                                BITPLANE_VARIANTS, "bitplane_mac_launch",
                                _ARGTYPES)
-    regs = {}
-    for name, text in logs.items():
-        lines = text.splitlines()
-        at = next(i for i, line in enumerate(lines)
-                  if "bitplane_mac_mma_kernel" in line
-                  or "23bitplane_mac_mma" in line)
-        regs[name] = " ".join(x.strip() for x in lines[at + 1:at + 4]
-                              if "Used" in x or "spill" in x)
+    regs = ptxas_lines(logs, "bitplane_mac_mma_kernel")
 
     g = torch.Generator(device=dev).manual_seed(30)
     good = physics_thresholds(8, dev)
@@ -5166,6 +5360,154 @@ def bitplane_variants(torch, dev):
                         for lw in ws for w in lw],
                     iters=3 if m == 512 else 10))
         log(f"[bitplane variants] M = {m}: " + "; ".join(
+            f"{n} {' '.join(f'{x:.4f}' for x in v)}" for n, v in row.items()))
+    return {"turns": turns, "registers": regs}
+
+
+# --noisy-variants: text patches of csrc/bitplane_mac_noisy.cu, each its own
+# library: the kernel rule (the 8-row-tile kernel at every M, the rule
+# before the tensor-core kernel; the tensor-core kernel from M = 1), the
+# designs the source was measured against (the drain inlined at its eight call sites,
+# the queue offsets by a warp scan, the appends by a loop over the need
+# word's set bits, Philox's products by __umulhi and a multiply, the plan
+# aiming at 528 or 792 blocks, two blocks an SM), and, results wrong on
+# purpose, each one more piece taken out: Philox (the counter for its
+# words), tier 3 (the drain returns), the queue (appends not counted, so
+# nothing is drained), the appends, the offsets
+_SCAN = (
+    "__device__ __forceinline__ int append_scan(int n, int lane, int count, "
+    "int* added) { int scan = n; for (int d = 1; d < 32; d <<= 1) { const "
+    "int y = __shfl_up_sync(FULL, scan, d); if (lane >= d) scan += y; } "
+    "*added = __shfl_sync(FULL, scan, 31); return count + scan - n; }\n")
+_BIT_LOOP = (
+    "__device__ __forceinline__ void append_loop(uint32_t* queue, int at, "
+    "uint32_t need, const uint32_t (&d)[4], uint32_t base) { const uint32_t "
+    "w01 = prmt(d[0], d[1], 0x5410u); const uint32_t w23 = prmt(d[2], d[3], "
+    "0x5410u); while (need) { const uint32_t i = 31u - static_cast<uint32_t>"
+    "(__clz(need)); need ^= 1u << i; const uint32_t k = ((i & 2u ? w23 : w01)"
+    " >> (((i & 1u) << 4) | ((i >> 1) & 0x1Cu))) & 15u; queue[at++] = base | "
+    "(i & 2u) << (ER + 2) | (i & 1u) << EC | (i >> 3) << EG | k; } }\n")
+_NO_QUEUE = ("count += added;", "(void)added;")  # nothing is drained
+_KEEP = "if ((at ^ need) == 0x5A5A5A5Au) queue[0] = need;"  # no appends, kept
+NOISY_VARIANTS = {
+    "source": [],
+    "tile_all": [("NOISY_MMA_MIN_M = 9;", "NOISY_MMA_MIN_M = 1 << 30;")],
+    "mma_all": [("NOISY_MMA_MIN_M = 9;", "NOISY_MMA_MIN_M = 1;")],
+    "inline_drain": [("__device__ __noinline__ void mma_drain(",
+                      "__device__ __forceinline__ void mma_drain(")],
+    "scan_offsets": [
+        ("__global__ void __launch_bounds__(MM_THREADS, 3)",
+         _SCAN + "__global__ void __launch_bounds__(MM_THREADS, 3)"),
+        ("int at = append_offset(__popc(need), lane, count, &added);",
+         "int at = append_scan(__popc(need), lane, count, &added);")],
+    "bit_loop": [("__global__ void __launch_bounds__(MM_THREADS, 3)",
+                  _BIT_LOOP + "__global__ void __launch_bounds__(MM_THREADS, 3)"),
+                 ("append_slots(queue, at, need, d, base);",
+                  "append_loop(queue, at, need, d, base);")],
+    "philox_hi": [
+        ("const uint64_t p0 = static_cast<uint64_t>(PHILOX_M0) * c.x;", ""),
+        ("const uint64_t p1 = static_cast<uint64_t>(PHILOX_M1) * c.z;", ""),
+        ("const uint32_t hi0 = static_cast<uint32_t>(p0 >> 32);",
+         "const uint32_t hi0 = __umulhi(PHILOX_M0, c.x);"),
+        ("const uint32_t lo0 = static_cast<uint32_t>(p0);",
+         "const uint32_t lo0 = PHILOX_M0 * c.x;"),
+        ("const uint32_t hi1 = static_cast<uint32_t>(p1 >> 32);",
+         "const uint32_t hi1 = __umulhi(PHILOX_M1, c.z);"),
+        ("const uint32_t lo1 = static_cast<uint32_t>(p1);",
+         "const uint32_t lo1 = PHILOX_M1 * c.z;")],
+    "target528": [("NOISY_MMA_TARGET = 1188;", "NOISY_MMA_TARGET = 528;")],
+    "target792": [("NOISY_MMA_TARGET = 1188;", "NOISY_MMA_TARGET = 792;")],
+    "bounds2": [("__global__ void __launch_bounds__(MM_THREADS, 3)",
+                 "__global__ void __launch_bounds__(MM_THREADS, 2)")],
+    # results wrong on purpose, each one more piece taken out
+    "no_philox": [
+        ("const uint4 y0 = philox4x32_10(mma_counter(e0, m0, n0, gc), rk);",
+         "const uint4 y0 = mma_counter(e0, m0, n0, gc); (void)rk;"),
+        ("const uint4 y1 = philox4x32_10(mma_counter(e1, m0, n0, gc), rk);",
+         "const uint4 y1 = mma_counter(e1, m0, n0, gc);")],
+    "no_tier3": [("const RoundKeys rk = keys_of(key0, key1);",
+                  "return; const RoundKeys rk = keys_of(key0, key1);")],
+    "no_queue": [_NO_QUEUE],
+    "no_append": [_NO_QUEUE, ("append_slots(queue, at, need, d, base);",
+                              _KEEP)],
+    "no_offsets": [_NO_QUEUE,
+                   ("append_slots(queue, at, need, d, base);", _KEEP),
+                   ("int at = append_offset(__popc(need), lane, count, &added);",
+                    "int at = count; added = 0;")],
+}
+NOISY_WRONG = ("no_philox", "no_tier3", "no_queue", "no_append",
+               "no_offsets")
+NOISY_VARIANT_M = (4, 8, 9, 16, 17, 24, 32, 33, 40, 41, 48, 64, 512)
+
+
+def noisy_variants(torch, dev):
+    """``--noisy-variants``: which ``bitplane_mac_noisy`` kernel each M
+    should take (``NOISY_MMA_MIN_M``), and where the tensor-core kernel's
+    time goes.  Each variant of ``NOISY_VARIANTS`` is built by nvcc and
+    called through ctypes on one step's 72 projections (12 layers x {4x
+    (768,768), (768,3072), (3072,768)}, 8x8 bits, rows 8, calibrated
+    mismatch, uniform operands, a seed row) at each M, from a graph, in
+    turns (in order, reversed, in order).  The exact variants' outputs
+    equal the source's bit for bit on one projection under calibrated
+    mismatch and under the stress sigmas with a detuned table.  Returns
+    {"turns": {M: {variant: [ms, ...]}}, "registers": {variant: ptxas's
+    line for the tensor-core kernel}}."""
+    import ctypes
+
+    from repro_torch.core.constants import MC_SIGMA_VK
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bitplane_mac.ops import (_NOISY_ARGTYPES,
+                                                      physics_thresholds)
+    from repro_torch.kernels.common import seed_row
+
+    fns, logs = build_variants("noisy_variants", "bitplane_mac_noisy",
+                               NOISY_VARIANTS, "bitplane_mac_noisy_launch",
+                               _NOISY_ARGTYPES)
+    regs = ptxas_lines(logs, "bitplane_mac_noisy_mma_kernel")
+    log(f"[noisy variants] ptxas: {json.dumps(regs)}")
+    g = torch.Generator(device=dev).manual_seed(31)
+    good = physics_thresholds(8, dev)
+    detuned = torch.cat([torch.tensor([1.9], device=dev), good[:-1]])
+    seed = seed_row(5, dev)
+    shapes = [(768, 768)] * 4 + [(768, 3072), (3072, 768)]
+    ws = [[torch.randint(0, 256, sh, generator=g, device=dev,
+                         dtype=torch.uint8) for sh in shapes]
+          for _ in range(12)]
+
+    def call(fn, a, w, thr, ms, cs):  # on the current stream: a capture's
+        out = torch.empty((a.shape[0], w.shape[1]), dtype=torch.int32,
+                          device=dev)
+        stream, device = build.stream_and_device(out)
+        build.check_launch("noisy_variants", fn(
+            a.data_ptr(), w.data_ptr(), thr.data_ptr(), out.data_ptr(),
+            a.shape[0], w.shape[1], a.shape[1], 8, 8, 8, seed.data_ptr(), ms,
+            cs, 480, stream, device, ctypes.byref(ctypes.c_int())))
+        return out
+
+    exact = [n for n in NOISY_VARIANTS if n not in NOISY_WRONG]
+    turns = {}
+    for m in NOISY_VARIANT_M:
+        act = {k: torch.randint(0, 256, (m, k), generator=g, device=dev,
+                                dtype=torch.uint8) for k in (768, 3072)}
+        for thr, ms, cs in ((good, MC_SIGMA_VK, 0.0), (detuned, 0.3, 0.03)):
+            want = call(fns["source"], act[768], ws[0][4], thr, ms, cs)
+            for name in exact:
+                if not torch.equal(call(fns[name], act[768], ws[0][4], thr,
+                                        ms, cs), want):
+                    raise AssertionError(f"noisy_variants {name} at M = {m}"
+                                         " differs from the source")
+        names = ["source", "tile_all", "mma_all"] + (
+            [n for n in NOISY_VARIANTS if n not in
+             ("source", "tile_all", "mma_all")] if m in (64, 512) else [])
+        row = turns[m] = {}
+        for order in (names, names[::-1], names):
+            for name in order:
+                row.setdefault(name, []).append(graph_ms(
+                    torch, lambda fn=fns[name]: [
+                        call(fn, act[w.shape[0]], w, good, MC_SIGMA_VK, 0.0)
+                        for lw in ws for w in lw],
+                    iters=2 if m == 512 else 5, warmup=1))
+        log(f"[noisy variants] M = {m}: " + "; ".join(
             f"{n} {' '.join(f'{x:.4f}' for x in v)}" for n, v in row.items()))
     return {"turns": turns, "registers": regs}
 
@@ -6101,6 +6443,11 @@ def main() -> int:
                           "kind": kind}))
         print(smi)
         return 0
+    if sys.argv[1:] == ["--noisy-variants"]:
+        print(json.dumps({"noisy_variants": noisy_variants(torch, dev),
+                          "kind": kind}))
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--rbl-phases"]:
         from repro_torch.kernels import build
 
@@ -6190,11 +6537,16 @@ def main() -> int:
         timed[name]["recurrent"] = row
     timed["bitplane_mac_noisy"]["noise_free_bitplane_mac_ms"] = \
         timed["bitplane_mac"]["ms"]
-    # the tensor-core kernel's own entry: one projection of the bucket-64
-    # prefill, the kernel, its plain version and its library call on the
-    # same inputs
+    # the tensor-core kernels' own entries: one projection of the bucket-64
+    # prefill, the kernel, its plain version and its library call (none for
+    # the noisy pyramid) on the same inputs
     timed["bitplane_mac_mma"] = dict(
         timed["bitplane_mac"]["prefill64"]["one_projection"])
+    timed["bitplane_mac_noisy_mma"] = dict(
+        timed["bitplane_mac_noisy"]["prefill64"]["one_projection"])
+    for key in ("prefill16", "prefill32", "prefill64", "train"):
+        timed["bitplane_mac_noisy"][key]["noise_free_graph_ms"] = \
+            timed["bitplane_mac"][key]["graph_ms"]
 
     tpu = "src/repro/kernels"
     kernels = [
@@ -6252,6 +6604,21 @@ def main() -> int:
                  "bitplane_mac_noisy"],
              launches_per_prefill=noisy["per_prefill"]["bitplane_mac_noisy"],
              launches_train=trained["noisy"]["launches"],
+             launches_per_train_step=trained["noisy"]["launches_per_step"],
+             max_abs_err=bpn_err),
+        dict(name="bitplane_mac_noisy_mma",
+             replaces=f"{tpu}/bitplane_mac/bitplane_mac.py:187",
+             source="src/repro_torch/csrc/bitplane_mac_noisy.cu",
+             path="sim_noise",
+             launches=noisy["launches"]["bitplane_mac_noisy_mma"],
+             launches_per_decode_step=noisy["per_decode_step"][
+                 "bitplane_mac_noisy_mma"],
+             launches_per_prefill=noisy["per_prefill"][
+                 "bitplane_mac_noisy_mma"],
+             launches_per_prefill_64=noisy["per_prefill_64"][
+                 "bitplane_mac_noisy_mma"],
+             launches_train=trained["noisy"]["launches_by_counter"][
+                 "bitplane_mac_noisy_mma"],
              launches_per_train_step=trained["noisy"]["launches_per_step"],
              max_abs_err=bpn_err),
         dict(name="imc_mac_dequant",
@@ -6336,11 +6703,18 @@ def main() -> int:
                 f"{one['plain_ms']:.4f} ms; library {one['library_ms']:.4f} "
                 f"ms; bound {one['bound_ms']:.4f} ms by {one['bound_by']}, "
                 f"decode bound {one['bound_ms_decode']:.4f} ms")
-        t = timed["bitplane_mac_noisy"].get(key)
-        if t is not None:
-            log(f"[7] bitplane_mac_noisy, {t['shape']}: "
-                f"{t['graph_ms']:.4f} ms from a graph (bound "
-                f"{t['bound_ms']:.4f} ms by {t['bound_by']})")
+        t = timed["bitplane_mac_noisy"][key]
+        log(f"[7] bitplane_mac_noisy, {t['shape']}: "
+            f"{t['graph_ms']:.4f} ms from a graph ("
+            f"{t['tensor_core_launches']} tensor-core launches; bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']}; noise-free "
+            f"bitplane_mac {t['noise_free_graph_ms']:.4f} ms)")
+        one = t.get("one_projection")
+        if one is not None:
+            log(f"[7] bitplane_mac_noisy, {one['shape']}: {one['ms']:.4f} "
+                f"ms, {one['graph_ms']:.4f} ms from a graph; plain "
+                f"{one['plain_ms']:.4f} ms; bound {one['bound_ms']:.4f} ms "
+                f"by {one['bound_by']}")
     for name, key in (("imc_mac", "prefill"), ("imc_mac", "prefill32"),
                       ("imc_mac", "train"), ("imc_mac", "families"), ("paged_attn", "families"),
                       ("flash_attn", "families"), ("imc_mac", "recurrent"),

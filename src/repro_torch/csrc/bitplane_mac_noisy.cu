@@ -71,6 +71,36 @@
 // sigmas.  This is not a cheaper noise model: it is the same function,
 // computed only where it can differ.
 //
+// Two kernels, one launch a call; bitplane_mac_noisy_launch picks one by the
+// shapes (ops.bitplane_noisy_kernel is the rule's twin) and reports it:
+//
+// bitplane_mac_noisy_mma_kernel -- the served case (rows 8, 8 x 8 bits) at
+//   M >= NOISY_MMA_MIN_M: the prefill buckets and training's M = 512.
+//   What bounds it there: one training forward's 72 projections at M = 512
+//   are 3.48e11 group counts, of which uniform operands leave ~11.4% for a
+//   Philox call (~4e10, 95 ms at 40 integer operations each); the kernel
+//   below spent ~8 issue slots a count on tier 2 (popc, table read, the
+//   queue) and restaged W for every 8 rows.  This one takes the counts from
+//   bitplane_mac.cu's tensor-core kernel (bitplane_mma.cuh: 64 x 64 tiles,
+//   mma.sync.m16n8k32 on 0/1 plane bytes weighted 16^j, four groups' counts
+//   in one word's nibbles), its noise-free decode (prmt over dec0[0..7],
+//   dp4a, the counts of 8 by the groups' byte ANDs), reads tier 2's NEED
+//   test off the same word with a second prmt (and prmt(0x80, 0, word) for
+//   the counts of 8, nibble 8), appends the elements that need a draw to a
+//   per-warp queue at offsets from ballots, and drains it with every lane
+//   busy; the tier-3 arithmetic is the same as below, the corrections
+//   go into the block's output tile in shared memory.  Details at the
+//   kernel.
+//   Measured (chip_smoke.py --noisy-variants, one step's 72 launches from
+//   a graph, H100 80GB HBM3 at 700 W): M = 512 470 ms against the
+//   8-row-tile kernel's 764-768, bucket 64 68.4-68.9 against 122.5-123.3.  Taken out
+//   piece by piece at M = 512: without Philox 346.5 ms, without tier 3
+//   226.0, without the queue 199.3, without the appends 97.2, without the
+//   offsets 51.5 (the counts, noise-free decode and NEED words): past the
+//   NEED words every piece is paid per element drawn (~4e10 of them).
+//
+// bitplane_mac_noisy_kernel<RL> -- every other case (the decode step, rows
+// != 8, other bit widths).
 // Geometry: one 256-thread block per 8 x 32 output tile (bitplane_common.cuh's
 // plan(), splitting K one group at a time to ~480 blocks: one wave of 4
 // blocks per SM, the most that 64 registers a thread allow; 20 K-groups a
@@ -83,7 +113,7 @@
 // each thread's byte loads 8 rows at a time; only the real ceil(K/rows)
 // groups are decoded; columns past N are not computed; split-K partial sums
 // meet by int32 atomicAdd.
-#include "bitplane_common.cuh"
+#include "bitplane_mma.cuh"
 
 namespace {
 
@@ -125,9 +155,7 @@ struct RoundKeys {
   uint32_t k1[10];
 };
 
-__device__ __forceinline__ RoundKeys round_keys(const uint32_t* __restrict__ seed) {
-  const uint32_t k0 = __ldg(seed);
-  const uint32_t k1 = __ldg(seed + 1);
+__device__ __forceinline__ RoundKeys keys_of(uint32_t k0, uint32_t k1) {
   RoundKeys rk;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
@@ -137,13 +165,21 @@ __device__ __forceinline__ RoundKeys round_keys(const uint32_t* __restrict__ see
   return rk;
 }
 
+__device__ __forceinline__ RoundKeys round_keys(const uint32_t* __restrict__ seed) {
+  return keys_of(__ldg(seed), __ldg(seed + 1));
+}
+
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, const RoundKeys& rk) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(PHILOX_M0, c.x);
-    const uint32_t lo0 = PHILOX_M0 * c.x;
-    const uint32_t hi1 = __umulhi(PHILOX_M1, c.z);
-    const uint32_t lo1 = PHILOX_M1 * c.z;
+    // 32 x 32 -> 64-bit products (--noisy-variants' philox_hi, __umulhi and
+    // a multiply: the tensor-core kernel at M = 512 in 481 ms against 470)
+    const uint64_t p0 = static_cast<uint64_t>(PHILOX_M0) * c.x;
+    const uint64_t p1 = static_cast<uint64_t>(PHILOX_M1) * c.z;
+    const uint32_t hi0 = static_cast<uint32_t>(p0 >> 32);
+    const uint32_t lo0 = static_cast<uint32_t>(p0);
+    const uint32_t hi1 = static_cast<uint32_t>(p1 >> 32);
+    const uint32_t lo1 = static_cast<uint32_t>(p1);
     c = make_uint4(hi1 ^ c.y ^ rk.k0[r], lo1, hi0 ^ c.w ^ rk.k1[r], lo0);
   }
   return c;
@@ -255,6 +291,46 @@ __device__ uint32_t first_cut(int k, int rows, float ms, int lane) {
     }
   }
   return lo;
+}
+
+// Tier 1, block-collective (every thread of the block calls it; `warps`
+// warps): the tables from the live thresholds, rows and sigmas.  tab_s[k]
+// = dec0[k] | NEED, and with mismatch alone cut_s[k] for each NEED count
+// (warp w searches the w-th, w + warps-th, ... NEED count); cut_s is
+// published by the caller's next __syncthreads.
+__device__ __forceinline__ void noisy_tables(const float* __restrict__ thr,
+                                             int rows, float ms, float cs,
+                                             int warps) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float zmax = radius(U1_GRID - 1);
+  if (tid < rows) {
+    const float t = thr[tid];
+    const float reach = cs > 0.f ? __fmul_rn(cs, zmax) : 0.f;
+    thr_s[tid] = t;
+    tlo_s[tid] = __fsub_rn(t, reach);
+    thi_s[tid] = __fadd_rn(t, reach);
+  }
+  __syncthreads();
+  if (tid <= rows) {
+    const float v = rbl_voltage(static_cast<float>(tid), rows);
+    uint32_t dec0 = 0;
+    for (int i = 0; i < rows; ++i) dec0 += (v <= thr_s[i]) ? 1u : 0u;
+    const bool need = (ms > 0.f || cs > 0.f) && !band_free(tid, zmax, rows, ms);
+    tab_s[tid] = dec0 | (need ? NEED : 0u);
+    cut_s[tid] = U1_GRID;
+  }
+  __syncthreads();
+  if (ms > 0.f && !(cs > 0.f)) {
+    int nth = 0;
+    for (int k = 0; k <= rows; ++k) {
+      if (!(tab_s[k] & NEED)) continue;
+      if (nth++ % warps != warp) continue;
+      const uint32_t c = first_cut(k, rows, ms, lane);
+      if (lane == 0) cut_s[k] = c;
+    }
+  }
 }
 
 // The full decode of a mismatch-only element from its draw-0 words.
@@ -485,35 +561,8 @@ bitplane_mac_noisy_kernel(const uint8_t* __restrict__ a, const uint8_t* __restri
   const int g_end = min(groups, g_begin + groups_per_split);
   const bool live = n0 + lane < N;
 
-  // Tier 1: the tables, from the live thresholds and sigmas.
-  const float zmax = radius(U1_GRID - 1);
-  if (tid < rows) {
-    const float t = thr[tid];
-    const float reach = cs > 0.f ? __fmul_rn(cs, zmax) : 0.f;
-    thr_s[tid] = t;
-    tlo_s[tid] = __fsub_rn(t, reach);
-    thi_s[tid] = __fadd_rn(t, reach);
-  }
   corr_s[tid / BN][tid % BN] = 0;
-  __syncthreads();
-  if (tid <= rows) {
-    const float v = rbl_voltage(static_cast<float>(tid), rows);
-    uint32_t dec0 = 0;
-    for (int i = 0; i < rows; ++i) dec0 += (v <= thr_s[i]) ? 1u : 0u;
-    const bool need = (ms > 0.f || cs > 0.f) && !band_free(tid, zmax, rows, ms);
-    tab_s[tid] = dec0 | (need ? NEED : 0u);
-    cut_s[tid] = U1_GRID;
-  }
-  __syncthreads();
-  if (ms > 0.f && !(cs > 0.f)) {  // warp w searches the w-th, w+8-th, ... NEED count
-    int nth = 0;
-    for (int k = 0; k <= rows; ++k) {
-      if (!(tab_s[k] & NEED)) continue;
-      if (nth++ % WARPS != warp) continue;
-      const uint32_t c = first_cut(k, rows, ms, lane);
-      if (lane == 0) cut_s[k] = c;
-    }
-  }
+  noisy_tables(thr, rows, ms, cs, WARPS);  // tier 1
 
   int acc[BM];
 #pragma unroll
@@ -575,28 +624,418 @@ bitplane_mac_noisy_kernel(const uint8_t* __restrict__ a, const uint8_t* __restri
   store_tile(s, acc, out, N, m0, n0, m_rows, accumulate);
 }
 
+// ------------------------------ the served case above NOISY_MMA_MIN_M rows
+// rows 8, 8 x 8 bits, M >= NOISY_MMA_MIN_M (the prefill buckets, training):
+// bitplane_mac_noisy_mma_kernel.  The decode step (M = 4) keeps the kernel
+// above, whose 4- and 8-row tiles win there (chip_smoke.py --noisy-variants,
+// 72 launches from a graph: the tensor-core kernel ahead at M = 9, 16, 32,
+// 33, 40 and up, behind at M = 4 and 8 and, by 2-8%, at 17 and 24).
+constexpr int NOISY_MMA_MIN_M = 9;
+// blocks mma_plan aims at, three waves of 3 blocks an SM (--noisy-variants:
+// M = 512 in 470 ms against 513 at 528, the noise-free kernel's target, and
+// 477 at 792; bucket 64 68.7 against 67.0 and 72.6)
+constexpr int NOISY_MMA_TARGET = 1188;
+constexpr int NQ_BATCH = 32 * 16;  // the most one mma appends: 16 counts a lane
+constexpr int NQ_CAP = 768;        // a warp's queue, drained past NQ_CAP - NQ_BATCH
+constexpr int OUT_S = MM_BN + 4;   // the out tile's row stride: 2-way banks at most
+// A queue entry, 26 bits: the count k (4), the plane pair q (3) and p (3),
+// the K-group within the chunk (4), the tile column (6) and row (6).
+constexpr int EQ = 4, EP = 7, EG = 10, EC = 14, ER = 20;
+static_assert(MM_GC <= 16 && MM_BM <= 64 && MM_BN <= 64, "entry fields");
+
+struct SmemNoisyMma {
+  SmemMma m;                          // bitplane_mma.cuh's staging, 40 KB
+  int out[MM_BM][OUT_S];              // the block's output tile, 17 KB
+  uint32_t queue[MM_WARPS][NQ_CAP];   // each warp's tier-3 entries, 12 KB
+};
+extern __shared__ __align__(16) uint8_t noisy_smem[];  // a SmemNoisyMma
+
+__device__ __forceinline__ SmemNoisyMma& noisy_mma_smem() {
+  return *reinterpret_cast<SmemNoisyMma*>(noisy_smem);
+}
+
+// The Philox counter of an entry's draws 0 and 1, (n, m, group, pair << 8)
+// with pair = p * 8 + q (bits EQ..EP + 2 of the entry hold it whole).
+__device__ __forceinline__ uint4 mma_counter(uint32_t e, uint32_t m0,
+                                             uint32_t n0, uint32_t gc) {
+  return make_uint4(n0 + ((e >> EC) & 63u), m0 + (e >> ER),
+                    gc + ((e >> EG) & 15u), (e & (63u << EQ)) << (8 - EQ));
+}
+
+// The element's decode minus dec0[k], 2^(p+q) times, into its out slot.
+__device__ __forceinline__ void mma_correct(uint32_t e, int dec) {
+  const int dec0 = static_cast<int>(tab_s[e & 15u] & DEC0);
+  if (dec != dec0)
+    atomicAdd(&noisy_mma_smem().out[e >> ER][(e >> EC) & 63u],
+              (dec - dec0) * (1 << (((e >> EP) & 7u) + ((e >> EQ) & 7u))));
+}
+
+// The rare paths, out of line: the full decode of a mismatch-only element
+// (a u1 index at or above cut[k]) and every entry under comparator offset.
+__device__ __noinline__ int mma_full_decode(int k, uint32_t b1, uint32_t b2,
+                                            float ms) {
+  return decode_mismatch(k, b1, b2, R8_ROWS, ms);
+}
+
+__device__ __noinline__ void mma_resolve_offsets(uint32_t e, uint32_t m0,
+                                                 uint32_t n0, uint32_t gc,
+                                                 uint32_t key0, uint32_t key1,
+                                                 float ms, float cs) {
+  mma_correct(e, decode_offsets(static_cast<int>(e & 15u),
+                                mma_counter(e, m0, n0, gc), R8_ROWS,
+                                keys_of(key0, key1), ms, cs));
+}
+
+// Tier 3, warp-collective, out of line (one copy of the Philox rounds for
+// the tier-2 loop's eight append sites; inlined at all eight, M = 512 took
+// 835 ms against 470: --noisy-variants' inline_drain):
+// every entry of the calling warp's queue (count of them, in order), lane l
+// taking entries l, l + 32, ...; with mismatch alone two a lane a round
+// (two independent Philox calls), settled below cut[k] as dec0[k] (nothing
+// to correct).  Nothing is queued without a sigma.
+__device__ __noinline__ void mma_drain(int count, uint32_t m0, uint32_t n0,
+                                       uint32_t gc, uint32_t key0,
+                                       uint32_t key1, float ms, float cs) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t* queue = noisy_mma_smem().queue[threadIdx.x >> 5];
+  if (cs > 0.f) {
+    for (int e = lane; e < count; e += 32)
+      mma_resolve_offsets(queue[e], m0, n0, gc, key0, key1, ms, cs);
+    return;
+  }
+  const RoundKeys rk = keys_of(key0, key1);
+  for (int e = lane; e < count; e += 64) {
+    const bool two = e + 32 < count;
+    const uint32_t e0 = queue[e];
+    const uint32_t e1 = queue[two ? e + 32 : e];
+    const uint4 y0 = philox4x32_10(mma_counter(e0, m0, n0, gc), rk);
+    const uint4 y1 = philox4x32_10(mma_counter(e1, m0, n0, gc), rk);
+    if ((y0.x >> 8) >= cut_s[e0 & 15u])
+      mma_correct(e0, mma_full_decode(static_cast<int>(e0 & 15u), y0.x, y0.y,
+                                      ms));
+    if (two && (y1.x >> 8) >= cut_s[e1 & 15u])
+      mma_correct(e1, mma_full_decode(static_cast<int>(e1 & 15u), y1.x, y1.y,
+                                      ms));
+  }
+}
+
+// The warp-aggregated append's offset: this lane's n (0..16) entries go to
+// [at, at + n) of the warp's queue, at = count + the entries of the lanes
+// below it: one ballot per bit of n, sum_b 2^b __popc(ballot_b & lanes
+// below); *added is the warp's total, sum_b 2^b __popc(ballot_b)
+// (--noisy-variants' scan_offsets, a warp scan by shuffles: 474 ms at M =
+// 512 against 470).
+__device__ __forceinline__ int append_offset(int n, int lane, int count,
+                                             int* added) {
+  const uint32_t below = (1u << lane) - 1u;
+  int at = count;
+  *added = 0;
+#pragma unroll
+  for (int b = 0; b < 5; ++b) {
+    const uint32_t v = __ballot_sync(FULL, (n >> b) & 1);
+    at += __popc(v & below) << b;
+    *added += __popc(v) << b;
+  }
+  return at;
+}
+
+// The lane's entries of one mma at queue[at..]: sixteen predicated slots,
+// word x (its row + 8 (x >> 1), column + (x & 1)) and group j, in place of
+// a loop over the need word's set bits, whose trip count is the warp's
+// most (--noisy-variants' bit_loop: 487 ms at M = 512 against 470).
+__device__ __forceinline__ void append_slots(uint32_t* queue, int at,
+                                             uint32_t need,
+                                             const uint32_t (&d)[4],
+                                             uint32_t base) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if ((need >> (8 * j + x)) & 1u)
+        queue[at++] = base | static_cast<uint32_t>(x >> 1) << (ER + 3) |
+                      static_cast<uint32_t>(x & 1) << EC |
+                      static_cast<uint32_t>(j) << EG | ((d[x] >> (4 * j)) & 15u);
+}
+
+// bitplane_mma.cuh's 64 x 64 tiles, 4 warps of 32 x 32, K in chunks of 128
+// rows (16 groups) by cp.async, split over blocks by mma_plan; per chunk:
+//   tier 2: the group counts by mma, four a word in its nibbles; the
+//     noise-free decode by prmt over dec0[0..7] and dp4a (Horner over p) as
+//     bitplane_mac_mma_kernel's, its counts of 8 by the m16n8k16 of the
+//     groups' byte ANDs times dec0[8]; the NEED bytes (1 where a draw can
+//     change the decode) by a second prmt of the same word, and the counts
+//     of 8 that need one by prmt(0x80, 0, word) (0xff exactly where a nibble
+//     is 8: pad nibbles masked off).  Each mma's entries are appended to the
+//     warp's queue at offsets from five ballots of the lanes' entry counts
+//     and __popc: no per-lane queue, no owner search.  Past NQ_CAP -
+//     NQ_BATCH entries, and at the chunk's end, the warp drains its queue
+//     (tier 3).
+//   tier 3: mma_drain; corrections into the out tile by shared atomics.
+// The noise-free sums go into the out tile once per k-step (each element
+// is one lane's); the tile is stored, or added by integer atomics into the
+// zeroed output of a split launch, at the end.  Rows past M and columns
+// past N count zeros: where a count 0 can need a draw (NEED[0], comparator
+// offset only), a block at the edge masks them out of the queue.
+__global__ void __launch_bounds__(MM_THREADS, 3)
+bitplane_mac_noisy_mma_kernel(const uint8_t* __restrict__ a,
+                              const uint8_t* __restrict__ w,
+                              const float* __restrict__ thr,
+                              int32_t* __restrict__ out, int M, int N, int K,
+                              int steps_per_split, bool accumulate, bool vec,
+                              const uint32_t* __restrict__ seed, float ms,
+                              float cs) {
+  SmemNoisyMma& s = noisy_mma_smem();
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wr = 32 * (warp >> 1);  // the warp's rows and columns in the tile
+  const int wc = 32 * (warp & 1);
+  const int n0 = blockIdx.x * MM_BN;
+  const int m0 = blockIdx.y * MM_BM;
+  const int groups = (K + R8_ROWS - 1) / R8_ROWS;
+  const int steps = (groups + 3) / 4;
+  const int s_begin = blockIdx.z * steps_per_split;
+  const int s_end = min(steps, s_begin + steps_per_split);
+  const int k_begin = s_begin * MM_STEP;
+  const int k_end = min(K, s_end * MM_STEP);
+  const bool live = m0 + wr < M;  // warp-uniform: the rows are not all past M
+  const bool live1 = m0 + wr + 16 < M;  // and its second 16 rows
+  const int sa0 = 4 * (t >> 1);   // the A weights (bitplane_mma.cuh)
+  const int sa1 = sa0 + 2;
+  const uint32_t key0 = __ldg(seed);
+  const uint32_t key1 = __ldg(seed + 1);
+
+  const int chunks = (k_end - k_begin + MM_KC - 1) / MM_KC;
+  if (chunks > 0)
+    mma_stage(s.m, 0, a, w, M, N, K, m0, n0, k_begin, k_end, vec);
+  for (int u = tid; u < MM_BM * OUT_S; u += MM_THREADS) (&s.out[0][0])[u] = 0;
+  noisy_tables(thr, R8_ROWS, ms, cs, MM_WARPS);  // tier 1, while chunk 0 lands
+
+  uint32_t dec_lo = 0, dec_hi = 0, dec_8 = 0, need_lo = 0, need_hi = 0;
+  bool need_8 = false;
+  bool edge = false;  // NEED[0] in a block that holds rows past M or columns past N
+  uint32_t* queue = s.queue[warp];
+  int count = 0;  // entries in the warp's queue (warp-uniform)
+  for (int c = 0; c < chunks; ++c) {
+    const int buf = c & 1;
+    const int kc = k_begin + c * MM_KC;
+    if (c + 1 < chunks) {
+      mma_stage(s.m, buf ^ 1, a, w, M, N, K, m0, n0, kc + MM_KC, k_end, vec);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();  // chunk c has landed (and, at c = 0, the tables)
+    mma_full_groups(s.m, buf);
+    if (c == 0) {  // dec0[0..7] and the NEED bytes as prmt tables
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        dec_lo |= (tab_s[i] & DEC0) << (8 * i);
+        dec_hi |= (tab_s[4 + i] & DEC0) << (8 * i);
+        need_lo |= (tab_s[i] >> 31) << (8 * i);
+        need_hi |= (tab_s[4 + i] >> 31) << (8 * i);
+      }
+      dec_8 = tab_s[8] & DEC0;
+      need_8 = (tab_s[8] & NEED) != 0u;
+      edge = (tab_s[0] & NEED) != 0u && (m0 + MM_BM > M || n0 + MM_BN > N);
+    }
+    __syncthreads();  // fa, fw
+    const int step0 = kc / MM_STEP;
+    const int nst = min(MM_KC / MM_STEP, s_end - step0);
+    const uint32_t gc = static_cast<uint32_t>(kc / R8_ROWS);  // first group
+    if (live) {
+      for (int st = 0; st < nst; ++st) {
+        const int kb = MM_STEP * st;
+        const int real = groups - 4 * (step0 + st);
+        const uint32_t pad = mma_pad(real);
+        // byte j: a count of 8 in group j needs a draw (real groups only)
+        const uint32_t n8 = !need_8 ? 0u
+                            : real >= 4 ? 0x01010101u
+                                        : 0x01010101u & ((1u << (8 * real)) - 1u);
+        uint32_t ra[2][4];
+        mma_a_frags(s.m, buf, wr, g, t, kb, ra);
+        uint32_t rb[4][2];
+        mma_w_frags(s.m, buf, wc, g, t, kb, rb);
+        int part[2][4][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int x = 0; x < 4; ++x) part[mi][ni][x] = 0;
+#pragma unroll 1
+        for (int p = R8_PLANES - 1; p >= 0; --p) {
+          uint32_t ap[2][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              ap[mi][i] = ((ra[mi][i] >> p) & 0x01010101u) << (i < 2 ? sa0 : sa1);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+              for (int x = 0; x < 4; ++x) part[mi][ni][x] <<= 1;
+#pragma unroll 1
+          for (int q = 0; q < R8_PLANES; ++q) {
+            const uint32_t wq = 0x01010101u << q;
+            const uint32_t fields = (4u * st) << EG |
+                                    static_cast<uint32_t>(p) << EP |
+                                    static_cast<uint32_t>(q) << EQ;
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) {
+              const uint32_t b0 = (rb[ni][0] >> q) & 0x01010101u;
+              const uint32_t b1 = ((rb[ni][1] >> q) & 0x01010101u) << 6;
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi) {
+                if (mi == 1 && !live1) continue;  // 16 rows all past M
+                uint32_t d[4];
+                mma_u8_k32(d, ap[mi], b0, b1, pad);
+                uint32_t need = 0;  // bit 8 j + x: group j of word x
+#pragma unroll
+                for (int x = 0; x < 4; ++x) {
+                  part[mi][ni][x] = static_cast<int>(__dp4a(
+                      prmt(dec_lo, dec_hi, d[x]), wq,
+                      static_cast<uint32_t>(part[mi][ni][x])));
+                  need |= (prmt(need_lo, need_hi, d[x]) |
+                           (prmt(0x80u, 0u, d[x]) & n8)) << x;
+                }
+                if (edge) {  // words x of rows past M, columns past N
+                  const int mr = M - m0 - (wr + 16 * mi + g);
+                  const int nc = N - n0 - (wc + 8 * ni + 2 * t);
+                  const uint32_t xm = (mr > 0 && nc > 0 ? 1u : 0u) |
+                                      (mr > 0 && nc > 1 ? 2u : 0u) |
+                                      (mr > 8 && nc > 0 ? 4u : 0u) |
+                                      (mr > 8 && nc > 1 ? 8u : 0u);
+                  need &= xm * 0x01010101u;
+                }
+                // the warp-aggregated append
+                int added;
+                int at = append_offset(__popc(need), lane, count, &added);
+                count += added;
+                const uint32_t base =
+                    fields | static_cast<uint32_t>(wr + 16 * mi + g) << ER |
+                    static_cast<uint32_t>(wc + 8 * ni + 2 * t) << EC;
+                append_slots(queue, at, need, d, base);
+                if (count > NQ_CAP - NQ_BATCH) {  // tier 3
+                  __syncwarp();
+                  mma_drain(count, m0, n0, gc, key0, key1, ms, cs);
+                  __syncwarp();
+                  count = 0;
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int x = 0; x < 4; ++x)
+              s.out[wr + 16 * mi + g + 8 * (x >> 1)][wc + 8 * ni + 2 * t + (x & 1)] +=
+                  part[mi][ni][x];
+      }
+      // the counts of 8: sum_g FA[m,g] FW[g,n] = sum_{p,q} 2^(p+q) N8, one
+      // m16n8k16 over the chunk's 16 groups, times dec0[8]
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          uint32_t d[4];
+          mma_u8_k16(d, s.m.fa[wr + 16 * mi + g][t], s.m.fa[wr + 16 * mi + g + 8][t],
+                     s.m.fw[wc + 8 * ni + g][t]);
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            s.out[wr + 16 * mi + g + 8 * (x >> 1)][wc + 8 * ni + 2 * t + (x & 1)] +=
+                static_cast<int>(dec_8 * d[x]);
+        }
+      __syncwarp();  // the chunk's last entries, before its group base moves
+      mma_drain(count, m0, n0, gc, key0, key1, ms, cs);
+      count = 0;
+    }
+    __syncthreads();  // buf and fa, fw are read before they are restaged
+  }
+  __syncthreads();  // every warp's sums and corrections are in the tile
+  for (int u = tid; u < MM_BM * MM_BN; u += MM_THREADS) {
+    const int r = u / MM_BN;
+    const int c = u % MM_BN;
+    if (m0 + r < M && n0 + c < N) {
+      int32_t* o = out + static_cast<size_t>(m0 + r) * N + n0 + c;
+      if (accumulate) {
+        atomicAdd(o, s.out[r][c]);
+      } else {
+        *o = s.out[r][c];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // a: uint8[M,K] row-major, w: uint8[K,N] row-major (offset-binary values; only
 // the low bits_a / bits_w bits are read), thr: float32[rows], out: int32[M,N];
 // seed: device memory holding the two uint32 Philox key words (low, high),
 // read by the kernel; a sigma <= 0 draws nothing; target: the blocks plan()
-// aims at.  Returns a cudaError_t value.
+// aims at for bitplane_mac_noisy_kernel (the tensor-core kernel, rows 8 at
+// 8 x 8 bits and M >= NOISY_MMA_MIN_M, plans from the shapes alone).
+// *kernel is set to the kernel launched: 0 none (an empty output), 1
+// bitplane_mac_noisy_kernel, 2 bitplane_mac_noisy_mma_kernel.  Returns a
+// cudaError_t value.
 extern "C" int bitplane_mac_noisy_launch(const void* a, const void* w, const void* thr,
                                          void* out, int M, int N, int K, int bits_a,
                                          int bits_w, int rows, const void* seed,
                                          float mismatch_sigma,
                                          float comparator_sigma, int target,
-                                         void* stream, int device) {
+                                         void* stream, int device, int* kernel) {
+  *kernel = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* a8 = static_cast<const uint8_t*>(a);
+  const auto* w8 = static_cast<const uint8_t*>(w);
+  const auto* t = static_cast<const float*>(thr);
+  auto* o = static_cast<int32_t*>(out);
+  const auto* sd = static_cast<const uint32_t*>(seed);
+  if (rows == R8_ROWS && bits_a == R8_PLANES && bits_w == R8_PLANES &&
+      M >= NOISY_MMA_MIN_M) {
+    if (N < 0 || K < 0 || target < 1 || target > MAX_TARGET) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (N == 0) return 0;
+    const MmaPlan p = mma_plan(M, N, K, NOISY_MMA_TARGET);
+    if (p.accumulate) {
+      err = cudaMemsetAsync(out, 0, sizeof(int32_t) * static_cast<size_t>(M) * N,
+                            s);
+      if (err != cudaSuccess || p.steps == 0) return static_cast<int>(err);
+    }
+    static bool mma_smem = false;  // 70 KB of dynamic shared memory: 3 blocks
+    if (!mma_smem) {
+      err = cudaFuncSetAttribute(bitplane_mac_noisy_mma_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(sizeof(SmemNoisyMma)));
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(bitplane_mac_noisy_mma_kernel,
+                                   cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      mma_smem = true;
+    }
+    bitplane_mac_noisy_mma_kernel<<<p.grid, MM_THREADS, sizeof(SmemNoisyMma), s>>>(
+        a8, w8, t, o, M, N, K, p.per_split, p.accumulate, mma_vec(a, w, N, K),
+        sd, mismatch_sigma, comparator_sigma);
+    *kernel = 2;
+    return static_cast<int>(cudaGetLastError());
+  }
   Plan p;
   bool skip = true;
   const int rc = prepare(out, M, N, K, bits_a, bits_w, rows, target, s, &p,
                          &skip, 1);
   if (skip) return rc;
-  auto kernel = M <= 4 ? bitplane_mac_noisy_kernel<4> : bitplane_mac_noisy_kernel<8>;
   static bool carveout = false;  // all of L1 as shared memory: 4 blocks fit
   if (!carveout) {
     for (auto k : {bitplane_mac_noisy_kernel<4>, bitplane_mac_noisy_kernel<8>}) {
@@ -606,10 +1045,15 @@ extern "C" int bitplane_mac_noisy_launch(const void* a, const void* w, const voi
     }
     carveout = true;
   }
-  kernel<<<p.grid, THREADS, 0, s>>>(
-      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(thr), static_cast<int32_t*>(out), M, N, K,
-      bits_a, bits_w, rows, p.per_split, p.accumulate,
-      static_cast<const uint32_t*>(seed), mismatch_sigma, comparator_sigma);
+  if (M <= 4) {
+    bitplane_mac_noisy_kernel<4><<<p.grid, THREADS, 0, s>>>(
+        a8, w8, t, o, M, N, K, bits_a, bits_w, rows, p.per_split, p.accumulate,
+        sd, mismatch_sigma, comparator_sigma);
+  } else {
+    bitplane_mac_noisy_kernel<8><<<p.grid, THREADS, 0, s>>>(
+        a8, w8, t, o, M, N, K, bits_a, bits_w, rows, p.per_split, p.accumulate,
+        sd, mismatch_sigma, comparator_sigma);
+  }
+  *kernel = 1;
   return static_cast<int>(cudaGetLastError());
 }

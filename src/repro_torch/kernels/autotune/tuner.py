@@ -48,10 +48,11 @@ bounded by the sources' compile-time sizes, :data:`BOUNDS`):
     thread-block cluster, at most; 8 is the portable cluster size) and
     ``tc_target``.
   * ``bitplane_mac`` and ``bitplane_mac_noisy``: ``target``, the blocks
-    ``bitplane_common.cuh``'s ``plan()`` aims at.  ``bitplane_mac``'s
-    tensor-core kernel (rows 8, 8 x 8 bits, M > 8: the prefill buckets and
-    training) reads no target, so its wrapper looks nothing up there and a
-    pin or cache entry at such a shape is ignored.
+    ``bitplane_common.cuh``'s ``plan()`` aims at.  Their tensor-core
+    kernels (rows 8, 8 x 8 bits; ``bitplane_mac`` at M > 8,
+    ``bitplane_mac_noisy`` at M >= 9: the prefill buckets and training)
+    read no target, so the wrappers look nothing up there and a pin or
+    cache entry at such a shape is ignored.
   * ``rbl_decode_mac``: ``cluster`` and ``target``, as the tensor-core
     ``imc_mac``'s.
 

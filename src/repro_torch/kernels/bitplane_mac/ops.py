@@ -28,7 +28,15 @@ seed gives the same output, on the CPU, in the plain version on the card and
 in the kernel alike (:func:`bitplane_mac_noisy_torch` is the plain version).
 Its stream is not the reference's (that one is keyed by the TPU's grid
 steps), so it agrees with the reference in distribution only.
-``bitplane_mac_noisy.launches`` counts its launches.
+``bitplane_mac_noisy.launches`` counts its launches.  It launches one of two
+kernels (``csrc/bitplane_mac_noisy.cu``): for the served case at M >=
+:data:`NOISY_MMA_MIN_M` (the prefill buckets and training)
+``bitplane_mac_noisy_mma_kernel``, the same group counts and noise-free
+decode as ``bitplane_mac_mma_kernel`` with draws only where the skip tables
+say, and the 8-row-tile ``bitplane_mac_noisy_kernel`` for every other case (the
+decode step, other rows and bits); :func:`bitplane_noisy_kernel` is the
+rule's twin, and ``bitplane_mac_noisy.mma_launches`` counts the launches
+that the C launcher reports were of the tensor-core kernel.
 
 ``bitplane_mac`` launches one of three kernels (``csrc/bitplane_mac.cu``):
 the paper's served case (rows 8, 8 x 8 bits) takes ``bitplane_mac_r8_kernel``
@@ -39,14 +47,14 @@ training); every other case takes ``bitplane_mac_kernel``
 counts every launch, ``bitplane_mac.mma_launches`` those that the C
 launcher reports were of the tensor-core kernel.
 
-The r8, generic and noisy kernels split K over blocks until a launch has
-about ``target`` blocks (``bitplane_common.cuh``'s ``plan()``; its twin
+The r8, generic and noisy (not tensor-core) kernels split K over blocks
+until a launch has about ``target`` blocks (``bitplane_common.cuh``'s ``plan()``; its twin
 :func:`bitplane_plan`), a runtime argument: on a CUDA tensor each wrapper
 resolves it at call time with ``autotune.lookup`` (264 and 480 by default,
 the measured cache, a pin), and an explicit ``geometry=`` beats the tuner.
-The tensor-core kernel plans from the shapes alone (:func:`bitplane_mma_plan`):
-where it runs, the wrapper looks nothing up, and a pin, a cache entry or a
-``geometry=`` is ignored.  Any plan gives the same output (split sums meet
+The two tensor-core kernels plan from the shapes alone
+(:func:`bitplane_mma_plan`): where they run, the wrapper looks nothing up,
+and a pin, a cache entry or a ``geometry=`` is ignored.  Any plan gives the same output (split sums meet
 by integer atomics).  The CPU path ignores geometry.
 """
 from __future__ import annotations
@@ -77,7 +85,15 @@ LAUNCHED = (None, "bitplane_mac_kernel", "bitplane_mac_r8_kernel",
             "bitplane_mac_mma_kernel")
 _NOISY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
     [ctypes.c_void_p] + [ctypes.c_float] * 2 + [ctypes.c_int] + \
-    [ctypes.c_void_p, ctypes.c_int]
+    [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+# bitplane_mac_noisy.cu: the tensor-core kernel's least M (rows 8, 8x8 bits;
+# chip_smoke.py --noisy-variants: ahead of the 8-row-tile kernel at M = 9, 16, 32,
+# 33, 40 and up, behind at 8 and below and at 17 and 24)
+NOISY_MMA_MIN_M = 9
+NOISY_MMA_TARGET = 1188  # the blocks its plan aims at (bitplane_mma_plan)
+# what bitplane_mac_noisy_launch reports it launched (its *kernel)
+LAUNCHED_NOISY = (None, "bitplane_mac_noisy_kernel",
+                  "bitplane_mac_noisy_mma_kernel")
 _PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _FNS = {}
 
@@ -123,15 +139,28 @@ def bitplane_kernel(m: int, bits_a: int, bits_w: int, rows: int) -> str:
     return "bitplane_mac_kernel"
 
 
+def bitplane_noisy_kernel(m: int, bits_a: int, bits_w: int, rows: int) -> str:
+    """The ``__global__`` function ``bitplane_mac_noisy_launch`` takes for an
+    ``m``-row product: the tensor-core kernel for the served case (rows 8,
+    8 x 8 bits) from ``NOISY_MMA_MIN_M`` rows up, the 8-row-tile kernel for every
+    other case (the decode step among them)."""
+    if rows == 8 and bits_a == 8 and bits_w == 8 and m >= NOISY_MMA_MIN_M:
+        return "bitplane_mac_noisy_mma_kernel"
+    return "bitplane_mac_noisy_kernel"
+
+
 @functools.lru_cache(maxsize=None)
-def bitplane_mma_plan(m: int, n: int, k: int) -> Plan:
-    """The tensor-core kernel's launch, as ``bitplane_mac.cu``'s
+def bitplane_mma_plan(m: int, n: int, k: int,
+                      target: int = _MM_TARGET) -> Plan:
+    """The tensor-core kernels' launch, as ``bitplane_mma.cuh``'s
     ``mma_plan()`` computes it (the C ``bitplane_mma_plan``): 64 x 64 output
     tiles, the k-steps (32 K-rows, four 8-row groups) split until the grid
-    has about 528 blocks; ``per_split`` counts k-steps."""
+    has about ``target`` blocks (528 for ``bitplane_mac``'s kernel,
+    :data:`NOISY_MMA_TARGET` for the noisy one); ``per_split`` counts
+    k-steps."""
     steps = -(-(-(-k // 8)) // 4)
     tiles = -(-n // _MM_BN) * -(-m // _MM_BM)
-    splits = max(min(-(-_MM_TARGET // tiles), steps), 1)
+    splits = max(min(-(-target // tiles), steps), 1)
     per = max(-(-steps // splits), 1)
     z = 1 if steps == 0 else -(-steps // per)
     return Plan(-(-n // _MM_BN), -(-m // _MM_BM), z, per,
@@ -380,8 +409,8 @@ def bitplane_mac_noisy(u_a: torch.Tensor, u_w: torch.Tensor, seed,
     or a 64-bit integer, which the wrapper copies to the card first (a
     CUDA graph captures a row's address, and the words written there before
     each replay key that replay's stream).  Same seed -> identical outputs.
-    ``geometry`` (``{"target": blocks}``) beats the tuner's.  Returns
-    int32[..., N].
+    ``geometry`` (``{"target": blocks}``) beats the tuner's where a target
+    is read (not by the tensor-core kernel).  Returns int32[..., N].
     """
     if _on_cpu(u_a, u_w, thr):
         return bitplane_mac_noisy_torch(
@@ -398,19 +427,28 @@ def bitplane_mac_noisy(u_a: torch.Tensor, u_w: torch.Tensor, seed,
         raise ValueError(f"bitplane_mac_noisy: a seed row is a contiguous "
                          f"int32 (2,) tensor on {a.device}, got "
                          f"{seed.dtype}{list(seed.shape)} on {seed.device}")
-    target = _target("bitplane_mac_noisy", m, n, k, bits_a, bits_w, rows,
-                     geometry, a.device)
+    if bitplane_noisy_kernel(m, bits_a, bits_w, rows) == \
+            "bitplane_mac_noisy_mma_kernel":
+        target = autotune.DEFAULTS["bitplane_mac_noisy"]["target"]  # not read
+    else:
+        target = _target("bitplane_mac_noisy", m, n, k, bits_a, bits_w, rows,
+                         geometry, a.device)
     fn = _entry("bitplane_mac_noisy", _NOISY_ARGTYPES)
     stream, dev = build.stream_and_device(a)
+    ran = ctypes.c_int(0)
     build.check_launch("bitplane_mac_noisy", fn(
         a.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(), m, n, k,
         bits_a, bits_w, rows, seed.data_ptr(), float(mismatch_sigma or 0.0),
-        float(comparator_offset_sigma or 0.0), target, stream, dev))
+        float(comparator_offset_sigma or 0.0), target, stream, dev,
+        ctypes.byref(ran)))
     bitplane_mac_noisy.launches += 1
+    if LAUNCHED_NOISY[ran.value] == "bitplane_mac_noisy_mma_kernel":
+        bitplane_mac_noisy.mma_launches += 1
     return out.reshape(batch + (n,))
 
 
 bitplane_mac_noisy.launches = 0
+bitplane_mac_noisy.mma_launches = 0
 
 
 # ---------------------------------------------------------- the skip tables

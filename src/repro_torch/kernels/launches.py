@@ -52,7 +52,8 @@ KERNELS = {
         "simt_launches": ("flash_attn_kernel",)},
         "flash_attention_torch"),
     "bitplane_mac_noisy": ("bitplane_mac.ops", "bitplane_mac_noisy", {
-        "launches": ("bitplane_mac_noisy_kernel",)},
+        "launches": ("bitplane_mac_noisy_kernel",),
+        "mma_launches": ("bitplane_mac_noisy_mma_kernel",)},
         "bitplane_mac_noisy_torch"),
     "rbl_decode_mac": ("rbl_decode.ops", "rbl_decode_mac", {
         "launches": ("rbl_decode_mac_kernel",)},

@@ -43,6 +43,8 @@ import numpy as np
 import pytest
 import torch
 
+from bitplane_lanes import (A16, A32, B16, B32, D_OWN, MASK32, _dp4a, _mma,
+                            _pack, _prmt)
 from repro.kernels.bitplane_mac.ops import bitplane_mac as j_bitplane_mac
 from repro_torch.core.rbl import rbl_voltage_physics
 from repro_torch.kernels.bitplane_mac.ops import (LAUNCHED, R8_MAX_M,
@@ -56,78 +58,6 @@ ROWS = PLANES = 8
 BM = BN = 64     # a block's output tile
 STEP = 32        # K-rows of a k-step
 KC = 128         # K-rows of a staged chunk
-MASK32 = 0xFFFFFFFF
-
-
-# ------------------------------------------------------- PTX instructions
-def _prmt(lo, hi, sel):
-    """PTX prmt.b32, default mode, on int64 tensors of 32-bit values."""
-    v = (hi << 32) | lo
-    out = torch.zeros_like(sel)
-    for n in range(4):
-        s = (sel >> (4 * n)) & 15
-        b = (v >> (8 * (s & 7))) & 255
-        b = torch.where((s & 8) != 0, torch.where((b & 128) != 0, 255, 0), b)
-        out |= b << (8 * n)
-    return out
-
-
-def _dp4a(a, b, c):
-    """__dp4a on unsigned words: c + sum of the four byte products."""
-    for n in range(4):
-        c = c + ((a >> (8 * n)) & 255) * ((b >> (8 * n)) & 255)
-    return c & MASK32
-
-
-def _lane_maps():
-    """Flat source indices (lane, register, byte) of each matrix element of
-    the .u8 fragments, lane = 4 g + t (PTX ISA, mma.m16n8k32 / m16n8k16),
-    and (row, column) of each output register."""
-    r, k = torch.meshgrid(torch.arange(16), torch.arange(32), indexing="ij")
-    a32 = ((4 * (r % 8) + (k % 16) // 4) * 4 + (r // 8) + 2 * (k // 16)) * 4 \
-        + k % 4                                         # A [16, 32]
-    k, c = torch.meshgrid(torch.arange(32), torch.arange(8), indexing="ij")
-    b32 = ((4 * c + (k % 16) // 4) * 2 + k // 16) * 4 + k % 4  # B [32, 8]
-    r, k = torch.meshgrid(torch.arange(16), torch.arange(16), indexing="ij")
-    a16 = ((4 * (r % 8) + k // 4) * 2 + r // 8) * 4 + k % 4  # A [16, 16]
-    k, c = torch.meshgrid(torch.arange(16), torch.arange(8), indexing="ij")
-    b16 = (4 * c + k // 4) * 4 + k % 4                  # B [16, 8]
-    lane, x = torch.meshgrid(torch.arange(32), torch.arange(4), indexing="ij")
-    d = ((lane // 4 + 8 * (x // 2)) * 8 + 2 * (lane % 4) + x % 2)  # [32, 4]
-    return a32, b32, a16, b16, d
-
-
-A32, B32, A16, B16, D_OWN = _lane_maps()
-
-
-def _bytes(words):
-    """[..., R] 32-bit words -> [..., R * 4] bytes, little-endian."""
-    return torch.stack([(words >> (8 * b)) & 255 for b in range(4)],
-                       -1).flatten(-2)
-
-
-def _pack(tile, where):
-    """The registers [..., 32, R] whose bytes put ``tile``'s elements where
-    the map ``where`` (matrix element -> flat (lane, register, byte)) says."""
-    n = where.numel()
-    flat = torch.zeros(tile.shape[:-2] + (n,), dtype=torch.int64)
-    flat[..., where.flatten()] = tile.flatten(-2)
-    b = flat.reshape(tile.shape[:-2] + (32, n // 128, 4))
-    return sum(b[..., i] << (8 * i) for i in range(4))
-
-
-def _matrix(regs, where):
-    """The matrix the registers [..., 32, R] hold, through ``where``."""
-    return _bytes(regs).flatten(-2)[..., where]
-
-
-def _mma(a_regs, b_regs, c, a_map, b_map):
-    """d = a x b + c from registers: A [..., 16, k], B [..., k, 8] read off
-    the lanes, the s32 product handed back by output ownership."""
-    A = _matrix(a_regs, a_map).double()
-    B = _matrix(b_regs, b_map).double()
-    D = (A @ B).to(torch.int64) + c
-    return D.flatten(-2)[..., D_OWN]                    # [..., 32, 4]
 
 
 # ------------------------------------------------------------ the kernel

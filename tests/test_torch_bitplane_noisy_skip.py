@@ -30,16 +30,16 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from bitplane_lanes import tier3_decode
 from repro_torch.core.rbl import rbl_voltage_physics
 from repro_torch.kernels.bitplane_mac import ops
 from repro_torch.kernels.bitplane_mac.ops import (SKIP_PAD,
                                                   bitplane_mac_noisy_torch,
                                                   noisy_skip_tables,
                                                   physics_thresholds)
-from repro_torch.kernels.common import (INV_2_24, U1_GRID, bits_to_uniform,
-                                        box_muller, cos_2pi_f32,
-                                        decode_counts_noisy, element_normals,
-                                        philox4x32_10, radius, seed_words)
+from repro_torch.kernels.common import (INV_2_24, U1_GRID, box_muller,
+                                        cos_2pi_f32, decode_counts_noisy,
+                                        radius, seed_words)
 
 ZMAX = radius(U1_GRID - 1)
 SIGMAS = [(0.05, 0.0), (0.3, 0.0), (1.0, 0.0), (0.05, 0.03), (0.3, 0.03),
@@ -264,7 +264,6 @@ def emulate(ua, uw, seed, thr, bits_a, bits_w, rows, ms, cs):
     a = F.pad(ua.to(torch.int64), (0, g * rows - kdim)).reshape(m, g, rows)
     w = F.pad(uw.to(torch.int64), (0, 0, 0, g * rows - kdim)).reshape(
         g, rows, -1)
-    reach = _f32(cs) * ZMAX if cs else torch.zeros(())
     out = torch.zeros((m, w.shape[-1]), dtype=torch.int64)
     tier3 = full = total = 0
     for p in range(bits_a):
@@ -273,32 +272,9 @@ def emulate(ua, uw, seed, thr, bits_a, bits_w, rows, ms, cs):
             dec = dec0[k].to(torch.int64)
             sel = need[k]
             gi, mi, ni = sel.nonzero(as_tuple=True)
-            kk = k[sel].to(torch.float32)
-            pair = p * bits_w + q
-            if cs:
-                if ms:
-                    z0 = element_normals(key, ni, mi, gi, pair, [0])[0]
-                    kk = kk + (ms * torch.sqrt(kk)) * z0
-                v = rbl_voltage_physics(kk, rows=rows)
-                z = element_normals(key, ni, mi, gi, pair,
-                                    range(1, rows + 1))
-                got = torch.zeros_like(kk, dtype=torch.int64)
-                for i in range(rows):
-                    fires = (thr[i] - reach) >= v
-                    quiet = (thr[i] + reach) < v
-                    drawn = ~(fires | quiet)
-                    got += fires | (drawn & (v <= thr[i] + cs * z[i]))
-                full += int(sel.sum())
-            else:
-                words = philox4x32_10((ni, mi, gi, torch.tensor(pair) << 8),
-                                      key)
-                keep = (words[0] >> 8) < cut[k[sel]]
-                z = box_muller(bits_to_uniform(words[0]),
-                               bits_to_uniform(words[1]))
-                full_dec = _decode(kk, thr, rows, ms, 0.0, z, None)
-                got = torch.where(keep, dec0[k[sel]].to(torch.int64),
-                                  full_dec.to(torch.int64))
-                full += int((~keep).sum())
+            got, n_full = tier3_decode(key, ni, mi, gi, p * bits_w + q,
+                                       k[sel], thr, rows, ms, cs, dec0, cut)
+            full += n_full
             dec[sel] = got
             out += dec.sum(0) << (p + q)
             tier3 += int(sel.sum())

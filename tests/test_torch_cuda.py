@@ -53,6 +53,7 @@ from repro_torch.kernels.bitplane_mac.ops import (bitplane_kernel,
                                                   bitplane_mac_noisy,
                                                   bitplane_mac_noisy_torch,
                                                   bitplane_mac_torch,
+                                                  bitplane_noisy_kernel,
                                                   physics_thresholds)
 from repro_torch.kernels.common import U1_GRID, radius
 from repro_torch.kernels.flash_attn.ops import (flash_attention,
@@ -500,11 +501,50 @@ def test_bitplane_mac_noisy_bit_exact(hopper, noise, m, k, n, bits_a, bits_w,
                        dtype=torch.int32)
     kw = dict(bits_a=bits_a, bits_w=bits_w, rows=rows, **NOISE[noise])
     before = bitplane_mac_noisy.launches
+    before_mma = bitplane_mac_noisy.mma_launches
     out = bitplane_mac_noisy(ua, uw, 11, **kw)
     torch.cuda.synchronize()
     assert bitplane_mac_noisy.launches == before + 1
+    tc = bitplane_noisy_kernel(m, bits_a, bits_w, rows) == \
+        "bitplane_mac_noisy_mma_kernel"
+    assert bitplane_mac_noisy.mma_launches == before_mma + int(tc)
     assert torch.equal(out, bitplane_mac_noisy_torch(ua, uw, 11, **kw))
     assert torch.equal(out, bitplane_mac_noisy(ua, uw, 11, **kw))
+
+
+@pytest.mark.parametrize("noise", list(NOISE) + ["mismatch 0.3"])
+@pytest.mark.parametrize("m,k,n,thr_kind,fill", [
+    (41, 768, 768, "calibrated", None), (47, 768, 256, "calibrated", None),
+    (65, 1030, 129, "calibrated", None), (100, 300, 200, "detuned", None),
+    (64, 768, 768, "detuned", None), (64, 768, 256, "calibrated", 255),
+    (41, 300, 72, "detuned", 255), (512, 768, 256, "calibrated", None)])
+def test_bitplane_mac_noisy_mma_bit_exact(hopper, noise, m, k, n, thr_kind,
+                                          fill):
+    """The tensor-core noisy kernel (rows 8, 8 x 8 bits, M >= 9) against
+    its plain version, bit for bit, by the launcher's report: ragged M, K
+    (a partial group, a partial k-step) and N, calibrated / stress /
+    comparator-only sigmas and mismatch 0.3, a detuned thr, dense 255
+    operands (every count 8)."""
+    g = torch.Generator(device=hopper).manual_seed(m * 7 + k + n)
+    if fill is None:
+        ua = torch.randint(0, 256, (m, k), generator=g, device=hopper,
+                           dtype=torch.int32)
+        uw = torch.randint(0, 256, (k, n), generator=g, device=hopper,
+                           dtype=torch.int32)
+    else:
+        ua = torch.full((m, k), fill, device=hopper, dtype=torch.int32)
+        uw = torch.full((k, n), fill, device=hopper, dtype=torch.int32)
+    good = physics_thresholds(8, hopper)
+    thr = good if thr_kind == "calibrated" else torch.cat(
+        [torch.tensor([1.9], device=hopper), good[:-1]])
+    kw = dict(mismatch_sigma=0.3) if noise == "mismatch 0.3" else NOISE[noise]
+    assert bitplane_noisy_kernel(m, 8, 8, 8) == "bitplane_mac_noisy_mma_kernel"
+    before = bitplane_mac_noisy.mma_launches
+    out = bitplane_mac_noisy(ua, uw, 11, thr, **kw)
+    torch.cuda.synchronize()
+    assert bitplane_mac_noisy.mma_launches == before + 1
+    assert torch.equal(out, bitplane_mac_noisy_torch(ua, uw, 11, thr, **kw))
+    assert torch.equal(out, bitplane_mac_noisy(ua, uw, 11, thr, **kw))
 
 
 def test_bitplane_mac_noisy_seeds_sigma0_and_detuned(hopper):
@@ -836,6 +876,35 @@ def test_bitplane_mac_noisy_reads_its_seed_from_device_memory(hopper):
         assert torch.equal(out, bitplane_mac_noisy(ua, uw, seed, **kw))
     with pytest.raises(ValueError, match="seed row"):
         bitplane_mac_noisy(ua, uw, row.to(torch.int64), **kw)
+
+
+def test_bitplane_mac_noisy_mma_graph_reads_its_seed_row(hopper):
+    """The tensor-core kernel (a bucket-64 prefill's projection) captured
+    once: each replay draws the stream of the words written to its seed row
+    before it, as an eager call with that seed does."""
+    from repro_torch.kernels.common import seed_row
+
+    g = torch.Generator(device=hopper).manual_seed(22)
+    ua = torch.randint(0, 256, (64, 768), generator=g, device=hopper)
+    uw = torch.randint(0, 256, (768, 512), generator=g, device=hopper)
+    kw = dict(mismatch_sigma=0.3)
+    row = seed_row(5, hopper)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bitplane_mac_noisy(ua, uw, row, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = bitplane_mac_noisy.mma_launches
+    with torch.cuda.graph(graph):
+        out = bitplane_mac_noisy(ua, uw, row, **kw)
+    assert bitplane_mac_noisy.mma_launches == before + 1
+    for seed in (5, 6, 5):
+        row.copy_(seed_row(seed, hopper))
+        graph.replay()
+        want = bitplane_mac_noisy_torch(ua, uw, seed, **kw)
+        assert torch.equal(out, want)
+        assert torch.equal(out, bitplane_mac_noisy(ua, uw, seed, **kw))
 
 
 @pytest.mark.parametrize("mode", ["exact", "noisy"])

@@ -391,6 +391,8 @@ def test_device_counts_read_profiler_kernel_names():
          "char const*)", 3),
         ("void (anonymous namespace)::bitplane_mac_noisy_kernel<4>("
          "unsigned char const*)", 5),
+        ("(anonymous namespace)::bitplane_mac_noisy_mma_kernel(unsigned char"
+         " const*)", 7),
         ("void at::native::elementwise_kernel<128, 2, at::native::"
          "gpu_kernel_impl_nocast<float>>(int)", 40),
         ("Memcpy HtoD (Pinned -> Device)", 2)]
@@ -398,7 +400,8 @@ def test_device_counts_read_profiler_kernel_names():
     want = dict.fromkeys(launches.read(), 0)
     want.update(imc_mac=72, imc_mac_split=72, imc_mac_dequant=2,
                 imc_mac_dequant_tiled=2, paged_attn=12, paged_attn_split=12,
-                bitplane_mac=3, bitplane_mac_noisy=5)
+                bitplane_mac=3, bitplane_mac_noisy=12,
+                bitplane_mac_noisy_mma=7)
     assert got == want
 
 
